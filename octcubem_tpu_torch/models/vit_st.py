@@ -1,0 +1,213 @@
+"""Spatiotemporal 3D ViT classifiers (counterpart of
+octcubem_tpu/models/vit_st.py), with the reference quirks that
+checkpoint-output parity needs:
+
+- flash parity: the final feature is the last block's MLP branch, with
+  no final residual add (``parity="flash"``);
+- the dropout head with global pool feeds the un-normed pooled feature
+  to the head; ``norm``'s parameters are still kept, so reference
+  state dicts load strictly.
+
+Parameter names are the reference PyTorch ones (``patch_embed.proj.weight``
+[D, C, t, p, p], ``blocks.{i}.mixer.Wqkv.weight`` [out, in], ...).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.device import resolve_device
+from ..nn.layers import Dense, LayerNorm, TransformerStack, dropout
+from ..nn.patch_embed import PatchEmbed3D
+
+
+class VisionTransformerST(nn.Module):
+    """3D tube-patch ViT with separable spatial/temporal pos embeds.
+    Input [B, T, H, W, C] channel-last, as in the JAX package."""
+
+    def __init__(self, num_frames: int, t_patch_size: int = 3,
+                 img_size: int = 256, patch_size: int = 16,
+                 in_chans: int = 1, num_classes: int = 16,
+                 embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop_path_rate: float = 0.0, dropout: float = 0.5,
+                 sep_pos_embed: bool = True, cls_embed: bool = True,
+                 global_pool: bool = True, head_type: str = "aggregate",
+                 high_res_input_size: int | None = None,
+                 parity: str = "flash", capture_cam: bool = False,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 remat: bool = False, quant: bool = False):
+        super().__init__()
+        for flag, item, what in (
+                (high_res_input_size is not None, "A3",
+                 "high_res_input_size (bicubic pos-embed resize)"),
+                (capture_cam, "A10", "capture_cam (saliency)"),
+                (remat, "A4", "remat"),
+                (quant, "A10", "quant (int8 serving)")):
+            if flag:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP {item})")
+        if head_type not in ("aggregate", "dropout"):
+            raise ValueError(f"unknown head_type {head_type!r}")
+        self.num_frames, self.t_patch_size = num_frames, t_patch_size
+        self.patch_size = patch_size
+        self.sep_pos_embed, self.cls_embed = sep_pos_embed, cls_embed
+        self.global_pool, self.head_type = global_pool, head_type
+        self.dropout = dropout
+
+        self.patch_embed = PatchEmbed3D(img_size, patch_size, in_chans,
+                                        embed_dim, num_frames, t_patch_size,
+                                        dtype=dtype)
+        t_grid = num_frames // t_patch_size
+        grid = img_size // patch_size
+        if cls_embed:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        if sep_pos_embed:
+            self.pos_embed_spatial = nn.Parameter(
+                torch.zeros(1, grid * grid, embed_dim))
+            self.pos_embed_temporal = nn.Parameter(
+                torch.zeros(1, t_grid, embed_dim))
+            if cls_embed:
+                self.pos_embed_class = nn.Parameter(
+                    torch.zeros(1, 1, embed_dim))
+        else:
+            n = grid * grid * t_grid + (1 if cls_embed else 0)
+            self.pos_embed = nn.Parameter(torch.zeros(1, n, embed_dim))
+        self.blocks = TransformerStack(
+            depth, embed_dim, num_heads, mlp_ratio, qkv_bias, drop_path_rate,
+            dtype=dtype, attn_impl=attn_impl, parity=parity)
+        self.norm = LayerNorm(embed_dim)
+        if head_type == "aggregate":
+            self.fc_aggregate_cls = Dense(embed_dim, embed_dim,
+                                          compute_dtype=dtype)
+            self.aggregate_cls_norm = LayerNorm(embed_dim)
+        self.head = Dense(embed_dim, num_classes, compute_dtype=dtype)
+
+    def _pos_embed(self, input_grid: int) -> torch.Tensor:
+        if not self.sep_pos_embed:
+            return self.pos_embed
+        # the stored grid is the input grid: a different one comes only
+        # with high_res_input_size, which the constructor refuses
+        spat = self.pos_embed_spatial
+        l = input_grid ** 2
+        t_grid = self.num_frames // self.t_patch_size
+        # tokens are (t, h, w): the spatial table tiles over t, the
+        # temporal one repeats over h*w
+        pos = (spat.repeat(1, t_grid, 1)
+               + torch.repeat_interleave(self.pos_embed_temporal, l, dim=1))
+        if self.cls_embed:
+            pos = torch.cat([self.pos_embed_class, pos], dim=1)
+        return pos
+
+    def forward_features(self, x, generator: torch.Generator | None = None):
+        """x: [B, T, H, W, C] -> pooled feature [B, D] (pre-head)."""
+        input_grid = x.shape[2] // self.patch_size
+        x = self.patch_embed(x)
+        b, t, l, d = x.shape
+        x = x.reshape(b, t * l, d)
+        if self.cls_embed:
+            cls = self.cls_token.to(x.dtype).expand(b, 1, d)
+            x = torch.cat([cls, x], dim=1)
+        x = x + self._pos_embed(input_grid).to(x.dtype)
+        x = self.blocks(x, generator)
+        if self.global_pool:
+            start = 1 if self.cls_embed else 0
+            pooled = x[:, start:, :].mean(dim=1)
+            if self.head_type == "aggregate":
+                pooled = self.norm(pooled)
+            # dropout head: the reference computes norm(pooled) into an
+            # unused variable and heads the raw pooled feature
+        elif self.head_type == "aggregate":
+            pooled = self.norm(x)[:, 0]
+        else:
+            pooled = x[:, 0]
+        return pooled
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        """x: [B, T, H, W, C] -> logits [B, num_classes] in the compute
+        dtype.  ``generator`` draws drop-path and head-dropout masks in
+        training mode."""
+        feat = self.forward_features(x, generator)
+        if self.head_type == "aggregate":
+            out = self.aggregate_cls_norm(self.fc_aggregate_cls(feat))
+            return self.head(F.gelu(out))
+        if self.dropout > 0 and self.training:
+            feat = dropout(feat, self.dropout, generator)
+        return self.head(feat)
+
+
+# ---- constructor registry (reference models_*.__dict__[name] pattern) ----
+
+def vit_base_patch16(**kw) -> VisionTransformerST:
+    kw.setdefault("num_heads", 12)
+    return VisionTransformerST(patch_size=16, embed_dim=768, depth=12, **kw)
+
+
+def vit_large_patch16(**kw) -> VisionTransformerST:
+    # num_heads is overridable: the attention params are [3D, D] / [D, D]
+    # whatever the head count
+    kw.setdefault("num_heads", 16)
+    return VisionTransformerST(patch_size=16, embed_dim=1024, depth=24, **kw)
+
+
+flash_attn_vit_large_patch16 = vit_large_patch16
+
+
+def vit_huge_patch14(**kw) -> VisionTransformerST:
+    kw.setdefault("num_heads", 16)
+    return VisionTransformerST(patch_size=14, embed_dim=1280, depth=32, **kw)
+
+
+# ---- seeded initialisation (the flax initialisers' distributions) ----
+
+def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator):
+    """Normal(0, std) truncated to +-2 std, by the inverse CDF."""
+    lo = 0.5 * (1 + math.erf(-2 / math.sqrt(2)))
+    hi = 0.5 * (1 + math.erf(2 / math.sqrt(2)))
+    t.uniform_(2 * lo - 1, 2 * hi - 1, generator=g)
+    t.erfinv_().mul_(std * math.sqrt(2)).clamp_(-2 * std, 2 * std)
+
+
+@torch.no_grad()
+def init_params(model: VisionTransformerST, generator: torch.Generator):
+    """Seeded random weights with flax's default distributions: lecun
+    truncated-normal Dense kernels, xavier-uniform patch kernel,
+    N(0, 0.02) head, truncated N(0, 0.02) pos embeds, zero cls token and
+    biases, unit LayerNorm scales."""
+    for name, p in model.named_parameters():
+        if name.endswith("bias") or name == "cls_token":
+            p.zero_()
+        elif name == "patch_embed.proj.weight":
+            fan_in, fan_out = p[0].numel(), p.shape[0]
+            lim = math.sqrt(6.0 / (fan_in + fan_out))
+            p.uniform_(-lim, lim, generator=generator)
+        elif name == "head.weight":
+            p.normal_(0.0, 0.02, generator=generator)
+        elif name.startswith("pos_embed"):
+            _trunc_normal_(p, 0.02, generator)
+        elif p.ndim == 1:  # LayerNorm scale
+            p.fill_(1.0)
+        else:  # Dense kernel [out, in]: lecun normal, truncated at 2 std
+            _trunc_normal_(p, p.shape[1] ** -0.5 / 0.87962566103423978,
+                           generator)
+
+
+def create_model(ctor=vit_large_patch16, device=None, seed: int = 0,
+                 state_dict=None, **kw) -> VisionTransformerST:
+    """Build ``ctor(**kw)`` on ``device`` (default cuda) in eval mode,
+    with ``state_dict`` loaded strictly or, when None, seeded random
+    weights.  The model is built on the meta device first, so no
+    throw-away default initialisation runs."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = ctor(**kw)
+    model.to_empty(device=dev)
+    if state_dict is None:
+        init_params(model, torch.Generator(device=dev).manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    return model.eval()

@@ -1,0 +1,154 @@
+"""Transformer building blocks (counterpart of octcubem_tpu/nn/layers.py).
+
+Parameter names follow the reference flash-attn block state dict
+(blocks.i.{norm1, mixer.Wqkv, mixer.out_proj, norm2, mlp.fc1, mlp.fc2}),
+so reference checkpoints and ``compat.jax_params.state_dict_from_jax``
+load with ``load_state_dict(strict=True)``.
+
+The dtype flow is the flax one: LayerNorms compute and return fp32;
+every Dense casts its input, weight and bias to the compute dtype; the
+residual stream stays in the compute dtype.  ``Block`` returns
+``(hidden, mlp_branch)``: with ``parity="flash"`` the stack's final
+feature is the last block's MLP branch, without the final residual add
+(the reference flash-attn two-stream block).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import multi_head_attention_qkv
+
+LN_EPS = 1e-6
+
+
+class Dense(nn.Linear):
+    """nn.Linear that casts input, weight and bias to ``compute_dtype``
+    (flax ``nn.Dense(dtype=...)``); the parameters stay fp32."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics and fp32 output (flax
+    ``nn.LayerNorm(dtype=float32)``)."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps)
+
+
+def dropout(x, rate: float, generator: torch.Generator | None = None,
+            shape: tuple[int, ...] | None = None):
+    """Inverted dropout drawing its mask, of ``shape`` (broadcast over x;
+    default x's shape), from ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.rand(shape or x.shape, generator=generator,
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth on a residual branch; active only in
+    training mode."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if self.rate == 0.0 or not self.training:
+            return x
+        return dropout(x, self.rate, generator,
+                       shape=(x.shape[0],) + (1,) * (x.ndim - 1))
+
+
+class Mlp(nn.Module):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Dense(in_dim, hidden_dim, compute_dtype=dtype)
+        self.fc2 = Dense(hidden_dim, out_dim, compute_dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))  # exact erf GELU
+
+
+class MHA(nn.Module):
+    """Fused-QKV multi-head attention ('mixer' in flash-attn naming)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn_impl = attn_impl
+        self.Wqkv = Dense(dim, 3 * dim, bias=qkv_bias, compute_dtype=dtype)
+        self.out_proj = Dense(dim, dim, compute_dtype=dtype)
+
+    def forward(self, x):
+        qkv = self.Wqkv(x)
+        out = multi_head_attention_qkv(qkv, self.num_heads,
+                                       impl=self.attn_impl)
+        return self.out_proj(out)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block; returns (hidden, mlp_branch)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = LayerNorm(dim)
+        self.mixer = MHA(dim, num_heads, qkv_bias, dtype, attn_impl)
+        self.drop_path1 = DropPath(drop_path)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
+        self.drop_path2 = DropPath(drop_path)
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        a = self.mixer(self.norm1(x).to(self.dtype))
+        x = x + self.drop_path1(a, generator)
+        m = self.drop_path2(self.mlp(self.norm2(x).to(self.dtype)), generator)
+        return x + m, m
+
+
+class TransformerStack(nn.ModuleList):
+    """Blocks with linearly increasing drop-path and the final-feature
+    selection: parity='flash' -> the last block's MLP branch (released
+    flash-attn checkpoints), parity='standard' -> the full hidden state.
+    Children are named 0..depth-1, so keys read blocks.{i}.*."""
+
+    def __init__(self, depth: int, dim: int, num_heads: int,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop_path_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 parity: str = "flash"):
+        if parity not in ("flash", "standard"):
+            raise ValueError(f"unknown parity {parity!r}")
+        dpr = ([drop_path_rate * i / (depth - 1) for i in range(depth)]
+               if depth > 1 else [0.0])
+        super().__init__([
+            Block(dim, num_heads, mlp_ratio, qkv_bias, dpr[i], dtype,
+                  attn_impl) for i in range(depth)])
+        self.parity = parity
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        m = x
+        for blk in self:
+            x, m = blk(x, generator)
+        return m if self.parity == "flash" else x

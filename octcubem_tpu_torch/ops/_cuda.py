@@ -1,0 +1,143 @@
+"""Build-at-first-use loader for the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
+with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
+so a build takes seconds).  Libraries are named by a hash of the sources
+and flags, so an edit rebuilds and an unchanged tree reuses the earlier
+build.  They go to ``$OCTCUBEM_TPU_TORCH_BUILD`` when that is set, else to
+``build/octcubem_tpu_torch/`` at the root of a checkout, else (an
+installed package, whose directory may be read-only) to
+``octcubem_tpu_torch/`` under ``$XDG_CACHE_HOME`` or ``~/.cache``.
+Nothing here runs at import: the CPU tests import every module on a
+machine with no ``nvcc``.
+
+``launches`` counts kernel launches per library; a wrapper adds one
+exactly where it launches its kernel, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_ROOT = Path(__file__).resolve().parents[2]
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# library name -> (source file, {exported C function: (argtypes, restype)})
+KERNELS = {
+    "flash_fwd_packed": ("flash_fwd_packed.cu", {
+        # q, k, v, kc, vc, o, lse, B, H, n, D, row_stride, batch_stride,
+        # o_row_stride, o_batch_stride, scale, is_bf16, stream
+        "octcube_flash_fwd_packed": ([_P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _L, _L, _L, _L,
+                                      _F, _I, _P], ctypes.c_int),
+        "octcube_error_string": ([_I], ctypes.c_char_p),
+    }),
+}
+
+launches: dict[str, int] = {name: 0 for name in KERNELS}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (looked on PATH and in "
+                       "$CUDA_HOME/bin, default /usr/local/cuda/bin)")
+
+
+def build_dir() -> Path:
+    """Where the libraries are built (see the module docstring)."""
+    if env := os.environ.get("OCTCUBEM_TPU_TORCH_BUILD"):
+        return Path(env)
+    if (_ROOT / "pyproject.toml").is_file():
+        return _ROOT / "build" / "octcubem_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "octcubem_tpu_torch"
+
+
+def lib_path(name: str) -> Path:
+    """Where the library of ``name`` is built: keyed on the source, every
+    header under csrc/ and the flags."""
+    src, _ = KERNELS[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / src] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> Path:
+    """nvcc's output (ptxas registers, shared memory, spills) of the last
+    build of ``name``."""
+    return lib_path(name).with_suffix(".log")
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile every library in ``names`` (default all) that is not built
+    yet, one nvcc process per source, all started together.  nvcc's output
+    is kept beside each library (``build_log``)."""
+    names = list(KERNELS) if names is None else list(names)
+    todo = [name for name in names if not lib_path(name).exists()]
+    if todo:
+        build_dir().mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        build_log(name).write_text(text)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{text}")
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {name: lib_path(name) for name in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``name``, built first if needed, with the C
+    signatures of ``KERNELS[name]``."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, (argtypes, restype) in KERNELS[name][1].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = restype
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if err != 0:
+        msg = lib.octcube_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,79 @@
+"""Where the serving forward's time goes: entry()'s ViT-L 48x256x256 bf16
+forward under torch.profiler, on one card.
+
+    python -m octcubem_tpu_torch.scripts.profile_forward [--iters 5]
+
+Prints the card's name and power limit, the wall time per forward (host
+clock around forwards that end in a synchronize), the device-busy time
+per forward (the sum of kernel times: one stream, so they do not
+overlap), the idle share 1 - busy / wall, and the kernels by device time
+per forward.  ``--trace PATH`` also writes a Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("--trace", default=None)
+    args = parser.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..entry import entry
+
+    if not torch.cuda.is_available():
+        print("profile_forward: no CUDA device", file=sys.stderr)
+        return 2
+    fn, (model, x) = entry()
+    for _ in range(2):
+        fn(model, x)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        fn(model, x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.iters):
+            fn(model, x)
+        torch.cuda.synchronize()
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()]
+    kernels = sorted((r for r in rows if r[2] > 0 and not r[0].startswith("aten::")),
+                     key=lambda r: -r[2])
+    busy_ms = sum(r[2] for r in kernels) / 1e3 / args.iters
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip())
+    print(json.dumps({"wall_ms_per_forward": wall_ms,
+                      "device_busy_ms_per_forward": busy_ms,
+                      "idle_share": 1.0 - busy_ms / wall_ms}))
+    for key, count, us in kernels[:args.top]:
+        print(f"{us / 1e3 / args.iters:9.4f} ms/fwd  {count // args.iters:5d}/fwd  "
+              f"{key[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
