@@ -8,14 +8,25 @@ Phases, each fatal on failure (no phase's error is caught):
   2. build every CUDA kernel from csrc/ (nvcc, one process per source);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main path and its neighbours give it, bf16 and fp32,
-     plus a large-logit case, within stated tolerances;
-  4. the main path: entry()'s ViT-L 48x256x256 bf16 forward, its launch
-     counts, finite [1, 16] logits that agree with the same model run
-     with impl="naive";
+     plus a large-logit case, within stated tolerances: B1 (forward) and
+     B2 (backward);
+  4. the serving path: entry()'s ViT-L 48x256x256 bf16 forward, its
+     launch counts, finite [1, 16] logits that agree with the same model
+     run with impl="naive";
   5. serving: cli/serve.py's server in a thread with the ViT-L model,
      /healthz and four /predict requests;
-  6. timings with CUDA events (kernel, plain version, a PyTorch library
-     yardstick, the bound, the forward), then one {"kernels": [...]} line.
+  6. the training path: train_entry()'s ViT-L 3D MAE step (60x256x256,
+     mask 0.90, batch 4, bf16, fused AdamW) with both decoder geometries,
+     three steps each: finite loss and grad norm, 32 B1 and 32 B2 launches
+     per step, params unchanged by the first update (its LR is 0) and
+     changed by the next two, peak device memory;
+  7. flash against impl="naive" under autograd: the same ViT-L MAE cut to
+     2 + 2 blocks at batch 2 (512 and 5,121 tokens), loss and per-leaf
+     gradients, fp32 and bf16;
+  8. B1 and B2 at the step's shapes (B=4, bf16) laid out as the step lays
+     them out, against their plain versions; timings with CUDA events
+     (kernel, plain version, a PyTorch library yardstick, the bound; the
+     forward and the step), then one {"kernels": [...]} line.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -44,6 +55,14 @@ PEAK_BYTES = 3.35e12
 # 2^-7 relative; allow two, plus an absolute floor for values near 0.
 TOL_O = {"float32": (5e-5, 0.0), "bfloat16": (2 ** -8, 2 ** -6)}
 TOL_LSE = 1e-4  # fp32 statistics on both sides
+# B2 kernel-vs-plain, |d| <= tol * max|plain| per output:
+# fp32: the JAX kernel-gradient tolerance (tests/test_flash_attention.py);
+# the sums run over up to 5,121 terms in another order.
+# bf16: each output is rounded to bf16 on both sides (2^-9 relative), and
+# p and ds are rounded to bf16 before their products on both sides, so a
+# score whose fp32 value differs in the last bit may round the other way;
+# allow one bf16 step of the largest gradient, 2^-8, twice over.
+TOL_GRAD = {"float32": 5e-4, "bfloat16": 2 ** -7}
 # the ViT-L logits, flash (fixed shift, unnormalised bf16 p) vs naive
 # (exact softmax, normalised bf16 p) through 24 bf16 blocks.  Measured on an
 # H100 at 700 W with seeded weights: 7.8e-3 (first kernel version) and
@@ -84,6 +103,7 @@ def check_flash_fwd(torch, fa):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(4097, 16, 64, 1.0), (4097, 8, 128, 1.0), (1025, 32, 32, 1.0),
              (513, 4, 256, 1.0), (4000, 16, 64, 1.0),
+             (512, 16, 64, 1.0),  # the MAE encoder's: 511 + cls, no fold
              (4097, 16, 64, 40.0)]  # q scaled: most logits above the clamp
     vitl_err = None
     for n, h, d, qmul in cases:
@@ -112,6 +132,49 @@ def check_flash_fwd(torch, fa):
             if (n, h, d, qmul, dtype) == (4097, 16, 64, 1.0, torch.bfloat16):
                 vitl_err = do.max().item()
     return vitl_err
+
+
+def check_flash_bwd(torch, fa):
+    """Phase 3, B2: against its plain version at B=1 on B1's own (o, lse),
+    with a random dO and g_lse.  (Phase 8 holds it at B=4, as the training
+    step lays it out.)"""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [(5121, 16, 32, 1.0), (5121, 4, 128, 1.0),  # the decoder's
+             (512, 16, 64, 1.0),  # the encoder's: 511 + cls, no fold
+             (4000, 16, 64, 1.0), (1025, 8, 128, 1.0), (513, 4, 256, 1.0),
+             (1025, 8, 128, 40.0)]  # q scaled: most logits above the clamp
+    for n, h, d, qmul in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn((1, n, 3 * h * d), generator=gen, device="cuda")
+            qkv[..., :h * d] *= qmul
+            qkv = qkv.to(dtype)
+            args = _kernel_args(qkv, h)
+            scale = d ** -0.5
+            o, lse = fa.fwd_packed_cuda(*args, h, scale)
+            do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+            g_lse = 0.1 * torch.randn(lse.shape, generator=gen, device="cuda")
+            got = fa.bwd_packed_cuda(*args, o, lse, do, g_lse, h, scale)
+            torch.cuda.synchronize()
+            ref = fa.bwd_packed_plain(*args, o, lse, do, g_lse, h, scale)
+            tol = TOL_GRAD[str(dtype).split(".")[1]]
+            errs, ok = {}, True
+            for name, a, b in zip(("dq", "dk", "dv", "dkc", "dvc"), got, ref):
+                if b is None:
+                    ok &= a is None
+                    continue
+                err = (a.float() - b.float()).abs().max().item()
+                errs[name] = err
+                ok &= (err <= tol * b.float().abs().max().item()
+                       and bool(torch.isfinite(a.float()).all()))
+            clamped = "" if qmul == 1.0 else " large-logit"
+            print(f"B2 n={n} H={h} D={d} {str(dtype)[6:]}{clamped} "
+                  f"cls={args[3] is not None}: max|d| "
+                  + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                  + f" (tol {tol:.1e} x max|plain|)")
+            if not ok:
+                raise AssertionError(f"B2 disagrees with its plain version "
+                                     f"at n={n} H={h} D={d} {dtype}")
+            del qkv, o, lse, do, got, ref
 
 
 def run_main_path(torch, _cuda, entry_mod):
@@ -232,6 +295,229 @@ def time_flash_fwd(torch, fa):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def mae_train_flops(d=1024, layers=24, dd=512, dlayers=8, frames=60,
+                    img=256, patch=16, tpatch=3, mask=0.90) -> float:
+    """Analytic FLOPs of one ViT-L 3D MAE train step per volume (fwd + bwd
+    = 3 x fwd): the port's copy of bench.py's mae_train_flops, which this
+    script may not import (bench.py imports JAX)."""
+    l_full = (frames // tpatch) * (img // patch) ** 2     # 5120
+    l_vis = int(l_full * (1 - mask)) + 1                  # 511 + cls
+    l_dec = l_full + 1
+    dense = (layers * 2 * l_vis * 12 * d * d + dlayers * 2 * l_dec * 12 * dd * dd
+             + 2 * l_full * (tpatch * patch * patch) * d
+             + 2 * l_dec * dd * (tpatch * patch * patch)
+             + 2 * l_dec * d * dd)
+    attn = layers * 4 * l_vis * l_vis * d + dlayers * 4 * l_dec * l_dec * dd
+    return 3.0 * (dense + attn)
+
+
+def run_train(torch, _cuda, entry_mod, optim):
+    """Phase 6: three MAE steps per decoder geometry, with their launch
+    counts, the LR-0 first update and peak memory; then the step's time.
+    Returns the B2 launches per step."""
+    b2_launches = None
+    for dec_heads in (16, 4):
+        torch.cuda.reset_peak_memory_stats()
+        step, state, x = entry_mod.train_entry(dec_heads=dec_heads, batch=4)
+        model, tx = state.params, state.tx
+        names = [n for n, _ in model.named_parameters()]
+        before = [p.detach().clone() for p in model.parameters()]
+        if tx.lr(0) != 0.0:
+            raise AssertionError(f"the schedule's first LR is {tx.lr(0)}")
+        for i in range(3):
+            _cuda.reset_launches()
+            state, m = step(state, x, mask_ratio=0.9)
+            torch.cuda.synchronize()
+            launches = dict(_cuda.launches)
+            loss, gn = m["loss"].item(), m["grad_norm"].item()
+            print(f"train dec_heads={dec_heads} step {i + 1}: loss {loss:.6f} "
+                  f"grad_norm {gn:.6f} lr {tx.lr(i):.4e} launches {launches}")
+            if not (math.isfinite(loss) and math.isfinite(gn)):
+                raise AssertionError("non-finite loss or grad norm")
+            if (launches["flash_fwd_packed"] != 32
+                    or launches["flash_bwd_packed"] != 32):
+                raise AssertionError(f"expected 32 B1 and 32 B2 launches per "
+                                     f"step (24 encoder + 8 decoder blocks), "
+                                     f"got {launches}")
+            b2_launches = launches["flash_bwd_packed"]
+            if i == 0 and not all(torch.equal(a, p) for a, p in
+                                  zip(before, model.parameters())):
+                raise AssertionError("params moved at the first update, "
+                                     "whose LR is 0")
+        decayed = optim.weight_decay_mask(model)
+        # the only params allowed to stay put: no gradient, no decay
+        free = {n for n, p in model.named_parameters()
+                if p.grad is None and not decayed[n]}
+        still = {n for n, a, p in zip(names, before, model.parameters())
+                 if torch.equal(a, p)}
+        print(f"train dec_heads={dec_heads}: {len(names) - len(still)} of "
+              f"{len(names)} params moved by steps 2-3; unmoved {sorted(still)}")
+        if still - free:
+            raise AssertionError(f"params did not move: {sorted(still - free)}")
+        del before
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = _elapsed_ms(lambda: step(state, x, mask_ratio=0.9), 5, 1)
+        flops = mae_train_flops() * x.shape[0]
+        bound = flops / PEAK_BF16_FLOPS * 1e3
+        print(f"train step dec_heads={dec_heads} (ViT-L 3D MAE, 60x256x256, "
+              f"mask 0.90, batch {x.shape[0]}, bf16): {ms:.3f} ms per step, "
+              f"{x.shape[0] / ms * 1e3:.3f} vol/s; bound {bound:.3f} ms "
+              f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
+              f"max_memory_allocated {peak:.2f} GiB")
+        del step, state, x, model, tx
+        torch.cuda.empty_cache()
+    return b2_launches
+
+
+# flash (B1 + B2) against impl="naive" under autograd, the MAE cut to 2 + 2
+# blocks: |dloss| / |loss| and max over leaves of max|dgrad| / max|grad|.
+# Measured on an H100 at 700 W with these seeds at batch 1: fp32 0 and
+# 1.27e-6 (limits: ~8 fp32 ulps for the loss, 2.5x for the gradients);
+# bf16 5.1e-6 and 9.0e-3 (limits ~2.5x).  At batch 2, as run here: fp32
+# 0 and 1.70e-6, bf16 4.7e-6 and 7.2e-3, all inside the same limits.
+TOL_NAIVE = {"float32": (1e-6, 3e-6), "bfloat16": (1.3e-5, 2.2e-2)}
+
+
+def check_flash_vs_naive(torch, entry_mod):
+    """Phase 7: the same weights, input and noise through the flash path
+    and impl="naive", fp32 and bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    noise = torch.rand((2, 5120), generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        _, state, x = entry_mod.train_entry(batch=2, depth=2, decoder_depth=2,
+                                            dtype=dtype)
+        model = state.params
+        mhas = [m for m in model.modules() if hasattr(m, "attn_impl")]
+        res = {}
+        for impl in ("auto", "naive"):
+            for m in mhas:
+                m.attn_impl = impl
+            model.zero_grad(set_to_none=True)
+            loss = model(x, 0.9, noise)[0]
+            loss.backward()
+            res[impl] = (loss.item(), {n: p.grad.clone() for n, p in
+                                       model.named_parameters()
+                                       if p.grad is not None})
+        (lf, gf), (ln, gn) = res["auto"], res["naive"]
+        dloss = abs(lf - ln) / abs(ln)
+        worst, leaf = max(((gf[n] - gn[n]).abs().max().item()
+                           / gn[n].abs().max().item(), n) for n in gn)
+        key = str(dtype).split(".")[1]
+        tl, tg = TOL_NAIVE[key]
+        print(f"flash vs naive {key} (2+2 blocks, 512 / 5,121 tokens): loss "
+              f"{lf:.6f} vs {ln:.6f}, rel {dloss:.3e} (tol {tl:.0e}); worst "
+              f"leaf {leaf} rel {worst:.3e} (tol {tg:.0e})")
+        if not (dloss <= tl and worst <= tg and set(gf) == set(gn)):
+            raise AssertionError(f"flash and naive MAE gradients disagree "
+                                 f"({key})")
+        del state, x, model, res, gf, gn
+        torch.cuda.empty_cache()
+
+
+def _check_main_path_shape(torch, fa, name, args, o, lse, do, out, h,
+                           scale):
+    """B1 and B2 at a main-path shape (B=4, bf16), laid out as the training
+    step lays them out, against their plain versions: q, k, v, kc, vc are
+    column views of the fused buffer, dO is autograd's [:, 1:] slice after
+    the cls concat, and B2 writes into the column views of one dqkv
+    buffer.  Returns the max |d| over B2's outputs."""
+    o_ref, lse_ref = fa.fwd_packed_plain(*args, h, scale)
+    do_o = (o.float() - o_ref.float()).abs()
+    atol, rtol = TOL_O["bfloat16"]
+    excess = (do_o - rtol * o_ref.float().abs()).max().item()
+    dlse = (lse - lse_ref).abs().max().item()
+    del o_ref, lse_ref
+    got = fa.bwd_packed_cuda(*args, o, lse, do, None, h, scale, out=out)
+    torch.cuda.synchronize()
+    ref = fa.bwd_packed_plain(*args, o, lse, do, None, h, scale)
+    tol = TOL_GRAD["bfloat16"]
+    errs, ok = {}, True
+    for key, a, b in zip(("dq", "dk", "dv", "dkc", "dvc"), got, ref):
+        if b is None:
+            ok &= a is None
+            continue
+        errs[key] = (a.float() - b.float()).abs().max().item()
+        ok &= (errs[key] <= tol * b.float().abs().max().item()
+               and bool(torch.isfinite(a.float()).all()))
+    print(f"B1 + B2 {name} B={o.shape[0]} bf16 as on the main path: "
+          f"B1 max|do|={do_o.max().item():.3e} max|dlse|={dlse:.3e}; B2 "
+          f"max|d| " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f" (tol {tol:.1e} x max|plain|)")
+    if not (excess <= atol and dlse <= TOL_LSE and ok):
+        raise AssertionError(f"B1 / B2 disagree with their plain versions "
+                             f"at the {name} shape, B={o.shape[0]}")
+    return max(errs.values())
+
+
+def time_flash_bwd(torch, fa):
+    """Phase 8, B2 at the encoder's and both decoder geometries' shapes
+    (B=4): first held against its plain version as the step lays it out
+    (with B1), then timed: kernel, plain version, the library yardstick
+    (SDPA forward + backward minus its forward, at the same [B, H, N, D])
+    and the bound.  Also B1's time at the decoder shape.  Returns the
+    reference decoder's row."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name, (b, n, h, d) in (("decoder h16", (4, 5121, 16, 32)),
+                               ("decoder h4", (4, 5121, 4, 128)),
+                               ("encoder", (4, 512, 16, 64))):
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        args = _kernel_args(qkv, h)
+        cls = args[3] is not None
+        scale = d ** -0.5
+        o, lse = fa.fwd_packed_cuda(*args, h, scale)
+        # autograd's dO: the gradient of the [B, n, H*D] attention output,
+        # rows 1: when the cls query row was concatenated in front
+        do = torch.randn((b, n, h * d), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        do = do[:, 1:] if cls else do
+        dqkv = torch.zeros_like(qkv)
+        out = _kernel_args(dqkv, h)
+        err = _check_main_path_shape(torch, fa, name, args, o, lse, do, out,
+                                     h, scale)
+        ms = _elapsed_ms(lambda: fa.bwd_packed_cuda(*args, o, lse, do, None,
+                                                    h, scale, out=out), 20)
+        fwd_ms = _elapsed_ms(lambda: fa.fwd_packed_cuda(*args, h, scale), 20)
+        plain_ms = _elapsed_ms(lambda: fa.bwd_packed_plain(
+            *args, o, lse, do, None, h, scale), 3, 1)
+        qh, kh, vh = (t.contiguous().requires_grad_() for t in
+                      qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+        g = torch.randn((b, h, n, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        sdpa_fwd = _elapsed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale), 20)
+        sdpa_all = _elapsed_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+            (qh, kh, vh), g), 20)
+        m = n - 1 if cls else n
+        keys = m + 1 if cls else m
+        es = qkv.element_size()
+        flops = 10 * b * h * m * keys * d
+        nbytes = (8 * b * m * h * d * es + b * h * m * 4
+                  + (4 * b * h * d * es if cls else 0))
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        row = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+               "library_ms": sdpa_all - sdpa_fwd,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        fwd_bound = 4 * b * h * m * keys * d / PEAK_BF16_FLOPS * 1e3
+        print(f"B2 timing {name} B={b} H={h} N={n} D={d} bf16: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd "
+              f"{row['library_ms']:.4f} ms (fwd+bwd {sdpa_all:.4f} - fwd "
+              f"{sdpa_fwd:.4f}), bound {row['bound_ms']:.4f} ms ({flops:.3e} "
+              f"FLOP -> {t_ops:.4f} ms; {nbytes:.3e} B -> {t_bytes:.4f} ms); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s achieved; B1 at this shape "
+              f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms)")
+        rows[name] = row
+        del qkv, args, o, lse, do, dqkv, out, qh, kh, vh, g
+        torch.cuda.empty_cache()
+    return rows["decoder h16"]
+
+
 def time_forward(torch, fn, model, x):
     ms = _elapsed_ms(lambda: fn(model, x), 20)
     n = 1 + x.shape[1] // 3 * (x.shape[2] // 16) ** 2
@@ -259,6 +545,7 @@ def main() -> int:
     from octcubem_tpu_torch.cli import serve
     from octcubem_tpu_torch.ops import _cuda
     from octcubem_tpu_torch.ops import flash_attention as fa
+    from octcubem_tpu_torch.train import optim
 
     # full-fp32 matmuls and convolutions for the fp32 comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -280,16 +567,26 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     err = check_flash_fwd(torch, fa)
+    check_flash_bwd(torch, fa)
     fn, model, x, launches = run_main_path(torch, _cuda, entry_mod)
     run_serve(torch, _cuda, serve)
     timing = time_flash_fwd(torch, fa)
     time_forward(torch, fn, model, x)
+    del fn, model, x
+    torch.cuda.empty_cache()
+    launches_bwd = run_train(torch, _cuda, entry_mod, optim)
+    check_flash_vs_naive(torch, entry_mod)
+    timing_bwd = time_flash_bwd(torch, fa)
 
     kernels = [{
         "name": "flash_fwd_packed", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_fwd_packed.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:859",
-        "launches": launches, "max_abs_err": err, **timing}]
+        "launches": launches, "max_abs_err": err, **timing}, {
+        "name": "flash_bwd_packed", "route": "cuda",
+        "source": "octcubem_tpu_torch/csrc/flash_bwd_packed.cu",
+        "replaces": "octcubem_tpu/ops/flash_attention.py:961",
+        "launches": launches_bwd, **timing_bwd}]
     for k in kernels:
         for key, val in k.items():
             if isinstance(val, float) and not math.isfinite(val):

@@ -41,14 +41,11 @@
 // Not yet: wgmma, TMA, warp specialisation; see PERF.md for how far
 // from the bound this leaves it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kShift = 16.0f;
-constexpr float kClamp = 40.0f;
+using namespace octcube;
 
 struct Params {
   const void* q;
@@ -82,75 +79,6 @@ struct Bf16Cfg {
   static constexpr int kStages = 2;  // K/V tiles in flight
   static constexpr int kSmem = (BM + kStages * 2 * BN) * LD * 2 + 2 * D * 4;
 };
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 rounded from fp32; lo in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
-// register i gets row lane/4, columns 2*(lane%4) and +1 of matrix i (of
-// its transpose with .trans): the mma.sync fragment layout
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* s, const void* g, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(s)),
-               "l"(g), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + R) of a [n, *] bf16 matrix (row stride rs, columns
-// [0, D) from g) into s with row stride LD, asynchronously; rows >= n are
-// zero
-template <int D, int R, int LD>
-__device__ __forceinline__ void async_tile(__nv_bfloat16* s,
-                                           const __nv_bfloat16* g,
-                                           long long rs, int row0, int n) {
-  constexpr int C = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < R * C; i += blockDim.x) {
-    const int r = i / C, c = (i % C) * 8;
-    const bool valid = row0 + r < n;
-    cp_async16(s + r * LD + c, valid ? g + (long long)(row0 + r) * rs + c : g,
-               valid);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)

@@ -1,11 +1,14 @@
-"""Entry point: the flagship ViT-L spatiotemporal classifier forward
-(counterpart of ``__graft_entry__.entry()``)."""
+"""Entry points: the flagship ViT-L spatiotemporal classifier forward
+(counterpart of ``__graft_entry__.entry()``) and the ViT-L 3D MAE
+pretraining step (the configuration of ``bench.py::measure``)."""
 
 from __future__ import annotations
 
 import torch
 
-from .models import vit_st
+from .models import mae3d, vit_st
+from .train import mae_engine, optim, schedules
+from .train.train_state import TrainState
 
 
 def entry(device=None):
@@ -28,3 +31,36 @@ def entry(device=None):
             return model(x)
 
     return fn, (model, x)
+
+
+def train_entry(device=None, dec_heads: int = 16, batch: int = 4,
+                **model_kw):
+    """-> (step, state, x): ``step(state, x, mask_ratio=0.9)`` is one MAE
+    pretraining step (forward, backward, fused AdamW) of the ViT-L 3D MAE
+    at full width and depth: encoder 1024 wide, 24 blocks, 16 heads of 64;
+    decoder 512 wide, 8 blocks, ``dec_heads`` heads (16 of 32, the
+    reference geometry, or 4 of 128); bf16 compute with fp32 params; the
+    spatial pos embeds stored at the 512 grid.  AdamW betas (0.9, 0.95),
+    weight decay 0.05, LR warmup_half_cosine(1.6e-3, 0, 1, 50, 1000).  x is
+    ``batch`` seeded-normal 60x256x256 volumes; weights are seeded random.
+    ``model_kw`` overrides model arguments (e.g. depth).  Runs on the card
+    unless ``device="cpu"``."""
+    # flash_attn_mae_vit_large_patch16's widths, spelled out so that
+    # model_kw may cut the depth
+    kw = dict(patch_size=16, embed_dim=1024, depth=24, decoder_embed_dim=512,
+              decoder_depth=8, num_frames=60, t_patch_size=3,
+              pred_t_dim=60, input_size=256,
+              high_res_input_size=512, in_chans=1, dtype=torch.bfloat16,
+              attn_impl="auto", num_heads=16, decoder_num_heads=dec_heads)
+    kw.update(model_kw)
+    model = mae3d.create_model(mae3d.MaskedAutoencoderViT3D, device=device,
+                               seed=1, **kw)
+    dev = model.cls_token.device
+    x = torch.randn((batch, kw["num_frames"], kw["input_size"],
+                     kw["input_size"], 1),
+                    generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    sched = schedules.warmup_half_cosine(1.6e-3, 0.0, 1, 50, 1000)
+    tx = optim.build_adamw(model, sched, weight_decay=0.05)
+    state = TrainState.create(model, tx, seed=2)
+    return mae_engine.make_mae_train_step(model, tx), state, x

@@ -23,6 +23,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..nn.layers import Dense, LayerNorm, TransformerStack, dropout
 from ..nn.patch_embed import PatchEmbed3D
+from ..ops.resize import resize_grid_bicubic
 
 
 class VisionTransformerST(nn.Module):
@@ -43,8 +44,6 @@ class VisionTransformerST(nn.Module):
                  remat: bool = False, quant: bool = False):
         super().__init__()
         for flag, item, what in (
-                (high_res_input_size is not None, "A3",
-                 "high_res_input_size (bicubic pos-embed resize)"),
                 (capture_cam, "A10", "capture_cam (saliency)"),
                 (remat, "A4", "remat"),
                 (quant, "A10", "quant (int8 serving)")):
@@ -62,8 +61,16 @@ class VisionTransformerST(nn.Module):
         self.patch_embed = PatchEmbed3D(img_size, patch_size, in_chans,
                                         embed_dim, num_frames, t_patch_size,
                                         dtype=dtype)
+        self.high_res_input_size = high_res_input_size
+        if high_res_input_size is not None:
+            # a second embed for high-res inputs; the pos embeds are then
+            # stored at the high-res grid and pooled down for low-res ones
+            self.high_res_patch_embed = PatchEmbed3D(
+                high_res_input_size, patch_size, in_chans, embed_dim,
+                num_frames, t_patch_size, dtype=dtype)
         t_grid = num_frames // t_patch_size
-        grid = img_size // patch_size
+        grid = (img_size if high_res_input_size is None
+                else high_res_input_size) // patch_size
         if cls_embed:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         if sep_pos_embed:
@@ -90,10 +97,13 @@ class VisionTransformerST(nn.Module):
     def _pos_embed(self, input_grid: int) -> torch.Tensor:
         if not self.sep_pos_embed:
             return self.pos_embed
-        # the stored grid is the input grid: a different one comes only
-        # with high_res_input_size, which the constructor refuses
         spat = self.pos_embed_spatial
         l = input_grid ** 2
+        stored = math.isqrt(spat.shape[1])
+        if stored != input_grid:  # bicubic-pool the high-res table
+            d = spat.shape[-1]
+            spat = resize_grid_bicubic(spat.reshape(1, stored, stored, d),
+                                       (input_grid, input_grid)).reshape(1, l, d)
         t_grid = self.num_frames // self.t_patch_size
         # tokens are (t, h, w): the spatial table tiles over t, the
         # temporal one repeats over h*w
@@ -106,7 +116,10 @@ class VisionTransformerST(nn.Module):
     def forward_features(self, x, generator: torch.Generator | None = None):
         """x: [B, T, H, W, C] -> pooled feature [B, D] (pre-head)."""
         input_grid = x.shape[2] // self.patch_size
-        x = self.patch_embed(x)
+        pe = (self.high_res_patch_embed
+              if self.high_res_input_size is not None
+              and x.shape[2] == self.high_res_input_size else self.patch_embed)
+        x = pe(x)
         b, t, l, d = x.shape
         x = x.reshape(b, t * l, d)
         if self.cls_embed:
@@ -181,7 +194,7 @@ def init_params(model: VisionTransformerST, generator: torch.Generator):
     for name, p in model.named_parameters():
         if name.endswith("bias") or name == "cls_token":
             p.zero_()
-        elif name == "patch_embed.proj.weight":
+        elif name.endswith("patch_embed.proj.weight"):
             fan_in, fan_out = p[0].numel(), p.shape[0]
             lim = math.sqrt(6.0 / (fan_in + fan_out))
             p.uniform_(-lim, lim, generator=generator)

@@ -11,9 +11,10 @@ installed package, whose directory may be read-only) to
 Nothing here runs at import: the CPU tests import every module on a
 machine with no ``nvcc``.
 
-``launches`` counts kernel launches per library; a wrapper adds one
-exactly where it launches its kernel, so a run can show that its main
-path went through the kernels.
+``launches`` counts kernel calls per library; a wrapper adds one exactly
+where it calls its kernel (one call may be several launches of one
+algorithm, as B2's passes are), so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -41,6 +42,17 @@ KERNELS = {
         "octcube_flash_fwd_packed": ([_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _L, _L, _L, _L,
                                       _F, _I, _P], ctypes.c_int),
+        "octcube_error_string": ([_I], ctypes.c_char_p),
+    }),
+    "flash_bwd_packed": ("flash_bwd_packed.cu", {
+        # q, k, v, kc, vc, dO, lse, delta, dq, dk, dv, dkc, dvc, scratch,
+        # B, H, n, D, row_stride, batch_stride, do_row_stride,
+        # do_batch_stride, g_row_stride, g_batch_stride, gc_batch_stride,
+        # scale, is_bf16, stream
+        "octcube_flash_bwd_packed": ([_P] * 14 + [_I] * 4 + [_L] * 7
+                                     + [_F, _I, _P], ctypes.c_int),
+        # B, H, n, D, is_bf16 -> fp32 floats of cls partial sums
+        "octcube_flash_bwd_packed_scratch": ([_I] * 5, ctypes.c_longlong),
         "octcube_error_string": ([_I], ctypes.c_char_p),
     }),
 }

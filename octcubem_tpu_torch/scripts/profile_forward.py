@@ -26,6 +26,17 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def kernel_rows(prof):
+    """(name, count, device us) of the device-side events (kernels and
+    copies), by device time.  Host ranges are left out: a custom autograd
+    Function's range also carries the time of the kernels it launches."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU]
+    return sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=5)
@@ -58,9 +69,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()]
-    kernels = sorted((r for r in rows if r[2] > 0 and not r[0].startswith("aten::")),
-                     key=lambda r: -r[2])
+    kernels = kernel_rows(prof)
     busy_ms = sum(r[2] for r in kernels) / 1e3 / args.iters
 
     print(subprocess.run(

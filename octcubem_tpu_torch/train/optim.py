@@ -1,0 +1,169 @@
+"""AdamW with the reference's weight-decay mask and layer-wise LR decay
+(counterpart of octcubem_tpu/train/optim.py), over the port's state-dict
+parameter names.
+
+- No weight decay for 1-D params and for pos embeds, cls and mask tokens
+  (OCTCube/util/lr_decay.py, the models' no_weight_decay()).
+- Layer-wise LR decay (BEiT): scale = layer_decay ** (num_layers + 1 -
+  layer_id), layer 0 = the embeddings, i + 1 = block i, num_layers + 1 =
+  everything else.
+
+``AdamW`` is one update with the JAX package's arithmetic, in optax's
+order: global-norm clip, Adam moments with bias correction by the
+post-increment count and eps outside the square root, decoupled weight
+decay on the masked params, the layer scales, then the LR of the
+pre-increment count.  Without clip and layer decay that is exactly
+``build_fused_adamw``'s single pass.  A param whose ``.grad`` is None
+takes a zero gradient, as JAX gives it one: its count, moments and
+weight decay still advance (``torch.optim`` would skip it).  Each stage
+is one multi-tensor (``torch._foreach_*``) op over all params.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Mapping
+
+import torch
+from torch import nn
+
+_NO_DECAY = ("pos_embed", "cls_token", "mask_token")
+
+
+def _named(params) -> dict[str, torch.Tensor]:
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def weight_decay_mask(params) -> dict[str, bool]:
+    """name -> True where weight decay applies: ndim > 1 and not a pos /
+    cls / mask token embedding.  ``params``: a module or name -> tensor."""
+    return {name: p.ndim > 1 and not any(t in name for t in _NO_DECAY)
+            for name, p in _named(params).items()}
+
+
+def layer_decay_scales(params, num_blocks: int,
+                       layer_decay: float) -> dict[str, float]:
+    """name -> BEiT layer-decay LR multiplier.  Layer 0: names starting
+    with cls_token, pos_embed or patch_embed; i + 1: block i of a
+    ``blocks`` / ``decoder_blocks`` stack; the rest: the head layer."""
+    num_layers = num_blocks + 1
+    scales = [layer_decay ** (num_layers - i) for i in range(num_layers + 1)]
+
+    def layer_id(name: str) -> int:
+        if name.startswith(("cls_token", "pos_embed", "patch_embed")):
+            return 0
+        m = re.search(r"blocks\.(\d+)\.", name)
+        return int(m.group(1)) + 1 if m else num_layers
+
+    return {name: scales[layer_id(name)] for name in _named(params)}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors (fp32), one 0-d tensor."""
+    tensors = [t.float() for t in tensors]
+    if not tensors:
+        return torch.zeros(())
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+class AdamW:
+    """AdamW over named params (see the module docstring for the order).
+
+    ``learning_rate``: a float or a function of the step count; ``clip_grad``:
+    global-norm clip or None; ``scales``: name -> LR multiplier or None;
+    ``mu_dtype``: storage type of the first moment (None: the param's)."""
+
+    def __init__(self, params, learning_rate: float | Callable,
+                 weight_decay: float = 0.05,
+                 betas: tuple[float, float] = (0.9, 0.95), eps: float = 1e-8,
+                 mu_dtype: torch.dtype | None = None,
+                 clip_grad: float | None = None,
+                 scales: Mapping[str, float] | None = None):
+        named = _named(params)
+        self.names = list(named)
+        self.params = list(named.values())
+        self.learning_rate = learning_rate
+        self.weight_decay = weight_decay
+        self.b1, self.b2 = betas
+        self.eps = eps
+        self.clip_grad = clip_grad
+        mask = weight_decay_mask(named)
+        self.decayed = [i for i, n in enumerate(self.names) if mask[n]]
+        self.scales = (None if scales is None
+                       else [float(scales[n]) for n in self.names])
+        self.mu_dtype = mu_dtype
+        self.count = 0
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def lr(self, count: int) -> float:
+        lr = self.learning_rate
+        return float(lr(count) if callable(lr) else lr)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update from the params' ``.grad`` (None taken as zeros)."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        grads = [g.float() for g in grads]
+        if self.clip_grad is not None:
+            gn = global_norm(grads)
+            factor = torch.where(gn < self.clip_grad, torch.ones_like(gn),
+                                 self.clip_grad / gn)
+            grads = torch._foreach_mul(grads, factor)
+        lr = self.lr(self.count)  # the schedule's step: pre-increment
+        self.count += 1           # bias correction: post-increment
+        c1 = 1.0 - self.b1 ** self.count
+        c2 = 1.0 - self.b2 ** self.count
+        mu = ([m.float() for m in self.mu] if self.mu_dtype is not None
+              else self.mu)
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_div(self.nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(mu, c1)
+        torch._foreach_div_(u, denom)
+        if self.weight_decay and self.decayed:
+            torch._foreach_add_([u[i] for i in self.decayed],
+                                [self.params[i] for i in self.decayed],
+                                alpha=self.weight_decay)
+        if self.scales is not None:
+            torch._foreach_mul_(u, self.scales)
+        torch._foreach_add_(self.params, u, alpha=-lr)
+        if self.mu_dtype is not None:
+            torch._foreach_copy_(self.mu, mu)
+
+
+def build_fused_adamw(params, learning_rate: float | Callable,
+                      weight_decay: float = 0.05,
+                      betas: tuple[float, float] = (0.9, 0.95),
+                      eps: float = 1e-8, mu_dtype=None) -> AdamW:
+    """The single-pass AdamW (no clip, no layer decay)."""
+    return AdamW(params, learning_rate, weight_decay, betas, eps, mu_dtype)
+
+
+def build_adamw(params, learning_rate: float | Callable,
+                weight_decay: float = 0.05,
+                betas: tuple[float, float] = (0.9, 0.95),
+                layer_decay: float | None = None,
+                num_blocks: int | None = None,
+                clip_grad: float | None = None, mu_dtype=None) -> AdamW:
+    """AdamW of the reference pretrain (betas 0.9 / 0.95) and finetune
+    (layer decay) configurations; without clip_grad and layer_decay it is
+    ``build_fused_adamw``."""
+    scales = None
+    if layer_decay is not None and layer_decay != 1.0:
+        if num_blocks is None:
+            raise ValueError("layer_decay needs num_blocks")
+        scales = layer_decay_scales(params, num_blocks, layer_decay)
+    return AdamW(params, learning_rate, weight_decay, betas, mu_dtype=mu_dtype,
+                 clip_grad=clip_grad, scales=scales)

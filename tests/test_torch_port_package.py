@@ -98,8 +98,8 @@ def test_load_torch_checkpoint(jax_params, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(high_res_input_size=64), "A3"), (dict(capture_cam=True), "A10"),
-    (dict(remat=True), "A4"), (dict(quant=True), "A10")])
+    (dict(capture_cam=True), "A10"), (dict(remat=True), "A4"),
+    (dict(quant=True), "A10")])
 def test_unported_model_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tvit.VisionTransformerST(**KW, **kw)

@@ -87,6 +87,28 @@ def test_vit_st_bf16_matches_jax(jax_params, volume):
     np.testing.assert_allclose(out, ref, atol=BF16_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("high_res_input", [False, True])
+def test_vit_st_high_res_pos_embed_matches_jax(high_res_input):
+    """high_res_input_size = 2 x img_size: the pos embeds are stored at the
+    256 grid; a 128-pixel input pools them bicubically to its grid, a
+    256-pixel input takes the high-res patch embed (2*16*16 tokens + cls).
+    fp32 at 5e-5."""
+    kw = dict(KW, head_type="dropout", high_res_input_size=256)
+    jm = jvit.VisionTransformerST(**kw, attn_impl="naive")
+    size = 256 if high_res_input else 128
+    x = np.random.default_rng(9).standard_normal(
+        (1, 6, size, size, 1)).astype(np.float32)
+    params = _perturb(jax.jit(jm.init)(jax.random.key(3), jnp.asarray(x)), 5)
+    jm = jvit.VisionTransformerST(**kw, attn_impl="flash")
+    ref = np.asarray(jm.apply(params, jnp.asarray(x)))
+    tm = tvit.VisionTransformerST(**kw)
+    tm.load_state_dict(state_dict_from_jax(params), strict=True)
+    assert tm.pos_embed_spatial.shape == (1, 256, 128)
+    with torch.inference_mode():
+        out = tm.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=5e-5, rtol=5e-5)
+
+
 @pytest.fixture(scope="module")
 def tokens():
     return np.random.default_rng(8).standard_normal(
