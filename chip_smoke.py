@@ -7,26 +7,36 @@ Phases, each fatal on failure (no phase's error is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ (nvcc, one process per source);
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path and its neighbours give it, bf16 and fp32,
+     shapes the main paths and their neighbours give it, bf16 and fp32,
      plus a large-logit case, within stated tolerances: B1 (forward) and
-     B2 (backward);
+     B2 (backward) on the packed layout; B3 / B5 (forward with and
+     without the cls fold) and B4 / B7 (their backward) on the
+     [B, H, N, D] views of the fused buffer, with the rectangular
+     kv_valid form and B7's exact-softmax branch;
   4. the serving path: entry()'s ViT-L 48x256x256 bf16 forward, its
      launch counts, finite [1, 16] logits that agree with the same model
      run with impl="naive";
   5. serving: cli/serve.py's server in a thread with the ViT-L model,
      /healthz and four /predict requests;
-  6. the training path: train_entry()'s ViT-L 3D MAE step (60x256x256,
-     mask 0.90, batch 4, bf16, fused AdamW) with both decoder geometries,
-     three steps each: finite loss and grad norm, 32 B1 and 32 B2 launches
-     per step, params unchanged by the first update (its LR is 0) and
-     changed by the next two, peak device memory;
-  7. flash against impl="naive" under autograd: the same ViT-L MAE cut to
-     2 + 2 blocks at batch 2 (512 and 5,121 tokens), loss and per-leaf
-     gradients, fp32 and bf16;
-  8. B1 and B2 at the step's shapes (B=4, bf16) laid out as the step lays
-     them out, against their plain versions; timings with CUDA events
-     (kernel, plain version, a PyTorch library yardstick, the bound; the
-     forward and the step), then one {"kernels": [...]} line.
+  6. the ViT-H/14 classifier (16 heads of 80): entry()'s 48x224x224 bf16
+     forward (32 B3 launches, no B1) against impl="naive"; its backward
+     under a cross-entropy (32 B3 + 32 B4 launches), and the model cut to
+     2 blocks against impl="naive" in loss and per-leaf gradients, fp32
+     and bf16;
+  7. the training path: train_entry()'s 3D MAE step (mask 0.90, batch 4,
+     bf16, AdamW), three steps per configuration: ViT-L/16 at 60x256x256
+     with both decoder geometries (32 B1 + 32 B2 launches per step) and
+     ViT-H/14 at 60x224x224 (32 B5 + 32 B7 in the encoder, 8 B1 + 8 B2 in
+     the decoder); finite loss and grad norm, params unchanged by the
+     first update (its LR is 0) and changed by the next two, peak device
+     memory, the step's time;
+  8. flash against impl="naive" under autograd: each MAE cut to 2 + 2
+     blocks at batch 2, loss and per-leaf gradients, fp32 and bf16;
+  9. B1 and B2 at the ViT-L step's shapes, B3-B5 and B7 at the ViT-H
+     paths' shapes, laid out as the paths lay them out, against their
+     plain versions; timings with CUDA events (kernel, plain version, a
+     PyTorch library yardstick, the bound; the forwards and the steps),
+     then one {"kernels": [...]} line.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -177,20 +187,27 @@ def check_flash_bwd(torch, fa):
             del qkv, o, lse, do, got, ref
 
 
-def run_main_path(torch, _cuda, entry_mod):
-    """Phase 4: entry()'s forward through the kernels."""
-    fn, (model, x) = entry_mod.entry()
+def _nonzero(launches):
+    return {k: c for k, c in launches.items() if c}
+
+
+def run_main_path(torch, _cuda, entry_mod, name="ViT-L 48x256x256",
+                  counter="flash_fwd_packed", **entry_kw):
+    """Phases 4 and 6: entry()'s forward through the kernels: one launch
+    of ``counter`` per block and no other kernel."""
+    fn, (model, x) = entry_mod.entry(**entry_kw)
     _cuda.reset_launches()
     logits = fn(model, x)
     torch.cuda.synchronize()
     launches = dict(_cuda.launches)
-    print(f"entry forward: logits {list(logits.shape)} {logits.dtype}, "
-          f"launches {launches}")
+    print(f"entry forward {name}: logits {list(logits.shape)} {logits.dtype}, "
+          f"launches {_nonzero(launches)}")
     if tuple(logits.shape) != (1, 16) or not torch.isfinite(logits).all():
         raise AssertionError(f"bad logits {logits}")
     depth = len(model.blocks)
-    if launches["flash_fwd_packed"] != depth:
-        raise AssertionError(f"expected {depth} B1 launches, got {launches}")
+    if _nonzero(launches) != {counter: depth}:
+        raise AssertionError(f"expected {depth} {counter} launches and no "
+                             f"other kernel, got {launches}")
 
     mhas = [m for m in model.modules() if hasattr(m, "attn_impl")]
     for m in mhas:
@@ -199,12 +216,12 @@ def run_main_path(torch, _cuda, entry_mod):
     for m in mhas:
         m.attn_impl = "auto"
     err = (logits.float() - ref.float()).abs().max().item()
-    print(f"entry forward vs impl='naive': max|dlogits|={err:.3e} "
+    print(f"entry forward {name} vs impl='naive': max|dlogits|={err:.3e} "
           f"(tol {TOL_LOGITS:.0e}; max|logits|="
           f"{ref.float().abs().max().item():.3e})")
     if err > TOL_LOGITS:
-        raise AssertionError("flash and naive ViT-L forwards disagree")
-    return fn, model, x, launches["flash_fwd_packed"]
+        raise AssertionError(f"flash and naive {name} forwards disagree")
+    return fn, model, x, depth
 
 
 def _post_npy(url, arr):
@@ -263,7 +280,7 @@ def run_serve(torch, _cuda, serve):
 
 
 def time_flash_fwd(torch, fa):
-    """Phase 6: B1 at the ViT-L shape: kernel, plain version, the library
+    """Phase 9: B1 at the ViT-L shape: kernel, plain version, the library
     yardstick and the bound."""
     import torch.nn.functional as F
 
@@ -311,14 +328,17 @@ def mae_train_flops(d=1024, layers=24, dd=512, dlayers=8, frames=60,
     return 3.0 * (dense + attn)
 
 
-def run_train(torch, _cuda, entry_mod, optim):
-    """Phase 6: three MAE steps per decoder geometry, with their launch
-    counts, the LR-0 first update and peak memory; then the step's time.
-    Returns the B2 launches per step."""
-    b2_launches = None
-    for dec_heads in (16, 4):
+def run_train(torch, _cuda, entry_mod, optim, name, geometries, expect,
+              flops_kw, **entry_kw):
+    """Phase 7: three MAE steps per decoder geometry, with their launch
+    counts (``expect``, and no other kernel), the LR-0 first update and
+    peak memory; then the step's time.  Returns the last step's
+    launches."""
+    last = None
+    for dec_heads in geometries:
         torch.cuda.reset_peak_memory_stats()
-        step, state, x = entry_mod.train_entry(dec_heads=dec_heads, batch=4)
+        step, state, x = entry_mod.train_entry(dec_heads=dec_heads, batch=4,
+                                               **entry_kw)
         model, tx = state.params, state.tx
         names = [n for n, _ in model.named_parameters()]
         before = [p.detach().clone() for p in model.parameters()]
@@ -328,18 +348,16 @@ def run_train(torch, _cuda, entry_mod, optim):
             _cuda.reset_launches()
             state, m = step(state, x, mask_ratio=0.9)
             torch.cuda.synchronize()
-            launches = dict(_cuda.launches)
+            last = dict(_cuda.launches)
             loss, gn = m["loss"].item(), m["grad_norm"].item()
-            print(f"train dec_heads={dec_heads} step {i + 1}: loss {loss:.6f} "
-                  f"grad_norm {gn:.6f} lr {tx.lr(i):.4e} launches {launches}")
+            print(f"train {name} dec_heads={dec_heads} step {i + 1}: loss "
+                  f"{loss:.6f} grad_norm {gn:.6f} lr {tx.lr(i):.4e} launches "
+                  f"{_nonzero(last)}")
             if not (math.isfinite(loss) and math.isfinite(gn)):
                 raise AssertionError("non-finite loss or grad norm")
-            if (launches["flash_fwd_packed"] != 32
-                    or launches["flash_bwd_packed"] != 32):
-                raise AssertionError(f"expected 32 B1 and 32 B2 launches per "
-                                     f"step (24 encoder + 8 decoder blocks), "
-                                     f"got {launches}")
-            b2_launches = launches["flash_bwd_packed"]
+            if _nonzero(last) != expect:
+                raise AssertionError(f"expected launches {expect} per step "
+                                     f"and no other kernel, got {last}")
             if i == 0 and not all(torch.equal(a, p) for a, p in
                                   zip(before, model.parameters())):
                 raise AssertionError("params moved at the first update, "
@@ -350,23 +368,24 @@ def run_train(torch, _cuda, entry_mod, optim):
                 if p.grad is None and not decayed[n]}
         still = {n for n, a, p in zip(names, before, model.parameters())
                  if torch.equal(a, p)}
-        print(f"train dec_heads={dec_heads}: {len(names) - len(still)} of "
-              f"{len(names)} params moved by steps 2-3; unmoved {sorted(still)}")
+        print(f"train {name} dec_heads={dec_heads}: {len(names) - len(still)} "
+              f"of {len(names)} params moved by steps 2-3; unmoved "
+              f"{sorted(still)}")
         if still - free:
             raise AssertionError(f"params did not move: {sorted(still - free)}")
         del before
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ms = _elapsed_ms(lambda: step(state, x, mask_ratio=0.9), 5, 1)
-        flops = mae_train_flops() * x.shape[0]
+        flops = mae_train_flops(**flops_kw) * x.shape[0]
         bound = flops / PEAK_BF16_FLOPS * 1e3
-        print(f"train step dec_heads={dec_heads} (ViT-L 3D MAE, 60x256x256, "
-              f"mask 0.90, batch {x.shape[0]}, bf16): {ms:.3f} ms per step, "
+        print(f"train step {name} dec_heads={dec_heads} (mask 0.90, batch "
+              f"{x.shape[0]}, bf16): {ms:.3f} ms per step, "
               f"{x.shape[0] / ms * 1e3:.3f} vol/s; bound {bound:.3f} ms "
               f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
               f"max_memory_allocated {peak:.2f} GiB")
         del step, state, x, model, tx
         torch.cuda.empty_cache()
-    return b2_launches
+    return last
 
 
 # flash (B1 + B2) against impl="naive" under autograd, the MAE cut to 2 + 2
@@ -376,16 +395,22 @@ def run_train(torch, _cuda, entry_mod, optim):
 # bf16 5.1e-6 and 9.0e-3 (limits ~2.5x).  At batch 2, as run here: fp32
 # 0 and 1.70e-6, bf16 4.7e-6 and 7.2e-3, all inside the same limits.
 TOL_NAIVE = {"float32": (1e-6, 3e-6), "bfloat16": (1.3e-5, 2.2e-2)}
+# the ViT-H/14 classifier cut to 2 blocks (4,097 tokens), flash (B3 + B4)
+# against impl="naive" under a cross-entropy.  Its loss is taken from the
+# model's bf16 logits, so flash and naive logits one bf16 step apart move
+# it by ~1e-4 relative: measured on an H100 at 700 W, fp32 9.0e-8 and
+# 1.77e-6, bf16 6.9e-5 and 9.9e-3; the bf16 loss limit is ~2.5x.
+TOL_NAIVE_CLS = {"float32": (1e-6, 3e-6), "bfloat16": (2e-4, 2.2e-2)}
 
 
-def check_flash_vs_naive(torch, entry_mod):
-    """Phase 7: the same weights, input and noise through the flash path
+def check_flash_vs_naive(torch, entry_mod, name, **entry_kw):
+    """Phase 8: the same weights, input and noise through the flash path
     and impl="naive", fp32 and bf16."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     noise = torch.rand((2, 5120), generator=gen, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
         _, state, x = entry_mod.train_entry(batch=2, depth=2, decoder_depth=2,
-                                            dtype=dtype)
+                                            dtype=dtype, **entry_kw)
         model = state.params
         mhas = [m for m in model.modules() if hasattr(m, "attn_impl")]
         res = {}
@@ -398,20 +423,25 @@ def check_flash_vs_naive(torch, entry_mod):
             res[impl] = (loss.item(), {n: p.grad.clone() for n, p in
                                        model.named_parameters()
                                        if p.grad is not None})
-        (lf, gf), (ln, gn) = res["auto"], res["naive"]
-        dloss = abs(lf - ln) / abs(ln)
-        worst, leaf = max(((gf[n] - gn[n]).abs().max().item()
-                           / gn[n].abs().max().item(), n) for n in gn)
-        key = str(dtype).split(".")[1]
-        tl, tg = TOL_NAIVE[key]
-        print(f"flash vs naive {key} (2+2 blocks, 512 / 5,121 tokens): loss "
-              f"{lf:.6f} vs {ln:.6f}, rel {dloss:.3e} (tol {tl:.0e}); worst "
-              f"leaf {leaf} rel {worst:.3e} (tol {tg:.0e})")
-        if not (dloss <= tl and worst <= tg and set(gf) == set(gn)):
-            raise AssertionError(f"flash and naive MAE gradients disagree "
-                                 f"({key})")
-        del state, x, model, res, gf, gn
+        _compare_to_naive(f"MAE {name} {str(dtype)[6:]} (2+2 blocks, 512 / "
+                          f"5,121 tokens)", res, dtype)
+        del state, x, model, res
         torch.cuda.empty_cache()
+
+
+def _compare_to_naive(what, res, dtype, tols=TOL_NAIVE):
+    """res: {impl: (loss, {leaf: grad})} -> holds flash to naive within
+    ``tols``: |dloss| / |loss| and, over leaves, max|dgrad| / max|grad|."""
+    (lf, gf), (ln, gn) = res["auto"], res["naive"]
+    dloss = abs(lf - ln) / abs(ln)
+    worst, leaf = max(((gf[n] - gn[n]).abs().max().item()
+                       / gn[n].abs().max().item(), n) for n in gn)
+    tl, tg = tols[str(dtype).split(".")[1]]
+    print(f"flash vs naive {what}: loss {lf:.6f} vs {ln:.6f}, rel "
+          f"{dloss:.3e} (tol {tl:.0e}); worst leaf {leaf} rel {worst:.3e} "
+          f"(tol {tg:.0e})")
+    if not (dloss <= tl and worst <= tg and set(gf) == set(gn)):
+        raise AssertionError(f"flash and naive disagree: {what}")
 
 
 def _check_main_path_shape(torch, fa, name, args, o, lse, do, out, h,
@@ -450,7 +480,7 @@ def _check_main_path_shape(torch, fa, name, args, o, lse, do, out, h,
 
 
 def time_flash_bwd(torch, fa):
-    """Phase 8, B2 at the encoder's and both decoder geometries' shapes
+    """Phase 9, B2 at the encoder's and both decoder geometries' shapes
     (B=4): first held against its plain version as the step lays it out
     (with B1), then timed: kernel, plain version, the library yardstick
     (SDPA forward + backward minus its forward, at the same [B, H, N, D])
@@ -518,13 +548,277 @@ def time_flash_bwd(torch, fa):
     return rows["decoder h16"]
 
 
-def time_forward(torch, fn, model, x):
+# ------------------------------------------------ [B, H, N, D]: B3-B5, B7
+
+def _bh_views(qkv, h):
+    """q, k, v [B, H, N, D] views of a fused [B, N, 3*H*D] buffer (batch
+    stride N*3*H*D, head stride D, row stride 3*H*D), as the packed path
+    hands them to flash_attention."""
+    b, n, hd3 = qkv.shape
+    d = hd3 // (3 * h)
+    return [t.transpose(1, 2) for t in qkv.view(b, n, 3, h, d).unbind(2)]
+
+
+def _bh_args(qkv, h, cls):
+    """B3's (cls) or B5's inputs: tokens 1: with row 0 as the cls
+    key/value, or all rows."""
+    q, k, v = _bh_views(qkv, h)
+    if cls:
+        return (q[:, :, 1:], k[:, :, 1:], v[:, :, 1:], k[:, :, :1],
+                v[:, :, :1])
+    return q, k, v, None, None
+
+
+def _bh_do(torch, gen, b, n, h, d, dtype, cls):
+    """autograd's dO for the kernel's rows: the [B, H, N, D] view of a
+    [B, N, H, D] gradient (the packed output's), rows 1: after the cls
+    query row's concat."""
+    do = torch.randn((b, n, h, d), generator=gen, device="cuda",
+                     dtype=dtype).transpose(1, 2)
+    return do[:, :, 1:] if cls else do
+
+
+def _hold_bh(torch, fa, what, args, dtype, gen, kv_valid=None, no_max=True):
+    """B3 / B5 and B4 / B7 against their plain versions on the same
+    inputs: the forward (no_max only) and the backward on the plain
+    forward's (o, lse) -- or, for no_max=False, the exact softmax's --
+    with autograd's strided dO and a nonzero g_lse.  Returns (max |do|,
+    max |d| over the gradients)."""
+    q, k, v = args[:3]
+    b, h, nq, d = q.shape
+    scale = d ** -0.5
+    fwd_err = None
+    if no_max:
+        o, lse = fa.fwd_bh_cuda(*args, scale, kv_valid)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.fwd_bh_plain(*args, scale, kv_valid)
+        d_o = (o.float() - o_ref.float()).abs()
+        atol, rtol = TOL_O[str(dtype).split(".")[1]]
+        excess = (d_o - rtol * o_ref.float().abs()).max().item()
+        dlse = (lse - lse_ref).abs().max().item()
+        fwd_err = d_o.max().item()
+        if not (excess <= atol and dlse <= TOL_LSE
+                and torch.isfinite(o.float()).all()):
+            raise AssertionError(f"{what}: the forward disagrees with its "
+                                 f"plain version (max|do| {fwd_err:.3e}, "
+                                 f"max|dlse| {dlse:.3e})")
+        del o, lse, d_o
+    else:
+        kk = k[:, :, :kv_valid] if kv_valid else k
+        vv = v[:, :, :kv_valid] if kv_valid else v
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+        lse_ref = torch.logsumexp(s, dim=-1)
+        o_ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                             vv.float()).to(dtype)
+        del s
+    cls = args[3] is not None
+    do = _bh_do(torch, gen, b, nq + cls, h, d, dtype, cls)
+    g_lse = 0.1 * torch.randn(lse_ref.shape, generator=gen, device="cuda")
+    got = fa.bwd_bh_cuda(*args, o_ref, lse_ref, do, g_lse, scale, no_max,
+                         kv_valid)
+    torch.cuda.synchronize()
+    ref = fa.bwd_bh_plain(*args, o_ref, lse_ref, do, g_lse, scale, no_max,
+                          kv_valid)
+    tol = TOL_GRAD[str(dtype).split(".")[1]]
+    errs, rels, ok = {}, {}, True
+    for name, a, r in zip(("dq", "dk", "dv", "dkc", "dvc"), got, ref):
+        if r is None:
+            ok &= a is None
+            continue
+        errs[name] = (a.float() - r.float()).abs().max().item()
+        rels[name] = errs[name] / max(r.float().abs().max().item(), 1e-30)
+        ok &= rels[name] <= tol and bool(torch.isfinite(a.float()).all())
+    if kv_valid is not None:
+        ok &= bool((got[1][:, :, kv_valid:] == 0).all()
+                   and (got[2][:, :, kv_valid:] == 0).all())
+    print(f"{what} {str(dtype)[6:]}: "
+          + (f"fwd max|do|={fwd_err:.3e}; " if no_max else "")
+          + "bwd max|d| (/ max|plain|) " + " ".join(
+              f"{k}={v:.3e} ({rels[k]:.1e})" for k, v in errs.items())
+          + f" (tol {tol:.1e} x max|plain|)")
+    if not ok:
+        raise AssertionError(f"{what}: the backward disagrees with its plain "
+                             f"version")
+    return fwd_err, max(errs.values())
+
+
+def check_bh_kernels(torch, fa):
+    """Phase 3, B3-B5 and B7 against their plain versions, bf16 and fp32,
+    on the fused buffer's [B, H, N, D] views: the ViT-H/14 classifier
+    (B3 / B4) and MAE encoder (B5 / B7) shapes, other head dims, the
+    large-logit case, the rectangular kv_valid form (a 4-way query shard
+    of the decoder's 5,121 tokens padded to 5,124) and B7's exact-softmax
+    branch.  Returns {kernel: max |d|} at the path shapes in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs = {}
+    # (name, B, N, H, D, q multiplier)
+    cases = [("ViT-H classifier", 1, 4097, 16, 80, 1.0),
+             ("ViT-H encoder", 4, 512, 16, 80, 1.0),
+             ("D=64", 2, 1025, 8, 64, 1.0), ("D=128", 2, 700, 4, 128, 1.0),
+             ("D=32", 2, 513, 8, 32, 1.0), ("D=256", 1, 300, 2, 256, 1.0),
+             ("large-logit D=80", 2, 1025, 4, 80, 40.0)]
+    for name, b, n, h, d, qmul in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda")
+            qkv[..., :h * d] *= qmul
+            qkv = qkv.to(dtype)
+            for cls in (False, True):
+                kernels = ("B3 + B4" if cls else "B5 + B7")
+                fe, be = _hold_bh(torch, fa, f"{kernels} {name} B={b} N={n} "
+                                  f"H={h} D={d}", _bh_args(qkv, h, cls),
+                                  dtype, gen)
+                on_path = (cls, name) in ((True, "ViT-H classifier"),
+                                          (False, "ViT-H encoder"))
+                if on_path and dtype == torch.bfloat16:
+                    errs["B3" if cls else "B5"] = fe
+                    errs["B4" if cls else "B7"] = be
+            del qkv
+            torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        # rect: the decoder's 5,121 tokens padded to 5,124, a 4-way shard
+        h, d = 16, 32
+        q = torch.randn((1, h, 1281, d), generator=gen, device="cuda")
+        k, v = (torch.randn((1, h, 5124, d), generator=gen, device="cuda")
+                for _ in range(2))
+        _hold_bh(torch, fa, "B5 + B7 rect Nq=1281 Nk=5124 kv_valid=5121 "
+                 "H=16 D=32", (q.to(dtype), k.to(dtype), v.to(dtype), None,
+                               None), dtype, gen, kv_valid=5121)
+        # B7's exact-softmax branch, logits far above the fixed-shift clamp
+        qkv = torch.randn((4, 512, 3 * 16 * 80), generator=gen, device="cuda")
+        qkv[..., :16 * 80] *= 8.0
+        _hold_bh(torch, fa, "B7 no_max=False ViT-H encoder x8 logits",
+                 _bh_args(qkv.to(dtype), 16, False), dtype, gen,
+                 no_max=False)
+        del q, k, v, qkv
+    return errs
+
+
+def run_vith_backward(torch, _cuda, entry_mod):
+    """Phase 6: the ViT-H/14 classifier's backward as fine-tuning runs it
+    (training mode, the dropout head drawing from a generator; fp32 params,
+    bf16 compute) under a cross-entropy: 32 B3 + 32 B4 launches and finite
+    gradients.  Then the model cut to 2 blocks (eval mode), flash against
+    impl="naive": loss and per-leaf gradients, fp32 and bf16.  Returns the
+    B4 launches."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((1, 48, 224, 224, 1), generator=gen, device="cuda")
+    label = torch.tensor([3], device="cuda")
+    vith = dict(ctor=entry_mod.vit_st.vit_huge_patch14, img_size=224)
+    _, (model, _) = entry_mod.entry(**vith)
+    model.train()
+    _cuda.reset_launches()
+    loss = F.cross_entropy(model(x, torch.Generator(device="cuda")
+                                 .manual_seed(8)).float(), label)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"ViT-H classifier backward (48x224x224, train mode, bf16 "
+          f"compute): loss {loss.item():.6f}, {len(grads)} leaves with "
+          f"gradients, finite {finite}, launches {_nonzero(launches)}")
+    depth = len(model.blocks)
+    if _nonzero(launches) != {"flash_fwd_bh_cls": depth,
+                              "flash_bwd_bh_cls": depth} or not finite:
+        raise AssertionError(f"expected {depth} B3 + {depth} B4 launches and "
+                             f"finite gradients, got {launches}")
+    del model, grads, loss
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        _, (model, _) = entry_mod.entry(**vith, depth=2,
+                                        dtype=dtype)
+        mhas = [m for m in model.modules() if hasattr(m, "attn_impl")]
+        res = {}
+        for impl in ("auto", "naive"):
+            for m in mhas:
+                m.attn_impl = impl
+            model.zero_grad(set_to_none=True)
+            loss = F.cross_entropy(model(x).float(), label)
+            loss.backward()
+            res[impl] = (loss.item(), {n: p.grad.clone() for n, p in
+                                       model.named_parameters()
+                                       if p.grad is not None})
+        _compare_to_naive(f"ViT-H classifier {str(dtype)[6:]} (2 blocks, "
+                          f"4,097 tokens)", res, dtype, TOL_NAIVE_CLS)
+        del model, res
+        torch.cuda.empty_cache()
+    return launches["flash_bwd_bh_cls"]
+
+
+def time_bh_kernels(torch, fa):
+    """Phase 9, B3-B5 and B7 at the ViT-H paths' shapes (bf16, laid out as
+    the paths lay them out), timed: kernel, plain version, the library
+    yardstick (SDPA at the same [B, H, N, D]: its forward for B3 and B5,
+    forward + backward minus forward for B4 and B7) and the bound.
+    Returns {kernel: row}."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = {}
+    for path, (b, n, h, d), cls in (("ViT-H classifier", (1, 4097, 16, 80), True),
+                                    ("ViT-H encoder", (4, 512, 16, 80), False)):
+        fwd, bwd = ("B3", "B4") if cls else ("B5", "B7")
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        args = _bh_args(qkv, h, cls)
+        scale = d ** -0.5
+        o, lse = fa.fwd_bh_cuda(*args, scale)
+        do = _bh_do(torch, gen, b, n, h, d, torch.bfloat16, cls)
+        t = {fwd: _elapsed_ms(lambda: fa.fwd_bh_cuda(*args, scale), 50),
+             bwd: _elapsed_ms(lambda: fa.bwd_bh_cuda(*args, o, lse, do, None,
+                                                     scale), 20)}
+        plain = {fwd: _elapsed_ms(lambda: fa.fwd_bh_plain(*args, scale), 3, 1),
+                 bwd: _elapsed_ms(lambda: fa.bwd_bh_plain(
+                     *args, o, lse, do, None, scale), 3, 1)}
+        qh, kh, vh = (x.contiguous().requires_grad_() for x in
+                      _bh_views(qkv, h))
+        g = torch.randn((b, h, n, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        sdpa_fwd = _elapsed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale), 50)
+        sdpa_all = _elapsed_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+            (qh, kh, vh), g), 20)
+        lib = {fwd: sdpa_fwd, bwd: sdpa_all - sdpa_fwd}
+        m = n - 1 if cls else n          # query rows of the kernels
+        keys = m + 1 if cls else m
+        es = qkv.element_size()
+        elems = b * m * h * d            # one [B, H, m, D] operand
+        work = {fwd: (4 * b * h * m * keys * d,
+                      (b * n * 3 * h * d + elems) * es + b * h * m * 4),
+                bwd: (10 * b * h * m * keys * d,
+                      (3 * b * n * h * d + 2 * elems + 3 * elems) * es
+                      + 2 * b * h * m * 4 + (2 * b * h * d * es if cls else 0))}
+        for kern in (fwd, bwd):
+            flops, nbytes = work[kern]
+            t_ops = flops / PEAK_BF16_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            rows[kern] = {"ms": t[kern], "plain_ms": plain[kern],
+                          "library_ms": lib[kern],
+                          "bound_ms": max(t_ops, t_bytes),
+                          "bound_by": "operations" if t_ops >= t_bytes
+                          else "bytes"}
+            print(f"{kern} timing {path} B={b} H={h} N={n} D={d} bf16: kernel "
+                  f"{t[kern]:.4f} ms, plain {plain[kern]:.4f} ms, sdpa "
+                  f"{'fwd' if kern == fwd else 'bwd'} {lib[kern]:.4f} ms, "
+                  f"bound {rows[kern]['bound_ms']:.4f} ms ({flops:.3e} FLOP "
+                  f"-> {t_ops:.4f} ms; {nbytes:.3e} B -> {t_bytes:.4f} ms); "
+                  f"{flops / t[kern] / 1e9:.1f} TFLOP/s achieved")
+        del qkv, args, o, lse, do, qh, kh, vh, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_forward(torch, fn, model, x, name):
     ms = _elapsed_ms(lambda: fn(model, x), 20)
-    n = 1 + x.shape[1] // 3 * (x.shape[2] // 16) ** 2
+    u, p = model.t_patch_size, model.patch_size
+    n = 1 + x.shape[1] // u * (x.shape[2] // p) ** 2
     dim, depth = model.head.weight.shape[1], len(model.blocks)
     flops = depth * (2 * n * 12 * dim * dim + 4 * n * n * dim) \
-        + 2 * (n - 1) * 3 * 16 * 16 * dim
-    print(f"entry forward (ViT-L 48x256x256 bf16, batch 1): {ms:.3f} ms per "
+        + 2 * (n - 1) * u * p * p * dim
+    print(f"entry forward ({name} bf16, batch 1): {ms:.3f} ms per "
           f"volume; {flops:.3e} FLOP -> bound {flops / PEAK_BF16_FLOPS * 1e3:.3f} "
           f"ms at {PEAK_BF16_FLOPS:.3e} FLOP/s")
     return ms
@@ -568,15 +862,39 @@ def main() -> int:
 
     err = check_flash_fwd(torch, fa)
     check_flash_bwd(torch, fa)
+    bh_errs = check_bh_kernels(torch, fa)
+
+    # serving: ViT-L (B1), the server, then ViT-H/14 (B3)
     fn, model, x, launches = run_main_path(torch, _cuda, entry_mod)
     run_serve(torch, _cuda, serve)
     timing = time_flash_fwd(torch, fa)
-    time_forward(torch, fn, model, x)
+    time_forward(torch, fn, model, x, "ViT-L 48x256x256")
+    del fn, model, x
+    vith = dict(ctor=entry_mod.vit_st.vit_huge_patch14, img_size=224)
+    fn, model, x, b3_launches = run_main_path(
+        torch, _cuda, entry_mod, name="ViT-H/14 48x224x224",
+        counter="flash_fwd_bh_cls", **vith)
+    time_forward(torch, fn, model, x, "ViT-H/14 48x224x224")
     del fn, model, x
     torch.cuda.empty_cache()
-    launches_bwd = run_train(torch, _cuda, entry_mod, optim)
-    check_flash_vs_naive(torch, entry_mod)
+    b4_launches = run_vith_backward(torch, _cuda, entry_mod)
+
+    # training: ViT-L/16 (B1 + B2), then ViT-H/14 (B5 + B7, B1 + B2)
+    launches_bwd = run_train(
+        torch, _cuda, entry_mod, optim, "ViT-L/16 60x256x256", (16, 4),
+        {"flash_fwd_packed": 32, "flash_bwd_packed": 32}, {})[
+            "flash_bwd_packed"]
+    check_flash_vs_naive(torch, entry_mod, "ViT-L/16")
+    mae_h = dict(ctor=entry_mod.mae3d.mae_vit_huge_patch14, input_size=224)
+    b57 = run_train(
+        torch, _cuda, entry_mod, optim, "ViT-H/14 60x224x224", (16,),
+        {"flash_fwd_bh": 32, "flash_bwd_bh": 32, "flash_fwd_packed": 8,
+         "flash_bwd_packed": 8},
+        dict(d=1280, layers=32, img=224, patch=14), **mae_h)
+    check_flash_vs_naive(torch, entry_mod, "ViT-H/14", **mae_h)
+
     timing_bwd = time_flash_bwd(torch, fa)
+    timing_bh = time_bh_kernels(torch, fa)
 
     kernels = [{
         "name": "flash_fwd_packed", "route": "cuda",
@@ -587,6 +905,18 @@ def main() -> int:
         "source": "octcubem_tpu_torch/csrc/flash_bwd_packed.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:961",
         "launches": launches_bwd, **timing_bwd}]
+    # (counter, TPU kernel's line, source, launches on its path)
+    for kern, counter, line, src, n in (
+            ("B3", "flash_fwd_bh_cls", 128, "flash_fwd_bh.cu", b3_launches),
+            ("B4", "flash_bwd_bh_cls", 397, "flash_bwd_bh.cu", b4_launches),
+            ("B5", "flash_fwd_bh", 91, "flash_fwd_bh.cu", b57["flash_fwd_bh"]),
+            ("B7", "flash_bwd_bh", 329, "flash_bwd_bh.cu",
+             b57["flash_bwd_bh"])):
+        kernels.append({
+            "name": counter, "route": "cuda",
+            "source": f"octcubem_tpu_torch/csrc/{src}",
+            "replaces": f"octcubem_tpu/ops/flash_attention.py:{line}",
+            "launches": n, "max_abs_err": bh_errs[kern], **timing_bh[kern]})
     for k in kernels:
         for key, val in k.items():
             if isinstance(val, float) and not math.isfinite(val):

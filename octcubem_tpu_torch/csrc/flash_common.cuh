@@ -1,7 +1,8 @@
-// Helpers shared by the flash-attention kernels B1 (flash_fwd_packed.cu)
-// and B2 (flash_bwd_packed.cu): the fixed-shift softmax constants, the
-// mma.sync m16n8k16 bf16 product, ldmatrix fragment loads and cp.async
-// tile copies.  Each .cu that includes this is its own library.
+// Helpers shared by the flash-attention kernels (flash_fwd.cuh: B1, B3,
+// B5; flash_bwd.cuh: B2, B4, B7): the fixed-shift softmax constants, the
+// strided operand layout, the mma.sync m16n8k16 bf16 product, ldmatrix
+// fragment loads and cp.async tile copies.  Each .cu that includes this is
+// its own library.
 
 #pragma once
 
@@ -9,11 +10,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace octcube {
 
 constexpr float kShift = 16.0f;  // NOMAX_SHIFT
 constexpr float kClamp = 40.0f;  // NOMAX_CLAMP
 constexpr float kLog2e = 1.4426950408889634f;
+
+// a [B, H, rows, D] operand: batch, head and row strides in elements
+// (each below 2^31), unit stride along D.  32-bit strides keep the
+// forward's parameter block within 128 bytes: on an H100 the same B1
+// kernel ran slower once its by-value parameters passed 128 bytes.
+struct Lay {
+  int b, h, r;
+  __device__ __forceinline__ long long at(int bi, int hi) const {
+    return (long long)bi * b + (long long)hi * h;
+  }
+};
+
+// a stride as a Lay field: false when it does not fit in 32 bits
+inline bool fits_lay(long long s) { return s >= 0 && s <= 0x7fffffffLL; }
 
 // c += a b: A 16x16 row-major, B 16x8 column-major, bf16 in, fp32 sums.
 // Fragments (g = lane / 4, t4 = lane % 4): a[0] row g, columns 2*t4 and +1;

@@ -288,26 +288,29 @@ class MaskedAutoencoderViT3D(nn.Module):
 
 # ---- constructor registry ----
 
+# num_heads is overridable like decoder_num_heads (the parameters do not
+# depend on the head partition), and so is depth, to cut a model for a test
+
 def mae_vit_base_patch16(**kw) -> MaskedAutoencoderViT3D:
     kw.setdefault("num_heads", 12)
-    return MaskedAutoencoderViT3D(patch_size=16, embed_dim=768, depth=12, **kw)
+    kw.setdefault("depth", 12)
+    return MaskedAutoencoderViT3D(patch_size=16, embed_dim=768, **kw)
 
 
 def mae_vit_large_patch16(**kw) -> MaskedAutoencoderViT3D:
-    # num_heads is overridable like decoder_num_heads: the parameters do
-    # not depend on the head partition
     kw.setdefault("num_heads", 16)
-    return MaskedAutoencoderViT3D(patch_size=16, embed_dim=1024, depth=24,
-                                  **kw)
+    kw.setdefault("depth", 24)
+    return MaskedAutoencoderViT3D(patch_size=16, embed_dim=1024, **kw)
 
 
 flash_attn_mae_vit_large_patch16 = mae_vit_large_patch16
 
 
 def mae_vit_huge_patch14(**kw) -> MaskedAutoencoderViT3D:
+    # 16 heads of head_dim 80: the encoder runs the [B, H, N, D] kernels
     kw.setdefault("num_heads", 16)
-    return MaskedAutoencoderViT3D(patch_size=14, embed_dim=1280, depth=32,
-                                  **kw)
+    kw.setdefault("depth", 32)
+    return MaskedAutoencoderViT3D(patch_size=14, embed_dim=1280, **kw)
 
 
 # ---- seeded initialisation (the flax initialisers' distributions) ----

@@ -154,25 +154,29 @@ class VisionTransformerST(nn.Module):
 
 
 # ---- constructor registry (reference models_*.__dict__[name] pattern) ----
+# num_heads is overridable (the attention params are [3D, D] / [D, D]
+# whatever the head count), and so is depth, to cut a model for a test
 
 def vit_base_patch16(**kw) -> VisionTransformerST:
     kw.setdefault("num_heads", 12)
-    return VisionTransformerST(patch_size=16, embed_dim=768, depth=12, **kw)
+    kw.setdefault("depth", 12)
+    return VisionTransformerST(patch_size=16, embed_dim=768, **kw)
 
 
 def vit_large_patch16(**kw) -> VisionTransformerST:
-    # num_heads is overridable: the attention params are [3D, D] / [D, D]
-    # whatever the head count
     kw.setdefault("num_heads", 16)
-    return VisionTransformerST(patch_size=16, embed_dim=1024, depth=24, **kw)
+    kw.setdefault("depth", 24)
+    return VisionTransformerST(patch_size=16, embed_dim=1024, **kw)
 
 
 flash_attn_vit_large_patch16 = vit_large_patch16
 
 
 def vit_huge_patch14(**kw) -> VisionTransformerST:
+    # 16 heads of head_dim 80: the [B, H, N, D] kernels (B3-B5, B7)
     kw.setdefault("num_heads", 16)
-    return VisionTransformerST(patch_size=14, embed_dim=1280, depth=32, **kw)
+    kw.setdefault("depth", 32)
+    return VisionTransformerST(patch_size=14, embed_dim=1280, **kw)
 
 
 # ---- seeded initialisation (the flax initialisers' distributions) ----

@@ -11,10 +11,11 @@ installed package, whose directory may be read-only) to
 Nothing here runs at import: the CPU tests import every module on a
 machine with no ``nvcc``.
 
-``launches`` counts kernel calls per library; a wrapper adds one exactly
-where it calls its kernel (one call may be several launches of one
-algorithm, as B2's passes are), so a run can show that its main path
-went through the kernels.
+``launches`` counts kernel calls per TPU kernel replaced (``COUNTERS``):
+a wrapper adds one exactly where it calls its kernel (one call may be
+several launches of one algorithm, as the backward's passes are), so a
+run can show that its main path went through the kernels.  The
+``[B, H, N, D]`` libraries serve two TPU kernels each, counted apart.
 """
 
 from __future__ import annotations
@@ -55,9 +56,37 @@ KERNELS = {
         "octcube_flash_bwd_packed_scratch": ([_I] * 5, ctypes.c_longlong),
         "octcube_error_string": ([_I], ctypes.c_char_p),
     }),
+    "flash_fwd_bh": ("flash_fwd_bh.cu", {
+        # q, k, v, kc, vc, o, lse, B, H, nq, nk, D, strides (q, k, v, o:
+        # batch, head, row), scale, is_bf16, stream
+        "octcube_flash_fwd_bh": ([_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
+                                 ctypes.c_int),
+        "octcube_error_string": ([_I], ctypes.c_char_p),
+    }),
+    "flash_bwd_bh": ("flash_bwd_bh.cu", {
+        # q, k, v, kc, vc, dO, lse, delta, dq, dk, dv, dkc, dvc, scratch,
+        # B, H, nq, nk, kv_valid, D, strides (q, k, v, dO, dq, dk, dv,
+        # dkc / dvc: batch, head, row), scale, no_max, is_bf16, stream
+        "octcube_flash_bwd_bh": ([_P] * 14 + [_I] * 6 + [_P, _F, _I, _I, _P],
+                                 ctypes.c_int),
+        # B, H, nq, D, is_bf16 -> fp32 floats of cls partial sums
+        "octcube_flash_bwd_bh_scratch": ([_I] * 5, ctypes.c_longlong),
+        "octcube_error_string": ([_I], ctypes.c_char_p),
+    }),
 }
 
-launches: dict[str, int] = {name: 0 for name in KERNELS}
+# launch counter -> the TPU kernel it replaces (octcubem_tpu/ops/
+# flash_attention.py)
+COUNTERS = {
+    "flash_fwd_packed": "B1 _fwd_kernel_packed",
+    "flash_bwd_packed": "B2 _bwd_kernel_packed",
+    "flash_fwd_bh_cls": "B3 _fwd_kernel_nomax_cls",
+    "flash_bwd_bh_cls": "B4 _fused_bwd_kernel_cls",
+    "flash_fwd_bh": "B5 _fwd_kernel_nomax",
+    "flash_bwd_bh": "B7 _fused_bwd_kernel",
+}
+
+launches: dict[str, int] = {name: 0 for name in COUNTERS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,18 +1,20 @@
 """Multi-head attention ops: the naive reference path and the flash
 dispatch (counterpart of octcubem_tpu/ops/attention.py).
 
-``impl="auto"`` and ``"flash"`` both take the packed flash path, whose
-device decides the rest: a CUDA tensor launches kernel B1, a CPU tensor
-runs B1's plain version (ops/flash_attention.py).  ``impl="naive"`` is
-the plain softmax(QK^T)V with an fp32 softmax.  The sequence- and
-head-parallel paths are not ported yet.
+``impl="auto"`` and ``"flash"`` both take the flash path, whose device
+decides the rest: a CUDA tensor launches the kernels (B1 / B2 on the
+packed layout, or B3-B5 / B7 on [B, H, N, D]), a CPU tensor runs their
+plain versions (ops/flash_attention.py).  ``impl="naive"`` is the plain
+softmax(QK^T)V with an fp32 softmax.  The sequence- and head-parallel
+paths are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention_packed, flash_attention_packed_qkv
+from .flash_attention import (flash_attention, flash_attention_packed,
+                              flash_attention_packed_qkv)
 
 
 def naive_attention(q, k, v, scale: float | None = None):
@@ -33,6 +35,14 @@ def _check_impl(impl: str) -> None:
             "ported yet (ROADMAP A14)")
     if impl not in ("auto", "flash", "naive"):
         raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def multi_head_attention(q, k, v, scale=None, impl: str = "auto"):
+    """[B, H, N, D] dispatch: ``flash_attention`` or the naive path."""
+    _check_impl(impl)
+    if impl == "naive":
+        return naive_attention(q, k, v, scale=scale)
+    return flash_attention(q, k, v, scale=scale)
 
 
 def multi_head_attention_packed(q, k, v, num_heads: int, scale=None,

@@ -1,8 +1,8 @@
-"""Fixed-shift flash attention on the packed-head layout.
+"""Fixed-shift flash attention: the packed-head path and the
+``[B, H, N, D]`` path.
 
-Counterpart of ``octcubem_tpu/ops/flash_attention.py``'s packed path
-(``flash_attention_packed_qkv`` / ``flash_attention_packed``).  Kernel B1
-replaces the TPU kernel ``_fwd_kernel_packed``:
+Counterpart of ``octcubem_tpu/ops/flash_attention.py``.  Six hand-written
+CUDA kernels replace its TPU kernels; all compute one function,
 
     s   = (q . k) * scale                       (fp32)
     p   = exp(min(s, NOMAX_CLAMP) - NOMAX_SHIFT)
@@ -10,8 +10,8 @@ replaces the TPU kernel ``_fwd_kernel_packed``:
     + one extra (cls) key/value folded in, when given
     o   = acc / l   (l <= 0 taken as 1),   lse = NOMAX_SHIFT + log l
 
-Kernel B2 replaces ``_bwd_kernel_packed``, the backward of the same
-function, given dO, lse and delta = rowsum(dO o) - g_lse per head:
+and its backward, given dO, lse and delta = rowsum(dO o) - g_lse per
+head:
 
     p   = exp(min(s, NOMAX_CLAMP) - lse)
     dv  = sum p.astype(dO.dtype) dO,   dp = dO . v
@@ -19,21 +19,36 @@ function, given dO, lse and delta = rowsum(dO o) - g_lse per head:
     dk  = sum ds q * scale,   dq = sum ds k * scale      (fp32)
     + the cls key/value's unrounded fp32 terms dkc, dvc and its share of dq
 
-``fwd_packed`` and ``bwd_packed`` dispatch on the tensor's device: a CUDA
-tensor launches the hand-written kernel (csrc/flash_fwd_packed.cu,
-csrc/flash_bwd_packed.cu) or raises; a CPU tensor runs the plain
-PyTorch version of the same function.  There is no fallback from the
-card to the plain version.  The public functions are differentiable:
-a ``torch.autograd.Function`` runs B1 forward, saving (o, lse), and B2
-backward.
+- B1 ``_fwd_kernel_packed`` / B2 ``_bwd_kernel_packed``: the packed
+  ``[B, N, H*D]`` layout (csrc/flash_fwd_packed.cu, flash_bwd_packed.cu),
+  head_dim in ``HEAD_DIMS``;
+- B3 ``_fwd_kernel_nomax_cls`` / B4 ``_fused_bwd_kernel_cls`` (with the cls
+  fold) and B5 ``_fwd_kernel_nomax`` / B7 ``_fused_bwd_kernel`` (without;
+  Nq != Nk with ``kv_valid`` too; B7 also the exact softmax's backward,
+  ``no_max=False``): ``[B, H, N, D]`` views with any batch, head and row
+  strides (csrc/flash_fwd_bh.cu, flash_bwd_bh.cu), head_dim in
+  ``BH_HEAD_DIMS``.
+
+Each ``*_plain`` function is the plain PyTorch version of a kernel, any
+head_dim.  The dispatchers (``fwd_packed``, ``bwd_packed``, ``fwd_bh``,
+``bwd_bh``) go by the tensor's device: a CUDA tensor launches the kernel
+or raises; a CPU tensor runs the plain version.  There is no fallback
+from the card to the plain version.  The public functions are
+differentiable through ``torch.autograd.Function``s that run a forward
+kernel, save (o, lse), and run its backward kernel; lse is an output
+whose cotangent folds into delta.
 
 The JAX kernels pad the sequence to their tile and remove the known
 e^-SHIFT mass of the zero pad keys (and of the zero "phantom" cls used
-when n % 128 != 1); the CUDA kernels mask their ragged tiles instead, so
-they need neither and compute the same function.
+when n % 128 != 1, and of the zero tail keys past ``kv_valid``); the CUDA
+kernels mask their ragged tiles and stop at ``kv_valid`` instead, so they
+need no correction and compute the same function.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -41,44 +56,143 @@ from . import _cuda
 
 NOMAX_SHIFT = 16.0
 NOMAX_CLAMP = 40.0
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 256)          # B1, B2 on the card
+BH_HEAD_DIMS = (32, 64, 80, 128, 256)   # B3, B4, B5, B7 on the card
+_B6 = ("no_max=False (the exact online-softmax forward, TPU kernel B6 "
+       "_fwd_kernel) is not ported yet (ROADMAP B6)")
 
 
-def _head_dim(hd: int, num_heads: int) -> int:
+def _split_heads(hd: int, num_heads: int) -> int:
+    """head_dim of a packed width; raises unless the heads divide it."""
     d = hd // num_heads
-    if d * num_heads != hd or d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd}/{num_heads} not in {HEAD_DIMS}")
+    if d * num_heads != hd:
+        raise ValueError(f"width {hd} is not {num_heads} whole heads")
     return d
+
+
+def _bhnd(x, num_heads: int):
+    """[B, m, H*D] -> the [B, H, m, D] view (no copy for unit-stride
+    rows)."""
+    b, m, hd = x.shape
+    return x.reshape(b, m, num_heads, hd // num_heads).transpose(1, 2)
+
+
+def _packed(x):
+    """[B, H, m, D] -> [B, m, H*D] (no copy when heads lie inside rows)."""
+    b, h, m, d = x.shape
+    return x.transpose(1, 2).reshape(b, m, h * d)
+
+
+# ------------------------------------------------------- the plain versions
+
+def fwd_bh_plain(q, k, v, kc, vc, scale: float, kv_valid: int | None = None):
+    """Plain PyTorch B3 (kc, vc given) and B5 (kc = vc = None; Nq != Nk
+    and ``kv_valid`` for the rectangular form).  q: [B, H, Nq, D]; k, v:
+    [B, H, Nk, D]; kc, vc: [B, H, 1, D] or None -> (o [B, H, Nq, D] in q's
+    dtype, lse [B, H, Nq] fp32), over the first ``kv_valid`` keys (default
+    all)."""
+    if kv_valid is not None:
+        k, v = k[:, :, :kv_valid], v[:, :, :kv_valid]
+    qf = q.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, k.float()) * scale
+    p = torch.exp(torch.clamp(s, max=NOMAX_CLAMP) - NOMAX_SHIFT)
+    l = p.sum(-1)                                             # [B, H, Nq]
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    if kc is not None:
+        s_c = (qf * kc.float()).sum(-1) * scale               # [B, H, Nq]
+        p_c = torch.exp(torch.clamp(s_c, max=NOMAX_CLAMP) - NOMAX_SHIFT)
+        l = l + p_c
+        acc = acc + p_c[..., None] * vc.float()
+    l_safe = torch.where(l <= 0.0, torch.ones_like(l), l)
+    o = acc / l_safe[..., None]
+    return o.to(q.dtype), NOMAX_SHIFT + torch.log(l_safe)
 
 
 def fwd_packed_plain(q, k, v, kc, vc, num_heads: int, scale: float):
     """Plain PyTorch B1.  q, k, v: [B, m, H*D]; kc, vc: [B, 1, H*D] or
-    None -> (o [B, m, H*D] in q's dtype, lse [B, H, m] fp32)."""
-    b, m, hd = q.shape
-    d = _head_dim(hd, num_heads)
+    None -> (o [B, m, H*D] in q's dtype, lse [B, H, m] fp32).  B5's and
+    B3's function on the packed layout."""
+    _split_heads(q.shape[-1], num_heads)
+    o, lse = fwd_bh_plain(*(None if t is None else _bhnd(t, num_heads)
+                            for t in (q, k, v, kc, vc)), scale)
+    return _packed(o), lse
 
-    def heads(x):
-        return x.reshape(b, x.shape[1], num_heads, d).float()
 
-    qf = heads(q)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, heads(k)) * scale
-    p = torch.exp(torch.clamp(s, max=NOMAX_CLAMP) - NOMAX_SHIFT)
-    l = p.sum(-1)                                             # [B, H, m]
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), heads(v))
+def _delta_bh(o, do, g_lse):
+    """delta = rowsum(dO o) - g_lse -> [B, H, m] fp32 (plain PyTorch
+    outside the kernels, as in the JAX package)."""
+    delta = torch.einsum("bhnd,bhnd->bhn", do.float(), o.float())
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def bwd_bh_plain(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
+                 no_max: bool = True, kv_valid: int | None = None):
+    """Plain PyTorch B4 (kc, vc given) and B7 (kc = vc = None; Nq != Nk
+    and ``kv_valid`` for the rectangular form; ``no_max=False`` for the
+    exact softmax's backward: no clamp in p, ds unmasked).  q, o, do:
+    [B, H, Nq, D]; k, v: [B, H, Nk, D]; kc, vc: [B, H, 1, D] or None; lse,
+    g_lse: [B, H, Nq] fp32 (g_lse may be None) -> (dq, dk, dv, dkc, dvc),
+    dkc / dvc None without the cls fold; key rows at or past ``kv_valid``
+    get dk = dv = 0."""
+    nk = k.shape[2]
+    if kv_valid is not None:
+        k, v = k[:, :, :kv_valid], v[:, :, :kv_valid]
+    clamp = NOMAX_CLAMP if no_max else math.inf
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = _delta_bh(o, do, g_lse)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    clamped = s > clamp
+    p = torch.exp(torch.clamp(s, max=clamp) - lse[..., None])
+    del s
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = torch.where(clamped, 0.0, p * (dp - delta[..., None]))
+    del p, dp, clamped
+    ds = ds.to(q.dtype).float()
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dkc = dvc = None
     if kc is not None:
-        s_c = (qf * heads(kc)).sum(-1) * scale                # [B, m, H]
-        p_c = torch.exp(torch.clamp(s_c, max=NOMAX_CLAMP) - NOMAX_SHIFT)
-        l = l + p_c.transpose(1, 2)
-        acc = acc + p_c[..., None] * heads(vc)
-    l_safe = torch.where(l <= 0.0, torch.ones_like(l), l)
-    o = acc / l_safe.transpose(1, 2)[..., None]
-    return o.to(q.dtype).reshape(b, m, hd), NOMAX_SHIFT + torch.log(l_safe)
+        kcf, vcf = kc.float(), vc.float()                     # [B, H, 1, D]
+        s_c = (qf * kcf).sum(-1) * scale                      # [B, H, Nq]
+        p_c = torch.exp(torch.clamp(s_c, max=clamp) - lse)
+        dp_c = (dof * vcf).sum(-1)
+        ds_c = torch.where(s_c > clamp, 0.0, p_c * (dp_c - delta))
+        dvc = (p_c[..., None] * dof).sum(2, keepdim=True).to(vc.dtype)
+        dkc = ((ds_c[..., None] * qf).sum(2, keepdim=True) * scale).to(kc.dtype)
+        dq = dq + ds_c[..., None] * kcf * scale
+    if dk.shape[2] < nk:  # the tail past kv_valid
+        pad = (0, 0, 0, nk - dk.shape[2])
+        dk, dv = (torch.nn.functional.pad(t, pad) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dkc, dvc
+
+
+def bwd_packed_plain(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
+                     scale: float):
+    """Plain PyTorch B2 (the JAX ``_bwd_packed_impl``).  q, k, v, o, do:
+    [B, m, H*D]; kc, vc: [B, 1, H*D] or None; lse, g_lse: [B, H, m] fp32
+    (g_lse may be None) -> (dq, dk, dv, dkc, dvc), dkc / dvc None without
+    the cls fold.  B4's and B7's function on the packed layout."""
+    _split_heads(q.shape[-1], num_heads)
+    grads = bwd_bh_plain(*(None if t is None else _bhnd(t, num_heads)
+                           for t in (q, k, v, kc, vc, o)), lse,
+                         _bhnd(do, num_heads), g_lse, scale)
+    return tuple(None if g is None else _packed(g) for g in grads)
+
+
+# ------------------------------------------------------- the kernels' inputs
+
+def _kernel_head_dim(d: int, dims: tuple[int, ...], what: str) -> None:
+    if d not in dims:
+        raise ValueError(f"{what} on the card takes head_dim in {dims}, "
+                         f"not {d}")
 
 
 def _rows_aligned(t) -> bool:
-    """Unit stride along the packed heads, a 16-byte aligned start, and
-    row and batch strides in 16-byte multiples (the kernels' vector
-    loads)."""
+    """Unit stride along D, a 16-byte aligned start, and every other
+    stride a 16-byte multiple (the kernels' vector loads)."""
     es = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all((s * es) % 16 == 0 for s in t.stride()[:-1]))
@@ -86,24 +200,29 @@ def _rows_aligned(t) -> bool:
 
 def _check_rows(ts, what: str) -> None:
     if not all(_rows_aligned(t) for t in ts):
-        raise ValueError(f"{what}: packed heads need unit stride and "
-                         "16-byte aligned rows and strides")
+        raise ValueError(f"{what}: rows need unit stride along D and "
+                         "16-byte aligned starts and strides")
+
+
+def _check_types(q, ts) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, not {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dtype {q.dtype} not in (bfloat16, float32)")
+    for t in ts:
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("q, k, v, kc, vc must share dtype and device")
 
 
 def _check_kernel_inputs(q, k, v, kc, vc, num_heads: int) -> int:
     """The inputs B1 and B2 take -> head_dim; raises on anything else."""
-    if q.device.type != "cuda":
-        raise ValueError(f"the kernel takes CUDA tensors, not {q.device}")
     b, m, hd = q.shape
-    d = _head_dim(hd, num_heads)
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"dtype {q.dtype} not in (bfloat16, float32)")
+    d = _split_heads(hd, num_heads)
+    _kernel_head_dim(d, HEAD_DIMS, "B1 / B2")
     cls = [t for t in (kc, vc) if t is not None]
     if len(cls) == 1:
         raise ValueError("kc and vc are given together or not at all")
-    for t in (k, v, *cls):
-        if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError("q, k, v, kc, vc must share dtype and device")
+    _check_types(q, (k, v, *cls))
     for t in (k, v):
         if t.shape != q.shape or t.stride() != q.stride():
             raise ValueError("q, k, v must share shape and strides")
@@ -113,6 +232,8 @@ def _check_kernel_inputs(q, k, v, kc, vc, num_heads: int) -> int:
     _check_rows((q, k, v, *cls), "q, k, v, kc, vc")
     return d
 
+
+# ------------------------------------------------------ packed: B1 and B2
 
 def fwd_packed_cuda(q, k, v, kc, vc, num_heads: int, scale: float):
     """B1 on the card.  q, k, v may be column views of one fused Wqkv
@@ -148,61 +269,6 @@ def fwd_packed(q, k, v, kc, vc, num_heads: int, scale: float):
     raise ValueError(f"no attention path for device {q.device}")
 
 
-def _delta(o, do, g_lse, num_heads: int):
-    """delta = rowsum(dO o) - g_lse per head -> [B, H, m] fp32 (plain
-    PyTorch outside the kernel, as in the JAX package)."""
-    b, m, hd = o.shape
-    d = hd // num_heads
-    delta = torch.einsum("bnhd,bnhd->bhn", do.reshape(b, m, num_heads, d).float(),
-                         o.reshape(b, m, num_heads, d).float())
-    if g_lse is not None:
-        delta = delta - g_lse.float()
-    return delta.contiguous()
-
-
-def bwd_packed_plain(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
-                     scale: float):
-    """Plain PyTorch B2 (the JAX ``_bwd_packed_impl``).  q, k, v, o, do:
-    [B, m, H*D]; kc, vc: [B, 1, H*D] or None; lse, g_lse: [B, H, m] fp32
-    (g_lse may be None) -> (dq, dk, dv, dkc, dvc), dkc / dvc None without
-    the cls fold."""
-    b, m, hd = q.shape
-    d = _head_dim(hd, num_heads)
-
-    def heads(x):
-        return x.reshape(b, x.shape[1], num_heads, d).float()
-
-    qf, kf, vf, dof = heads(q), heads(k), heads(v), heads(do)
-    delta = _delta(o, do, g_lse, num_heads)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    clamped = s > NOMAX_CLAMP
-    p = torch.exp(torch.clamp(s, max=NOMAX_CLAMP) - lse[..., None])
-    del s
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = torch.where(clamped, 0.0, p * (dp - delta[..., None]))
-    del p, dp, clamped
-    ds = ds.to(q.dtype).float()
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-    dkc = dvc = None
-    if kc is not None:
-        kcf, vcf = heads(kc), heads(vc)                      # [B, 1, H, D]
-        s_c = (qf * kcf).sum(-1) * scale                      # [B, m, H]
-        p_c = torch.exp(torch.clamp(s_c, max=NOMAX_CLAMP)
-                        - lse.transpose(1, 2))
-        dp_c = (dof * vcf).sum(-1)
-        ds_c = torch.where(s_c > NOMAX_CLAMP, 0.0,
-                           p_c * (dp_c - delta.transpose(1, 2)))
-        dvc = (p_c[..., None] * dof).sum(1, keepdim=True)
-        dkc = (ds_c[..., None] * qf).sum(1, keepdim=True) * scale
-        dq = dq + ds_c[..., None] * kcf * scale
-        dkc = dkc.to(k.dtype).reshape(b, 1, hd)
-        dvc = dvc.to(v.dtype).reshape(b, 1, hd)
-    return (dq.to(q.dtype).reshape(b, m, hd), dk.to(k.dtype).reshape(b, m, hd),
-            dv.to(v.dtype).reshape(b, m, hd), dkc, dvc)
-
-
 def bwd_packed_cuda(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
                     scale: float, out=None):
     """B2 on the card.  Inputs as ``fwd_packed_cuda`` takes them, plus B1's
@@ -223,7 +289,7 @@ def bwd_packed_cuda(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
     if not _rows_aligned(do):
         do = do.contiguous()
     lse = lse.contiguous()
-    delta = _delta(o, do, g_lse, num_heads)
+    delta = _delta_bh(_bhnd(o, num_heads), _bhnd(do, num_heads), g_lse)
     if out is None:
         dq, dk, dv = (torch.empty((b, m, hd), dtype=q.dtype, device=q.device)
                       for _ in range(3))
@@ -282,6 +348,219 @@ def bwd_packed(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
     return out
 
 
+# ------------------------------------------- [B, H, N, D]: B3, B4, B5, B7
+
+def _check_bh_inputs(q, k, v, kc, vc) -> int:
+    """The inputs B3, B4, B5 and B7 take -> head_dim; raises on anything
+    else.  Every operand has its own strides; kc / vc share k's / v's
+    batch and head strides."""
+    b, h, nq, d = q.shape
+    _kernel_head_dim(d, BH_HEAD_DIMS, "B3, B4, B5, B7")
+    cls = [t for t in (kc, vc) if t is not None]
+    if len(cls) == 1:
+        raise ValueError("kc and vc are given together or not at all")
+    _check_types(q, (k, v, *cls))
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError("k, v must be [B, H, Nk, D] of q's B, H and D")
+    for t, kv in zip(cls, (k, v)):
+        if t.shape != (b, h, 1, d) or t.stride()[:2] != kv.stride()[:2]:
+            raise ValueError("kc / vc must be [B, H, 1, D] rows of k / v")
+    _check_rows((q, k, v, *cls), "q, k, v, kc, vc")
+    return d
+
+
+def _empty_like_rows(t, dtype=None):
+    """An empty [B, H, rows, D] tensor laid out as ``t`` is: heads inside
+    rows ([B, rows, H, D] memory, so that the packed view of it is free)
+    when t's head stride is below its row stride, else contiguous."""
+    b, h, n, d = t.shape
+    dtype = dtype or t.dtype
+    if t.stride(1) < t.stride(2):
+        return torch.empty((b, n, h, d), dtype=dtype,
+                           device=t.device).transpose(1, 2)
+    return torch.empty((b, h, n, d), dtype=dtype, device=t.device)
+
+
+def _strides(*ts):
+    """The kernels' stride array: (batch, head, row) of each tensor, each
+    below 2^31 (the kernels keep 32-bit strides)."""
+    vals = [s for t in ts for s in t.stride()[:3]]
+    if max(vals) >= 2 ** 31:
+        raise ValueError("a stride of 2^31 elements or more")
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _kv_valid(kv_valid, nk: int) -> int:
+    kv = nk if kv_valid is None else int(kv_valid)
+    if not 1 <= kv <= nk:
+        raise ValueError(f"kv_valid {kv_valid} not in [1, {nk}]")
+    return kv
+
+
+def fwd_bh_cuda(q, k, v, kc, vc, scale: float, kv_valid: int | None = None):
+    """B3 (kc, vc given) or B5 on the card.  q [B, H, Nq, D], k, v
+    [B, H, Nk, D], kc, vc [B, H, 1, D], each with any batch, head and row
+    strides and unit stride along D (e.g. the [B, H, N, D] views of a fused
+    Wqkv buffer).  o comes out laid out as q is (``_empty_like_rows``)."""
+    b, h, nq, d = q.shape
+    d = _check_bh_inputs(q, k, v, kc, vc)
+    kv = _kv_valid(kv_valid, k.shape[2])
+    cls = kc is not None
+    o = _empty_like_rows(q)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    lib = _cuda.library("flash_fwd_bh")
+    with torch.cuda.device(q.device):
+        err = lib.octcube_flash_fwd_bh(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kc.data_ptr() if cls else None, vc.data_ptr() if cls else None,
+            o.data_ptr(), lse.data_ptr(), b, h, nq, kv, d,
+            _strides(q, k, v, o), float(scale),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda.check(lib, err, "flash_fwd_bh")
+    _cuda.launches["flash_fwd_bh_cls" if cls else "flash_fwd_bh"] += 1
+    return o, lse
+
+
+def fwd_bh(q, k, v, kc, vc, scale: float, kv_valid: int | None = None):
+    """B3 / B5 -> (o, lse): the kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    if q.device.type == "cuda":
+        return fwd_bh_cuda(q, k, v, kc, vc, scale, kv_valid)
+    if q.device.type == "cpu":
+        return fwd_bh_plain(q, k, v, kc, vc, scale, kv_valid)
+    raise ValueError(f"no attention path for device {q.device}")
+
+
+def bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
+                no_max: bool = True, kv_valid: int | None = None):
+    """B4 (kc, vc given) or B7 on the card.  Inputs as ``fwd_bh_cuda``
+    takes them, plus the forward's o and lse and the incoming dO (any
+    strides; copied only when its rows are not 16-byte aligned) -> (dq,
+    dk, dv, dkc, dvc), dq, dk, dv laid out as q, k, v are, dkc / dvc
+    [B, H, 1, D].  One kernel call (the dk/dv pass, the dq pass and, with
+    the cls fold, the cls sums) counts once."""
+    b, h, nq, d = q.shape
+    d = _check_bh_inputs(q, k, v, kc, vc)
+    nk = k.shape[2]
+    kv = _kv_valid(kv_valid, nk)
+    cls = kc is not None
+    if cls and not no_max:
+        raise ValueError("the cls fold is a fixed-shift (no_max) path")
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError("dO must match q's shape, dtype and device")
+    if lse.shape != (b, h, nq) or lse.dtype != torch.float32:
+        raise ValueError("lse must be [B, H, Nq] fp32")
+    if not _rows_aligned(do):
+        do = do.contiguous()
+    lse = lse.contiguous()
+    delta = _delta_bh(o, do, g_lse)
+    dq, dk, dv = (_empty_like_rows(t) for t in (q, k, v))
+    dkc, dvc = ((torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+                 for _ in range(2)) if cls else (None, None))
+    bf16 = int(q.dtype == torch.bfloat16)
+    lib = _cuda.library("flash_bwd_bh")
+    scratch = (torch.empty(lib.octcube_flash_bwd_bh_scratch(b, h, nq, d, bf16),
+                           dtype=torch.float32, device=q.device)
+               if cls else None)
+    # dkc / dvc share one layout; without the cls fold q's stands in, unread
+    strides = _strides(q, k, v, do, dq, dk, dv, dkc if cls else q)
+    with torch.cuda.device(q.device):
+        err = lib.octcube_flash_bwd_bh(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kc.data_ptr() if cls else None, vc.data_ptr() if cls else None,
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dkc.data_ptr() if cls else None, dvc.data_ptr() if cls else None,
+            scratch.data_ptr() if cls else None, b, h, nq, nk, kv, d, strides,
+            float(scale), int(no_max), bf16,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda.check(lib, err, "flash_bwd_bh")
+    _cuda.launches["flash_bwd_bh_cls" if cls else "flash_bwd_bh"] += 1
+    return dq, dk, dv, dkc, dvc
+
+
+def bwd_bh(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
+           no_max: bool = True, kv_valid: int | None = None):
+    """B4 / B7 -> (dq, dk, dv, dkc, dvc): the kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if q.device.type == "cuda":
+        return bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale, no_max,
+                           kv_valid)
+    if q.device.type == "cpu":
+        return bwd_bh_plain(q, k, v, kc, vc, o, lse, do, g_lse, scale, no_max,
+                            kv_valid)
+    raise ValueError(f"no attention path for device {q.device}")
+
+
+# ---------------------------------------------------- autograd Functions
+
+def _zero_grad_if_none(g, o):
+    return torch.zeros_like(o) if g is None else g
+
+
+class FlashBHRect(torch.autograd.Function):
+    """B5 forward, B7 backward (the JAX ``_flash_bh_rect``):
+    ``apply(q, k, v, scale, kv_valid)`` with q [B, H, Nq, D] and k, v
+    [B, H, Nk, D] -> (o, lse) over the first ``kv_valid`` keys (None: all);
+    dk and dv are 0 in the rows at or past it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, kv_valid):
+        o, lse = fwd_bh(q, k, v, None, None, scale, kv_valid)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.kv_valid = scale, kv_valid
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if g is None and g_lse is None:
+            return (None,) * 5
+        dq, dk, dv, _, _ = bwd_bh(q, k, v, None, None, o, lse,
+                                  _zero_grad_if_none(g, o), g_lse, ctx.scale,
+                                  kv_valid=ctx.kv_valid)
+        return dq, dk, dv, None, None
+
+
+class FlashBH(FlashBHRect):
+    """B5 forward, B7 backward over [B, H, N, D] (the JAX ``_flash_bh``):
+    ``apply(q, k, v, scale)`` -> (o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        return FlashBHRect.forward(ctx, q, k, v, scale, None)
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        return FlashBHRect.backward(ctx, g, g_lse)[:4]
+
+
+class FlashBHCls(torch.autograd.Function):
+    """B3 forward, B4 backward (the JAX ``_flash_bh_cls``):
+    ``apply(q, k, v, kc, vc, scale)`` with q, k, v [B, H, m, D] and the
+    cls key/value kc, vc [B, H, 1, D] -> (o, lse); the backward gives dq,
+    dk, dv, dkc and dvc."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kc, vc, scale: float):
+        o, lse = fwd_bh(q, k, v, kc, vc, scale)
+        ctx.save_for_backward(q, k, v, kc, vc, o, lse)
+        ctx.scale = scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, kc, vc, o, lse = ctx.saved_tensors
+        if g is None and g_lse is None:
+            return (None,) * 6
+        grads = bwd_bh(q, k, v, kc, vc, o, lse, _zero_grad_if_none(g, o),
+                       g_lse, ctx.scale)
+        return (*grads, None)
+
+
 def _split_qkv(qkv, cls: bool):
     """The kernels' q, k, v, kc, vc as column views of the fused buffer:
     rows 1: with row 0 as the cls key/value, or all rows and no cls."""
@@ -313,13 +592,12 @@ class FlashPackedQKV(torch.autograd.Function):
         qkv, o, lse = ctx.saved_tensors
         if g is None and g_lse is None:
             return None, None, None, None
-        if g is None:
-            g = torch.zeros_like(o)
         dqkv = torch.empty_like(qkv)
         if ctx.cls:
             dqkv[:, 0, :qkv.shape[-1] // 3].zero_()
-        bwd_packed(*_split_qkv(qkv, ctx.cls), o, lse, g, g_lse, ctx.num_heads,
-                   ctx.scale, out=_split_qkv(dqkv, ctx.cls))
+        bwd_packed(*_split_qkv(qkv, ctx.cls), o, lse, _zero_grad_if_none(g, o),
+                   g_lse, ctx.num_heads, ctx.scale,
+                   out=_split_qkv(dqkv, ctx.cls))
         return dqkv, None, None, None
 
 
@@ -341,25 +619,22 @@ class FlashPacked(torch.autograd.Function):
         q, k, v, kc, vc, o, lse = ctx.saved_tensors
         if g is None and g_lse is None:
             return (None,) * 7
-        if g is None:
-            g = torch.zeros_like(o)
-        grads = bwd_packed(q, k, v, kc, vc, o, lse, g, g_lse, ctx.num_heads,
-                           ctx.scale)
+        grads = bwd_packed(q, k, v, kc, vc, o, lse, _zero_grad_if_none(g, o),
+                           g_lse, ctx.num_heads, ctx.scale)
         return (*grads, None, None)
 
 
-def _cls_query_row(q, k, v, num_heads: int, scale: float):
-    """The cls query's full softmax row, in the JAX package's order: fp32
-    logits, softmax, probabilities cast to the input dtype, fp32 PV."""
-    b, n, hd = k.shape
-    d = hd // num_heads
-    qc = q[:, :1].reshape(b, 1, num_heads, d).float()
-    s_row = torch.einsum("bohd,bnhd->bhon", qc,
-                         k.reshape(b, n, num_heads, d).float()) * scale
+# ------------------------------------------------------------- public ops
+
+def _cls_query_row(q, k, v, scale: float):
+    """The cls query's full softmax row on [B, H, N, D], in the JAX
+    package's order: fp32 logits, softmax, probabilities cast to the input
+    dtype, fp32 PV -> [B, H, 1, D]."""
+    s_row = torch.einsum("bhod,bhnd->bhon", q[:, :, :1].float(),
+                         k.float()) * scale
     p_row = torch.softmax(s_row, dim=-1)
-    out = torch.einsum("bhon,bnhd->bohd", p_row.to(q.dtype).float(),
-                       v.reshape(b, n, num_heads, d).float())
-    return out.to(q.dtype).reshape(b, 1, hd)
+    out = torch.einsum("bhon,bhnd->bhod", p_row.to(q.dtype).float(), v.float())
+    return out.to(q.dtype)
 
 
 def _cls_split(n: int) -> bool:
@@ -368,21 +643,78 @@ def _cls_split(n: int) -> bool:
     return n % 128 == 1 and n > 128
 
 
+def _split_cls_attention(q, k, v, scale: float):
+    """Attention for a cls-prefixed [B, H, N, D] sequence: B3 / B4 on
+    tokens 1: with token 0 folded in as the extra key/value, and the cls
+    query's row in plain PyTorch (the JAX ``_split_cls_attention``)."""
+    out_tok, _ = FlashBHCls.apply(q[:, :, 1:], k[:, :, 1:], v[:, :, 1:],
+                                  k[:, :, :1], v[:, :, :1], scale)
+    return torch.cat([_cls_query_row(q, k, v, scale), out_tok], dim=2)
+
+
+def flash_attention(q, k, v, scale: float | None = None, no_max: bool = True):
+    """q, k, v: [B, H, N, D] -> [B, H, N, D].  Differentiable.
+
+    A cls-prefixed sequence (n % 128 == 1, n > 128) runs B3 / B4 on tokens
+    1: (``_split_cls_attention``); any other n runs B5 / B7.  Any batch,
+    head and row strides with unit stride along D reach the kernels as
+    they are.  ``no_max=False`` (the exact online softmax, TPU kernel B6)
+    is not ported yet.  The TPU tiling knobs ``block_q`` / ``block_k`` are
+    not carried over."""
+    if not no_max:
+        raise NotImplementedError(_B6)
+    d, n = q.shape[-1], q.shape[2]
+    scale = float(d ** -0.5 if scale is None else scale)
+    if _cls_split(n):
+        return _split_cls_attention(q, k, v, scale)
+    out, _ = FlashBH.apply(q, k, v, scale)
+    return out
+
+
+def flash_attention_rect(q, k, v, scale: float | None = None,
+                         no_max: bool = True, kv_valid: int | None = None):
+    """Cross-attention-shaped flash: q [B, H, Nq, D] against k, v
+    [B, H, Nk, D], Nq != Nk allowed.  Differentiable; B5 / B7.
+
+    Only the first ``kv_valid`` keys (default all) are attended.  As in the
+    JAX package, the caller keeps the tail rows of k and v at zero and
+    zeroes their gradient (the JAX backward leaves values there; the
+    kernels here write zeros, so the two agree through that zeroing)."""
+    if not no_max:
+        raise NotImplementedError(_B6)
+    d = q.shape[-1]
+    scale = float(d ** -0.5 if scale is None else scale)
+    kv = _kv_valid(kv_valid, k.shape[2])
+    out, _ = FlashBHRect.apply(q, k, v, scale, kv)
+    return out
+
+
 def flash_attention_packed(q, k, v, num_heads: int,
                            scale: float | None = None):
     """q, k, v: [B, N, H*D] -> [B, N, H*D].  Differentiable.
 
-    A cls-prefixed sequence runs B1 on tokens 1: with token 0 folded in as
-    the extra key/value, and its cls query row in plain PyTorch; any other
-    n runs B1 over all tokens.  The backward is B2."""
+    A head_dim that B1 / B2 serve (``HEAD_DIMS``) runs them: a cls-prefixed
+    sequence runs B1 on tokens 1: with token 0 folded in as the extra
+    key/value, and its cls query row in plain PyTorch; any other n runs
+    B1 over all tokens; the backward is B2.  Any other head_dim (80 for
+    the ViT-H/14 family at 16 heads) goes to ``flash_attention`` on the
+    [B, H, N, D] views, as the JAX package falls back for shapes its
+    packed kernels do not serve.  The JAX rule there is the TPU's lane
+    grouping (G = 128 / d heads per kernel instance); B1 indexes heads by
+    stride, so only the head_dim decides here."""
     b, n, hd = q.shape
-    d = _head_dim(hd, num_heads)
+    d = _split_heads(hd, num_heads)
     scale = float(d ** -0.5 if scale is None else scale)
+    if d not in HEAD_DIMS:
+        return _packed(flash_attention(_bhnd(q, num_heads), _bhnd(k, num_heads),
+                                       _bhnd(v, num_heads), scale=scale))
     if _cls_split(n):
         out_tok, _ = FlashPacked.apply(q[:, 1:], k[:, 1:], v[:, 1:], k[:, :1],
                                        v[:, :1], num_heads, scale)
-        out_cls = _cls_query_row(q, k, v, num_heads, scale)
-        return torch.cat([out_cls, out_tok], dim=1)
+        out_cls = _cls_query_row(_bhnd(q[:, :1], num_heads),
+                                 _bhnd(k, num_heads), _bhnd(v, num_heads),
+                                 scale)
+        return torch.cat([_packed(out_cls), out_tok], dim=1)
     out, _ = FlashPacked.apply(q, k, v, None, None, num_heads, scale)
     return out
 
@@ -394,15 +726,22 @@ def flash_attention_packed_qkv(qkv, num_heads: int,
 
     The kernels read q, k and v as column views of the fused buffer
     (q at column h*D, k at H*D + h*D, v at 2*H*D + h*D), so the slices
-    never materialize, and B2 writes the gradient into one dqkv buffer."""
+    never materialize, and B2 writes the gradient into one dqkv buffer.
+    A head_dim outside ``HEAD_DIMS`` goes to ``flash_attention`` on the
+    [B, H, N, D] views of the buffer (batch stride N*3*H*D, head stride D,
+    row stride 3*H*D), which B3-B7 read with no transpose copy."""
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
-    d = _head_dim(hd, num_heads)
+    d = _split_heads(hd, num_heads)
     scale = float(d ** -0.5 if scale is None else scale)
+    if d not in HEAD_DIMS:
+        q, k, v, _, _ = _split_qkv(qkv, False)
+        return flash_attention_packed(q, k, v, num_heads, scale=scale)
     cls = _cls_split(n)
     out, _ = FlashPackedQKV.apply(qkv, num_heads, scale, cls)
     if not cls:
         return out
-    out_cls = _cls_query_row(qkv[..., :hd], qkv[..., hd:2 * hd],
-                             qkv[..., 2 * hd:], num_heads, scale)
-    return torch.cat([out_cls, out], dim=1)
+    q, k, v, _, _ = _split_qkv(qkv, False)
+    out_cls = _cls_query_row(_bhnd(q[:, :1], num_heads), _bhnd(k, num_heads),
+                             _bhnd(v, num_heads), scale)
+    return torch.cat([_packed(out_cls), out], dim=1)

@@ -1,7 +1,9 @@
-"""Where the serving forward's time goes: entry()'s ViT-L 48x256x256 bf16
-forward under torch.profiler, on one card.
+"""Where the serving forward's time goes: entry()'s bf16 classifier
+forward under torch.profiler, on one card: ViT-L/16 at 48x256x256, or
+ViT-H/14 (16 heads of 80, kernel B3) at 48x224x224 with ``--model vit-h``.
 
-    python -m octcubem_tpu_torch.scripts.profile_forward [--iters 5]
+    python -m octcubem_tpu_torch.scripts.profile_forward [--model vit-l]
+        [--iters 5]
 
 Prints the card's name and power limit, the wall time per forward (host
 clock around forwards that end in a synchronize), the device-busy time
@@ -39,6 +41,7 @@ def kernel_rows(prof):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", choices=("vit-l", "vit-h"), default="vit-l")
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--trace", default=None)
@@ -48,11 +51,13 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ..entry import entry
+    from ..models import vit_st
 
     if not torch.cuda.is_available():
         print("profile_forward: no CUDA device", file=sys.stderr)
         return 2
-    fn, (model, x) = entry()
+    fn, (model, x) = entry(**(dict(ctor=vit_st.vit_huge_patch14, img_size=224)
+                              if args.model == "vit-h" else {}))
     for _ in range(2):
         fn(model, x)
     torch.cuda.synchronize()
@@ -75,7 +80,7 @@ def main(argv=None) -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip())
-    print(json.dumps({"wall_ms_per_forward": wall_ms,
+    print(json.dumps({"model": args.model, "wall_ms_per_forward": wall_ms,
                       "device_busy_ms_per_forward": busy_ms,
                       "idle_share": 1.0 - busy_ms / wall_ms}))
     for key, count, us in kernels[:args.top]:

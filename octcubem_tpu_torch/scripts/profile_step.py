@@ -1,16 +1,19 @@
-"""Where the training step's time goes: train_entry()'s ViT-L 3D MAE step
-(60x256x256, mask 0.90, bf16, fused AdamW) under torch.profiler, on one
-card.
+"""Where the training step's time goes: train_entry()'s 3D MAE step
+(mask 0.90, batch 4, bf16, fused AdamW) under torch.profiler, on one card:
+ViT-L/16 at 60x256x256, or ViT-H/14 at 60x224x224 with ``--model vit-h``.
 
-    python -m octcubem_tpu_torch.scripts.profile_step [--dec-heads 16]
-        [--iters 3] [--top 20]
+    python -m octcubem_tpu_torch.scripts.profile_step [--model vit-l]
+        [--dec-heads 16] [--iters 3] [--top 20]
 
 Prints the card's name and power limit, the wall time per step (host
 clock around steps that end in a synchronize), the device-busy time per
 step (the sum of kernel times: one stream, so they do not overlap), the
-idle share 1 - busy / wall, the kernel time per step by group (B1, B2,
-GEMMs, the optimizer's multi-tensor passes, ...), and the kernels by
-device time per step.
+idle share 1 - busy / wall, the kernel time per step by group (the flash
+kernels, GEMMs, the optimizer's multi-tensor passes, ...), and the
+kernels by device time per step.  The packed kernels (B1, B2) and the
+[B, H, N, D] ones (B3-B5, B7) share their function names; the head_dim
+template argument tells them apart on these paths: 80 is ViT-H's
+encoder (B5, B7), every other head_dim the packed kernels.
 """
 
 from __future__ import annotations
@@ -23,12 +26,15 @@ import time
 
 from .profile_forward import kernel_rows
 
+FWD = ("fwd_bf16_kernel", "fwd_f32_kernel")
+BWD = ("dkdv_bf16_kernel", "dq_bf16_kernel", "dkdv_core_kernel",
+       "dq_core_kernel", "cls_reduce_kernel")
 # kernel-name substrings -> group, first match wins
 GROUPS = (
-    ("B1 flash_fwd_packed", ("fwd_bf16_kernel", "fwd_f32_kernel")),
-    ("B2 flash_bwd_packed", ("dkdv_bf16_kernel", "dq_bf16_kernel",
-                             "dkdv_core_kernel", "dq_core_kernel",
-                             "cls_reduce_kernel")),
+    ("flash forward, head_dim 80 (B3 / B5)", tuple(k + "<80" for k in FWD)),
+    ("flash backward, head_dim 80 (B4 / B7)", tuple(k + "<80" for k in BWD)),
+    ("flash forward, other head_dim (B1)", FWD),
+    ("flash backward, other head_dim (B2)", BWD),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "gemv")),
     ("AdamW and grad norm (multi-tensor)", ("multi_tensor", "foreach")),
     ("LayerNorm", ("layer_norm",)),
@@ -40,6 +46,9 @@ GROUPS = (
 )
 
 
+MODELS = ("vit-l", "vit-h")
+
+
 def group_of(name: str) -> str:
     for group, keys in GROUPS:
         if any(k in name for k in keys):
@@ -49,6 +58,7 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", choices=MODELS, default="vit-l")
     parser.add_argument("--dec-heads", type=int, default=16)
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--top", type=int, default=20)
@@ -58,11 +68,14 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ..entry import train_entry
+    from ..models import mae3d
 
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
-    step, state, x = train_entry(dec_heads=args.dec_heads)
+    kw = (dict(ctor=mae3d.mae_vit_huge_patch14, input_size=224)
+          if args.model == "vit-h" else {})
+    step, state, x = train_entry(dec_heads=args.dec_heads, **kw)
     for _ in range(2):
         state, _ = step(state, x, mask_ratio=0.9)
     torch.cuda.synchronize()
@@ -88,7 +101,8 @@ def main(argv=None) -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip())
-    print(json.dumps({"dec_heads": args.dec_heads, "batch": x.shape[0],
+    print(json.dumps({"model": args.model, "dec_heads": args.dec_heads,
+                      "batch": x.shape[0],
                       "wall_ms_per_step": wall_ms,
                       "device_busy_ms_per_step": busy_ms,
                       "idle_share": 1.0 - busy_ms / wall_ms}))

@@ -1,4 +1,4 @@
-"""B1 and B2 on the card against their plain versions, at small ragged
+"""B1-B5 and B7 on the card against their plain versions, at small ragged
 shapes.
 
 Needs an NVIDIA card (marker ``cuda``); skips without one.  Imports no
@@ -17,7 +17,9 @@ one bf16 step of the largest gradient, 2^-8, twice over).
 
 Batch 2 throughout, and the cls-fold dO is the [:, 1:] slice of a
 [B, m + 1, H*D] buffer, as autograd hands it over after the cls row's
-concat: the kernels' batch strides are exercised.
+concat: the kernels' batch strides are exercised.  B3-B5 and B7 take
+the [B, H, N, D] views of the fused buffer (head stride D, row stride
+3*H*D), as the packed path's reroute hands them over.
 """
 
 import pytest
@@ -135,3 +137,109 @@ def test_cuda_path_refuses_what_it_does_not_serve(gen):
     o, lse = fa.fwd_packed_cuda(*args, 2, 0.125)
     with pytest.raises(ValueError, match="dO"):
         fa.bwd_packed_cuda(*args, o, lse, o[:, 1:], None, 2, 0.125)
+
+
+# ------------------------------------------------- [B, H, N, D]: B3-B5, B7
+
+def _bh_views(qkv, h, d):
+    """q, k, v [B, H, N, D] views of a fused [B, N, 3*H*D] buffer."""
+    b, n, _ = qkv.shape
+    return [qkv[..., i * h * d:(i + 1) * h * d].view(b, n, h, d).transpose(1, 2)
+            for i in range(3)]
+
+
+def _check_bh(args, h, d, dtype, gen, kv_valid=None, no_max=True):
+    """B3 / B5 (forward) and B4 / B7 (backward) against their plain
+    versions on the same inputs; the backward on the plain forward's
+    (o, lse), with a strided dO and a nonzero g_lse."""
+    q = args[0]
+    scale = d ** -0.5
+    if no_max:
+        o, lse = fa.fwd_bh_cuda(*args, scale, kv_valid)
+        o_ref, lse_ref = fa.fwd_bh_plain(*args, scale, kv_valid)
+        atol, rtol = TOL_O[dtype]
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+        # laid out as q is: heads inside rows for the fused buffer's views
+        assert o.transpose(1, 2).is_contiguous() == (q.stride(1) < q.stride(2))
+    else:  # the exact softmax's (o, lse)
+        k, v = args[1][:, :, :kv_valid], args[2][:, :, :kv_valid]
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+        lse_ref = torch.logsumexp(s, dim=-1)
+        o_ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1),
+                             v.float()).to(dtype)
+    b, hh, nq, _ = q.shape
+    do = torch.randn((b, nq + 1, hh, d), generator=gen, device="cuda")
+    do = do.to(dtype)[:, 1:].transpose(1, 2)  # strided, as autograd's
+    g_lse = 0.1 * torch.randn(lse_ref.shape, generator=gen, device="cuda")
+    got = fa.bwd_bh_cuda(*args, o_ref, lse_ref, do, g_lse, scale, no_max,
+                         kv_valid)
+    ref = fa.bwd_bh_plain(*args, o_ref, lse_ref, do, g_lse, scale, no_max,
+                          kv_valid)
+    for name, a, r in zip(("dq", "dk", "dv", "dkc", "dvc"), got, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        _assert_grad_close(a, r, dtype, name)
+    if kv_valid is not None:
+        assert (got[1][:, :, kv_valid:] == 0).all()
+        assert (got[2][:, :, kv_valid:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,d,qmul", [
+    (129, 2, 80, 1.0), (200, 2, 80, 1.0), (65, 4, 32, 1.0), (257, 1, 128, 1.0),
+    (129, 1, 256, 1.0), (300, 2, 64, 1.0), (257, 2, 80, 40.0)])
+def test_bh_kernels_match_plain(gen, n, h, d, qmul, dtype):
+    """B5 / B7 over all n rows, and B3 / B4 over rows 1: with row 0 as the
+    cls key/value."""
+    qkv = _qkv(gen, n, h, d, dtype, qmul)
+    q, k, v = _bh_views(qkv, h, d)
+    _check_bh((q, k, v, None, None), h, d, dtype, gen)
+    _check_bh((q[:, :, 1:], k[:, :, 1:], v[:, :, 1:], k[:, :, :1],
+               v[:, :, :1]), h, d, dtype, gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq,nk,kv_valid,no_max", [
+    (70, 260, 250, True), (300, 129, 129, True), (100, 200, 190, False)])
+def test_bh_rect_and_exact_backward_match_plain(gen, nq, nk, kv_valid, no_max,
+                                                dtype):
+    """Nq != Nk with kv_valid (dk = dv = 0 past it), and B7's no_max=False
+    branch on the exact softmax's lse, at head_dim 80; contiguous
+    [B, H, N, D] tensors."""
+    h, d = 2, 80
+    q = torch.randn((2, h, nq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((2, h, nk, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    _check_bh((q, k, v, None, None), h, d, dtype, gen, kv_valid, no_max)
+
+
+def test_bh_public_path_counts_launches(gen):
+    """The packed path at head_dim 80 launches B3 / B4 (cls-prefixed n) or
+    B5 / B7, never B1 / B2, and qkv.grad matches the CPU plain path."""
+    for n, fwd, bwd in ((129, "flash_fwd_bh_cls", "flash_bwd_bh_cls"),
+                        (200, "flash_fwd_bh", "flash_bwd_bh")):
+        qkv = _qkv(gen, n, 2, 80, torch.bfloat16)
+        g = torch.randn((2, n, 160), generator=gen, device="cuda").to(qkv.dtype)
+        _cuda.reset_launches()
+        x = qkv.clone().requires_grad_()
+        fa.flash_attention_packed_qkv(x, 2).backward(g)
+        assert {k: c for k, c in _cuda.launches.items() if c} == {fwd: 1,
+                                                                   bwd: 1}
+        xc = qkv.cpu().requires_grad_()
+        fa.flash_attention_packed_qkv(xc, 2).backward(g.cpu())
+        _assert_grad_close(x.grad.cpu(), xc.grad, torch.bfloat16, "dqkv")
+
+
+def test_bh_refuses_what_it_does_not_serve(gen):
+    q = torch.randn((1, 2, 64, 48), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.fwd_bh_cuda(q, q, q, None, None, 0.1)
+    q = torch.randn((1, 2, 64, 80), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="kv_valid"):
+        fa.fwd_bh_cuda(q, q, q, None, None, 0.1, kv_valid=65)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.fwd_bh_cuda(q.half(), q.half(), q.half(), None, None, 0.1)

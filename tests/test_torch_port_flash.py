@@ -117,9 +117,14 @@ def test_cpu_call_never_touches_cuda_loader(monkeypatch):
 
 
 def test_unsupported_inputs_raise():
-    x = torch.zeros((1, 129, 3 * 2 * 48))
-    with pytest.raises(ValueError):  # head_dim 48
-        tfa.flash_attention_packed_qkv(x, 2)
+    # head_dim 48, which B1 does not serve, takes the [B, H, N, D] path as
+    # in the JAX package (its fallback), and agrees with it
+    x = _qkv(129, 2, 48, 1.0, seed=5)
+    ref = np.asarray(jfa.flash_attention_packed_qkv(jnp.asarray(x), 2))
+    out = tfa.flash_attention_packed_qkv(torch.from_numpy(x), 2).numpy()
+    np.testing.assert_allclose(out, ref, atol=5e-5, rtol=5e-5)
+    with pytest.raises(ValueError, match="heads"):  # 96 is not 5 heads
+        tfa.flash_attention_packed_qkv(torch.zeros((1, 129, 3 * 96)), 5)
     q = torch.zeros((1, 129, 128))
     with pytest.raises(ValueError, match="CUDA"):  # host pointers never reach it
         tfa.fwd_packed_cuda(q, q, q, None, None, 2, 0.125)
