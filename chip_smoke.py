@@ -35,8 +35,32 @@ Phases, each fatal on failure (no phase's error is caught):
   9. B1 and B2 at the ViT-L step's shapes, B3-B5 and B7 at the ViT-H
      paths' shapes, laid out as the paths lay them out, against their
      plain versions; timings with CUDA events (kernel, plain version, a
-     PyTorch library yardstick, the bound; the forwards and the steps),
-     then one {"kernels": [...]} line.
+     PyTorch library yardstick, the bound; the forwards and the steps);
+ 10. B6, the exact online softmax, against its plain version, fp32 and
+     bf16, D in {32, 64, 80, 128, 256}, square (the fused buffer's
+     views) and rect with kv_valid < Nk, and with logits far above the
+     fixed shift's clamp, where B6 agrees with impl="naive" and B5 does
+     not; then B6 + B7's exact branch under autograd against the plain
+     versions;
+ 11. the sequence-parallel layer on a one-rank NCCL group (a FileStore,
+     no port): sequence_parallel_attention (no_max True and False) and
+     ring_attention against unsharded flash_attention, forward and
+     gradients, at the ViT-L MAE decoder's [4, 16, 5121, 32] in bf16;
+     then that decoder's TransformerStack(8, 512, 16) at full width, batch
+     4, bf16, with attn_impl="flash_sp" against attn_impl="flash" from the
+     same weights: loss and per-leaf gradients, 8 B5 + 8 B7 launches
+     against 8 B1 + 8 B2;
+ 12. the 4-shard geometry on one card: each rank's local body of
+     sequence_parallel_attention (1,281 query rows of the decoder's 5,121
+     padded to 5,124, against all 5,124 keys with kv_valid 5,121), B5 and
+     B6, against unsharded attention; the shards' gradients summed
+     against the unsharded ones, pad rows' gradients exactly 0;
+ 13. B8, every ablation variant, against its plain version at the
+     harness's shape (BH 64, N 5,121, D 32), then the harness's timings
+     (scripts/kablate.py);
+ 14. timings of B6 (the decoder's square shape and the shard shape) and
+     B8 against their bounds, plain versions and SDPA, then one
+     {"kernels": [...]} line with B1-B8.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -48,6 +72,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -429,15 +454,17 @@ def check_flash_vs_naive(torch, entry_mod, name, **entry_kw):
         torch.cuda.empty_cache()
 
 
-def _compare_to_naive(what, res, dtype, tols=TOL_NAIVE):
-    """res: {impl: (loss, {leaf: grad})} -> holds flash to naive within
-    ``tols``: |dloss| / |loss| and, over leaves, max|dgrad| / max|grad|."""
+def _compare_to_naive(what, res, dtype, tols=TOL_NAIVE,
+                      label="flash vs naive"):
+    """res: {impl: (loss, {leaf: grad})} -> holds flash ("auto") to naive
+    within ``tols``: |dloss| / |loss| and, over leaves, max|dgrad| /
+    max|grad|."""
     (lf, gf), (ln, gn) = res["auto"], res["naive"]
     dloss = abs(lf - ln) / abs(ln)
     worst, leaf = max(((gf[n] - gn[n]).abs().max().item()
                        / gn[n].abs().max().item(), n) for n in gn)
     tl, tg = tols[str(dtype).split(".")[1]]
-    print(f"flash vs naive {what}: loss {lf:.6f} vs {ln:.6f}, rel "
+    print(f"{label} {what}: loss {lf:.6f} vs {ln:.6f}, rel "
           f"{dloss:.3e} (tol {tl:.0e}); worst leaf {leaf} rel {worst:.3e} "
           f"(tol {tg:.0e})")
     if not (dloss <= tl and worst <= tg and set(gf) == set(gn)):
@@ -824,6 +851,405 @@ def time_forward(torch, fn, model, x, name):
     return ms
 
 
+# ----------------------------------------------------- B6: exact softmax
+
+def _hold(torch, what, got, ref, dtype, atol=None):
+    """|got - ref| <= atol + rtol |ref| at TOL_O[dtype] (``atol`` given:
+    in place of TOL_O's) -> max |d|."""
+    d = (got.float() - ref.float()).abs()
+    atol0, rtol = TOL_O[str(dtype).split(".")[1]]
+    atol = atol0 if atol is None else atol
+    excess = (d - rtol * ref.float().abs()).max().item()
+    if not (excess <= atol and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{what}: max|d| {d.max().item():.3e} over "
+                             f"{atol:.1e} + {rtol:.1e}|ref|")
+    return d.max().item()
+
+
+def _grads_close(torch, what, got, ref, dtype):
+    """Each |got - ref| <= TOL_GRAD[dtype] * max|ref| -> the worst ratio."""
+    tol = TOL_GRAD[str(dtype).split(".")[1]]
+    worst = 0.0
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        rel = ((a.float() - r.float()).abs().max().item()
+               / max(r.float().abs().max().item(), 1e-30))
+        worst = max(worst, rel)
+        if not (rel <= tol and torch.isfinite(a.float()).all()):
+            raise AssertionError(f"{what}: {name} rel {rel:.3e} over {tol:.1e}")
+    return worst
+
+
+def check_b6(torch, fa, naive):
+    """Phase 10: B6 against fwd_bh_exact_plain, fp32 and bf16, then B6 +
+    B7 (exact branch) under autograd against the plain versions.  Returns
+    max |do| at the decoder shape in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    # (name, B, Nq, Nk, kv_valid, H, D, q and k multiplier); square cases
+    # read the fused buffer's [B, H, N, D] views
+    cases = [("decoder D=32", 4, 5121, 5121, None, 16, 32, 1.0),
+             ("D=64", 2, 1025, 1025, None, 8, 64, 1.0),
+             ("ViT-H D=80", 1, 4097, 4097, None, 16, 80, 1.0),
+             ("D=128", 2, 513, 513, None, 4, 128, 1.0),
+             ("D=256", 1, 300, 300, None, 2, 256, 1.0),
+             ("decoder shard rect D=32", 4, 1281, 5124, 5121, 16, 32, 1.0),
+             ("rect D=80", 2, 300, 1000, 950, 4, 80, 1.0),
+             ("large-logit q, k x 8 D=80", 2, 1025, 1025, None, 4, 80, 8.0),
+             ("large-logit q, k x 8 rect D=64", 2, 200, 700, 650, 4, 64, 8.0)]
+    dec_err = None
+    for name, b, nq, nk, kv, h, d, mul in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            scale = d ** -0.5
+            if nq == nk:
+                qkv = torch.randn((b, nq, 3 * h * d), generator=gen,
+                                  device="cuda")
+                qkv[..., :2 * h * d] *= mul
+                q, k, v = _bh_views(qkv.to(dtype), h)
+            else:
+                q = mul * torch.randn((b, h, nq, d), generator=gen,
+                                      device="cuda")
+                k, v = (torch.randn((b, h, nk, d), generator=gen,
+                                    device="cuda") for _ in range(2))
+                q, k, v = q.to(dtype), (mul * k).to(dtype), v.to(dtype)
+            o, lse = fa.fwd_bh_cuda(q, k, v, None, None, scale, kv, False)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = fa.fwd_bh_exact_plain(q, k, v, scale, kv)
+            # large logits (q, k x 8), where a few keys carry each row:
+            # - bf16: the kernel rounds p relative to its running max, the
+            #   plain version (and naive) relative to the row max or after
+            #   normalising, each to 2^-9 of p, so o may differ by 2^-8 of
+            #   the weighted |v| on top of o's own rounding; TOL_O's floor
+            #   assumes many small p whose roundings average out;
+            # - fp32: a logit of size L (max|lse| ~ max L, ~370) carries an
+            #   absolute rounding error of a few ulps of L, which moves p
+            #   by that much relative and o by that times |v|: 4 ulps of
+            #   max|lse| times max|v|, at least TOL_O's.
+            big = None
+            if mul > 1.0:
+                vmax = (v[:, :, :kv] if kv else v).float().abs().max().item()
+                big = (2 ** -8 * vmax if dtype == torch.bfloat16 else
+                       max(TOL_O["float32"][0], 4 * 2 ** -23 * vmax
+                           * lse_ref.abs().max().item()))
+            err = _hold(torch, f"B6 {name} {dtype}", o, o_ref, dtype, big)
+            # lse = m + log l, rounded at its own magnitude: TOL_LSE, or 8
+            # fp32 ulps where |lse| is large (~300 at the large logits,
+            # whose ulp is 3.05e-5)
+            dlse = (lse - lse_ref).abs().max().item()
+            tol_lse = max(TOL_LSE, 8 * 2 ** -23 * lse_ref.abs().max().item())
+            if dlse > tol_lse:
+                raise AssertionError(f"B6 {name} {dtype}: max|dlse| {dlse}")
+            line = (f"B6 {name} B={b} Nq={nq} Nk={nk} kv_valid={kv} H={h} "
+                    f"D={d} {str(dtype)[6:]}: max|do|={err:.3e} "
+                    f"max|dlse|={dlse:.3e} (tol {tol_lse:.1e})")
+            if mul > 1.0:
+                kk, vv = (t[:, :, :kv] if kv else t for t in (k, v))
+                ref = naive(q, kk, vv, scale=scale)
+                e6 = _hold(torch, f"B6 vs naive {name} {dtype}", o, ref, dtype,
+                           big)
+                o5, _ = fa.fwd_bh_cuda(q, k, v, None, None, scale, kv)
+                e5 = (o5.float() - ref.float()).abs().max().item()
+                if e5 <= 10 * max(e6, big):
+                    raise AssertionError(f"B5 agrees with naive at {name}: "
+                                         "the case does not pass the clamp")
+                line += (f"; vs naive: B6 {e6:.3e}, B5 (fixed shift) "
+                         f"{e5:.3e}")
+                del o5
+            print(line)
+            if name == "decoder D=32" and dtype == torch.bfloat16:
+                dec_err = err
+            # B6 + B7 (exact) under autograd, against the plain versions
+            # (the plain backward on the plain forward's o and lse)
+            g = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+            _, grads = _attn_grads(torch, lambda *a: fa.flash_attention_rect(
+                *a, scale, False, kv), q, k, v, g)
+            ref = fa.bwd_bh_plain(q, k, v, None, None, o_ref, lse_ref, g, None,
+                                  scale, False, kv)
+            rel = _grads_close(torch, f"B6 + B7 {name} {dtype}", grads, ref,
+                               dtype)
+            print(f"B6 + B7 exact {name} {str(dtype)[6:]}: gradients against "
+                  f"the plain versions, worst rel {rel:.3e} (tol "
+                  f"{TOL_GRAD[str(dtype)[6:]]:.1e} x max|plain|)")
+            del q, k, v, o, lse, o_ref, lse_ref, g, grads, ref
+        torch.cuda.empty_cache()
+    return dec_err
+
+
+# ------------------------------------------- the sequence-parallel layer
+
+def _attn_grads(torch, fn, q, k, v, g):
+    """fn(q, k, v) and its q, k, v gradients under the cotangent g."""
+    ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*ts)
+    grads = torch.autograd.grad(out, ts, g)
+    return out.detach(), grads
+
+
+def run_sp_one_rank(torch, _cuda, fa, sp, layers):
+    """Phase 11 on a one-rank NCCL group: the sp and ring layers against
+    unsharded flash_attention; then the decoder stack under flash_sp
+    against flash.  Returns the launches of the layer runs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("sp",))
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        b, h, n, d = 4, 16, 5121, 32
+        q, k, v, g = (torch.randn((b, h, n, d), generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+        _cuda.reset_launches()
+        runs = {
+            "sequence_parallel_attention no_max=True": (
+                lambda *a: sp.sequence_parallel_attention(*a, mesh),
+                lambda *a: fa.flash_attention(*a)),
+            "sequence_parallel_attention no_max=False": (
+                lambda *a: sp.sequence_parallel_attention(*a, mesh,
+                                                          no_max=False),
+                lambda *a: fa.flash_attention(*a, no_max=False)),
+            "ring_attention": (lambda *a: sp.ring_attention(*a, mesh),
+                               lambda *a: fa.flash_attention(*a))}
+        results = {}
+        for name, (fn, ref_fn) in runs.items():
+            results[name] = _attn_grads(torch, fn, q, k, v, g)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.launches)
+        for name, (fn, ref_fn) in runs.items():
+            out, grads = results[name]
+            out_ref, grads_ref = _attn_grads(torch, ref_fn, q, k, v, g)
+            err = _hold(torch, f"{name} forward", out, out_ref, torch.bfloat16)
+            rel = _grads_close(torch, name, grads, grads_ref, torch.bfloat16)
+            print(f"one-rank NCCL {name} [4, 16, 5121, 32] bf16 vs unsharded "
+                  f"flash_attention: max|do|={err:.3e}, gradients worst rel "
+                  f"{rel:.3e}")
+        print(f"one-rank NCCL layer launches: {_nonzero(launches)}")
+        want = {"flash_fwd_bh": 2, "flash_fwd_bh_exact": 1, "flash_bwd_bh": 3}
+        if _nonzero(launches) != want:
+            raise AssertionError(f"expected {want}, got {launches}")
+        del q, k, v, g, results
+
+        # the decoder's stack at full width, flash_sp against flash
+        torch.manual_seed(12)
+        stack = layers.TransformerStack(8, 512, 16, dtype=torch.bfloat16,
+                                        parity="flash").cuda()
+        x = torch.randn((4, 5121, 512), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        res, stack_launches = {}, {}
+        for impl in ("flash_sp", "flash"):
+            for m in stack.modules():
+                if hasattr(m, "attn_impl"):
+                    m.attn_impl = impl
+            stack.zero_grad(set_to_none=True)
+            _cuda.reset_launches()
+            with sp.use_sequence_parallel(mesh, "sp"):
+                loss = (stack(x).float() ** 2).mean()
+                loss.backward()
+            torch.cuda.synchronize()
+            stack_launches[impl] = _nonzero(_cuda.launches)
+            res["auto" if impl == "flash_sp" else "naive"] = (
+                loss.item(), {nm: p.grad.clone() for nm, p in
+                              stack.named_parameters()})
+        print(f"decoder stack launches: {stack_launches}")
+        if stack_launches != {
+                "flash_sp": {"flash_fwd_bh": 8, "flash_bwd_bh": 8},
+                "flash": {"flash_fwd_packed": 8, "flash_bwd_packed": 8}}:
+            raise AssertionError(f"unexpected launches {stack_launches}")
+        _compare_to_naive("decoder TransformerStack(8, 512, 16) bf16, 5,121 "
+                          "tokens, batch 4", res, torch.bfloat16,
+                          label="flash_sp vs flash")
+        for k_, c in stack_launches["flash_sp"].items():
+            launches[k_] = launches.get(k_, 0) + c
+        del stack, x, res
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sp_shards(torch, _cuda, fa):
+    """Phase 12: the 4-shard geometry of a vitl_joint_pretrain_sp4 run on
+    one card, each rank's local body in turn.  Returns the launches."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, h, n, n_pad, d, n_sp = 4, 16, 5121, 5124, 32, 4
+    n_loc = n_pad // n_sp
+    q0, k0, v0, g = (torch.randn((b, h, n_pad, d), generator=gen,
+                                 device="cuda", dtype=torch.bfloat16)
+                     for _ in range(4))
+    g[:, :, n:] = 0  # the loss reads the valid rows only
+    keep = (torch.arange(n_pad, device="cuda") < n)[:, None]
+    launches = {}
+    for no_max in (True, False):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        km, vm = torch.where(keep, k, 0), torch.where(keep, v, 0)
+        _cuda.reset_launches()
+        outs, grads = [], [torch.zeros(t.shape, device="cuda")
+                           for t in (q, k, v)]
+        for r in range(n_sp):
+            rows = slice(r * n_loc, (r + 1) * n_loc)
+            o = fa.flash_attention_rect(q[:, :, rows], km, vm, no_max=no_max,
+                                        kv_valid=n)
+            for acc, gr in zip(grads, torch.autograd.grad(
+                    o, (q, k, v), g[:, :, rows], retain_graph=True)):
+                acc += gr.float()
+            outs.append(o.detach())
+        torch.cuda.synchronize()
+        for key, c in _nonzero(_cuda.launches).items():
+            launches[key] = launches.get(key, 0) + c
+        out = torch.cat(outs, dim=2)
+        ref_out, ref_grads = _attn_grads(
+            torch, lambda a, b_, c: fa.flash_attention(a, b_, c,
+                                                       no_max=no_max),
+            q0[:, :, :n], k0[:, :, :n], v0[:, :, :n], g[:, :, :n])
+        err = _hold(torch, f"4 shards no_max={no_max}", out[:, :, :n],
+                    ref_out, torch.bfloat16)
+        rel = _grads_close(torch, f"4 shards no_max={no_max}",
+                           [t[:, :, :n] for t in grads], ref_grads,
+                           torch.bfloat16)
+        pad_zero = all(bool((t[:, :, n:] == 0).all()) for t in grads)
+        print(f"4 shards of 1,281 rows x 5,124 keys (kv_valid 5,121), "
+              f"no_max={no_max}, bf16: concatenated output vs unsharded "
+              f"max|do|={err:.3e}; summed gradients worst rel {rel:.3e}; pad "
+              f"rows' gradients exactly 0: {pad_zero}")
+        if not pad_zero:
+            raise AssertionError("pad rows got a nonzero gradient")
+        del q, k, v, km, vm, outs, grads, out, ref_out, ref_grads
+    print(f"4-shard launches: {launches}")
+    want = {"flash_fwd_bh": 4, "flash_fwd_bh_exact": 4, "flash_bwd_bh": 8}
+    if launches != want:
+        raise AssertionError(f"expected {want}, got {launches}")
+    return launches
+
+
+# ------------------------------------------------------ B8 and timings
+
+def check_b8(torch, kablate):
+    """Phase 13: B8, every flag variant at the base tile and the base
+    variant at the other tiles, against its plain version at the
+    harness's shape, each at its own padding.  Returns max |do| of base."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = (torch.randn((kablate.BH, kablate.N, kablate.D), generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    runs = ([(name, kablate.BASE_TILE) for name in kablate.VARIANTS]
+            + [("base", t) for t in kablate.TILES if t != kablate.BASE_TILE])
+    base_err = None
+    for name, tile in runs:
+        flags = kablate.VARIANTS[name]
+        o, lse = kablate.fwd_variant_cuda(q, k, v, tile, **flags)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = kablate.fwd_variant_plain(
+            q, k, v, kablate.n_pad_of(kablate.N, tile), kablate.TILES[tile][2],
+            **flags)
+        err = (o.float() - o_ref.float()).abs().max().item()
+        top = o_ref.float().abs().max().item()
+        lerr = (lse - lse_ref).abs().max().item()
+        ltop = max(lse_ref.abs().max().item(), 1e-30)
+        print(f"B8 {name} {tile} BH={kablate.BH} N={kablate.N} D={kablate.D} "
+              f"bf16: max|do|={err:.3e} (tol 2^-7 x max|plain| = "
+              f"{2 ** -7 * top:.3e}), max|dl|={lerr:.3e} (tol 1e-4 x "
+              f"{ltop:.3e})")
+        if not (err <= 2 ** -7 * top and lerr <= 1e-4 * ltop
+                and torch.isfinite(o.float()).all()):
+            raise AssertionError(f"B8 {name} {tile} disagrees with its plain "
+                                 "version")
+        if (name, tile) == ("base", kablate.BASE_TILE):
+            base_err = err
+        del o, lse, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    return base_err
+
+
+def _row(ms, plain_ms, library_ms, flops, nbytes):
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def time_b6(torch, fa):
+    """Phase 14, B6 at the decoder's square shape (the fused buffer's
+    views) and at the 4-shard shape: kernel, plain version, SDPA at the
+    same [B, H, N, D] and the bound.  Returns the square shape's row."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    b, h, n, d = 4, 16, 5121, 32
+    scale = d ** -0.5
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    q, k, v = _bh_views(qkv, h)
+    ms = _elapsed_ms(lambda: fa.fwd_bh_cuda(q, k, v, None, None, scale, None,
+                                            False), 20)
+    plain_ms = _elapsed_ms(lambda: fa.fwd_bh_exact_plain(q, k, v, scale), 3, 1)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    sdpa = _elapsed_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, scale=scale), 20)
+    es = qkv.element_size()
+    row = _row(ms, plain_ms, sdpa, 4 * b * h * n * n * d,
+               4 * b * h * n * d * es + b * h * n * 4)
+    print(f"B6 timing decoder square B={b} H={h} N={n} D={d} bf16: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          f"{4 * b * h * n * n * d / ms / 1e9:.1f} TFLOP/s achieved")
+    del qkv, q, k, v, qc, kc, vc
+    nq, nk, kv = 1281, 5124, 5121
+    q = torch.randn((b, h, nq, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    ms_s = _elapsed_ms(lambda: fa.fwd_bh_cuda(q, k, v, None, None, scale, kv,
+                                              False), 20)
+    plain_s = _elapsed_ms(lambda: fa.fwd_bh_exact_plain(q, k, v, scale, kv),
+                          3, 1)
+    kk, vv = k[:, :, :kv].contiguous(), v[:, :, :kv].contiguous()
+    sdpa_s = _elapsed_ms(lambda: F.scaled_dot_product_attention(
+        q, kk, vv, scale=scale), 20)
+    shard = _row(ms_s, plain_s, sdpa_s, 4 * b * h * nq * kv * d,
+                 (2 * b * h * nq * d + 2 * b * h * kv * d) * 2 + b * h * nq * 4)
+    print(f"B6 timing shard rect B={b} H={h} Nq={nq} Nk={nk} kv_valid={kv} "
+          f"D={d} bf16: kernel {ms_s:.4f} ms, plain {plain_s:.4f} ms, sdpa "
+          f"{sdpa_s:.4f} ms, bound {shard['bound_ms']:.4f} ms "
+          f"({shard['bound_by']})")
+    return row
+
+
+def time_b8(torch, _cuda, kablate):
+    """Phase 13, then: the harness's timings (every variant, the tiles and
+    a b* variant) with the launch count of its run; B8 base's plain
+    version and SDPA at the same inputs viewed as [4, 16, N, D] (the base
+    variant is attention up to the pad keys' e^-16 mass).  Returns B8's
+    row."""
+    import torch.nn.functional as F
+
+    names = list(kablate.VARIANTS) + [t for t in kablate.TILES
+                                      if t != kablate.BASE_TILE] + ["bwd"]
+    _cuda.reset_launches()
+    times = kablate.main(names)
+    torch.cuda.synchronize()
+    launches = _cuda.launches["flash_ablate"]
+    print(f"kablate harness launches: {_nonzero(_cuda.launches)}")
+    if not launches:
+        raise AssertionError("the harness launched no B8")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bh, n, d = kablate.BH, kablate.N, kablate.D
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    plain_ms = _elapsed_ms(lambda: kablate.fwd_variant_plain(
+        q, k, v, kablate.n_pad_of(n), kablate.TILES[kablate.BASE_TILE][2]),
+        3, 1)
+    q4, k4, v4 = (t.view(4, bh // 4, n, d) for t in (q, k, v))
+    sdpa = _elapsed_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, scale=d ** -0.5), 20)
+    row = _row(times["base"], plain_ms, sdpa, 4 * bh * n * n * d,
+               4 * bh * n * d * 2 + bh * n * 4)
+    print(f"B8 base timing BH={bh} N={n} D={d} bf16: kernel {row['ms']:.4f} "
+          f"ms (the harness's), plain {plain_ms:.4f} ms, sdpa {sdpa:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return dict(row, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -837,8 +1263,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from octcubem_tpu_torch import entry as entry_mod
     from octcubem_tpu_torch.cli import serve
+    from octcubem_tpu_torch.nn import layers
     from octcubem_tpu_torch.ops import _cuda
     from octcubem_tpu_torch.ops import flash_attention as fa
+    from octcubem_tpu_torch.ops.attention import naive_attention
+    from octcubem_tpu_torch.parallel import sequence as sp
+    from octcubem_tpu_torch.scripts import kablate
     from octcubem_tpu_torch.train import optim
 
     # full-fp32 matmuls and convolutions for the fp32 comparisons
@@ -855,6 +1285,13 @@ def main() -> int:
     t0 = time.time()
     _cuda.build()
     print(f"kernels built in {time.time() - t0:.1f} s")
+    clock = [time.time()]
+
+    def phase_done(name):
+        now = time.time()
+        print(f"[phase] {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     for name in _cuda.KERNELS:
         for line in _cuda.build_log(name).read_text().splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -863,6 +1300,7 @@ def main() -> int:
     err = check_flash_fwd(torch, fa)
     check_flash_bwd(torch, fa)
     bh_errs = check_bh_kernels(torch, fa)
+    phase_done("3: B1-B5, B7 against their plain versions")
 
     # serving: ViT-L (B1), the server, then ViT-H/14 (B3)
     fn, model, x, launches = run_main_path(torch, _cuda, entry_mod)
@@ -870,6 +1308,7 @@ def main() -> int:
     timing = time_flash_fwd(torch, fa)
     time_forward(torch, fn, model, x, "ViT-L 48x256x256")
     del fn, model, x
+    phase_done("4-5: ViT-L serving and the server")
     vith = dict(ctor=entry_mod.vit_st.vit_huge_patch14, img_size=224)
     fn, model, x, b3_launches = run_main_path(
         torch, _cuda, entry_mod, name="ViT-H/14 48x224x224",
@@ -878,6 +1317,7 @@ def main() -> int:
     del fn, model, x
     torch.cuda.empty_cache()
     b4_launches = run_vith_backward(torch, _cuda, entry_mod)
+    phase_done("6: ViT-H/14 classifier")
 
     # training: ViT-L/16 (B1 + B2), then ViT-H/14 (B5 + B7, B1 + B2)
     launches_bwd = run_train(
@@ -892,9 +1332,24 @@ def main() -> int:
          "flash_bwd_packed": 8},
         dict(d=1280, layers=32, img=224, patch=14), **mae_h)
     check_flash_vs_naive(torch, entry_mod, "ViT-H/14", **mae_h)
+    phase_done("7-8: MAE steps and flash vs naive")
 
     timing_bwd = time_flash_bwd(torch, fa)
     timing_bh = time_bh_kernels(torch, fa)
+    phase_done("9: B1-B5, B7 timings")
+
+    # the exact softmax (B6) and the sequence-parallel layer
+    b6_err = check_b6(torch, fa, naive_attention)
+    phase_done("10: B6 against its plain version")
+    sp_launches = run_sp_one_rank(torch, _cuda, fa, sp, layers)
+    phase_done("11: the sp layer on a one-rank NCCL group")
+    run_sp_shards(torch, _cuda, fa)
+    phase_done("12: the 4-shard geometry")
+    b8_err = check_b8(torch, kablate)
+    timing_b8 = time_b8(torch, _cuda, kablate)
+    phase_done("13: B8 and the ablation harness")
+    timing_b6 = time_b6(torch, fa)
+    phase_done("14: B6 timings")
 
     kernels = [{
         "name": "flash_fwd_packed", "route": "cuda",
@@ -917,6 +1372,17 @@ def main() -> int:
             "source": f"octcubem_tpu_torch/csrc/{src}",
             "replaces": f"octcubem_tpu/ops/flash_attention.py:{line}",
             "launches": n, "max_abs_err": bh_errs[kern], **timing_bh[kern]})
+    kernels.append({
+        "name": "flash_fwd_bh_exact", "route": "cuda",
+        "source": "octcubem_tpu_torch/csrc/flash_fwd_bh.cu",
+        "replaces": "octcubem_tpu/ops/flash_attention.py:170",
+        "launches": sp_launches["flash_fwd_bh_exact"], "max_abs_err": b6_err,
+        **timing_b6})
+    kernels.append({
+        "name": "flash_ablate", "route": "cuda",
+        "source": "octcubem_tpu_torch/csrc/flash_ablate.cu",
+        "replaces": "scripts/kablate.py:33", "max_abs_err": b8_err,
+        **timing_b8})
     for k in kernels:
         for key, val in k.items():
             if isinstance(val, float) and not math.isfinite(val):

@@ -1,5 +1,5 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cuh: B1, B3,
-// B5; flash_bwd.cuh: B2, B4, B7): the fixed-shift softmax constants, the
+// B5, B6; flash_bwd.cuh: B2, B4, B7): the softmax constants, the
 // strided operand layout, the mma.sync m16n8k16 bf16 product, ldmatrix
 // fragment loads and cp.async tile copies.  Each .cu that includes this is
 // its own library.
@@ -17,6 +17,7 @@ namespace octcube {
 constexpr float kShift = 16.0f;  // NOMAX_SHIFT
 constexpr float kClamp = 40.0f;  // NOMAX_CLAMP
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // a [B, H, rows, D] operand: batch, head and row strides in elements
 // (each below 2^31), unit stride along D.  32-bit strides keep the

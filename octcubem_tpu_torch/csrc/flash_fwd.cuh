@@ -1,6 +1,6 @@
-// The fixed-shift flash-attention forward shared by kernels B1
-// (flash_fwd_packed.cu) and B3 / B5 (flash_fwd_bh.cu).  For every query
-// row and head:
+// The flash-attention forward shared by kernels B1 (flash_fwd_packed.cu)
+// and B3 / B5 / B6 (flash_fwd_bh.cu).  The fixed shift (B1, B3, B5), for
+// every query row and head:
 //     s = (q . k) * scale                        fp32
 //     p = exp(min(s, 40) - 16)                   NOMAX_CLAMP, NOMAX_SHIFT
 //     l = sum p,  acc = sum bf16(p) * v          fp32 (p rounded to the
@@ -12,6 +12,19 @@
 // "phantom" cls of the packed path, and of the zero tail keys past
 // kv_valid of the rectangular one); these kernels mask their ragged tiles
 // and stop at key nk instead, so they need no correction.
+//
+// The exact online softmax (B6, template flag kExact; no cls fold), the
+// JAX _fwd_kernel:
+//     m = running row max of s (keys at or past nk masked to -inf),
+//     on each tile: m' = max(m, tile max), a = exp(m - m'),
+//     l = a l + sum exp(s - m'),  acc = a acc + sum bf16(exp(s - m')) v
+//     o = acc / l (l = 0 taken as 1),  lse = m + log l
+// The first tile starts from m = -inf, l = acc = 0; where the row max is
+// still -inf (a row with no key yet) the shift is taken as 0, so
+// exp(-inf - (-inf)) never forms (the JAX kernel's finite NEG_INF = -1e30
+// does the same).  One body serves both: the flag is a template argument,
+// so the fixed-shift kernels compile to what they were and the by-value
+// parameters stay at 128 bytes.
 //
 // Layout: every operand is a [B, H, rows, D] view given by its batch, head
 // and row strides in elements, with unit stride along D: the packed
@@ -60,6 +73,17 @@ __device__ __forceinline__ float p_of(float s, float scale) {
   return expf(fminf(s * scale, kClamp) - kShift);
 }
 
+// the exact softmax's shift for a running max m: 0 while m is -inf
+__device__ __forceinline__ float shift_of(float m) {
+  return m == -INFINITY ? 0.f : m;
+}
+
+// max over the four lanes of a quad (one mma fragment row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
 // ---------------------------------------------------------------- bf16
 
 template <int D>
@@ -76,7 +100,7 @@ struct Bf16Cfg {
   static_assert(D % 16 == 0, "QK^T steps over D in k16 chunks");
 };
 
-template <int D>
+template <int D, bool kExact>
 __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
     fwd_bf16_kernel(FwdParams p) {
   using Cfg = Bf16Cfg<D>;
@@ -117,6 +141,8 @@ __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
   for (int i = 0; i < D / 8; ++i)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float l0 = 0.f, l1 = 0.f;  // rows g and g + 8 of this warp, partial
+  // exact softmax: running max of rows g and g + 8, in log2 units
+  float m0 = -INFINITY, m1 = -INFINITY;
   const int wr = warp * 16;
   // p = exp(min(s*scale, 40) - 16) = 2^(min(s*scale*log2e, 40 log2e) - 16 log2e)
   const float sl2 = p.scale * kLog2e;
@@ -161,20 +187,63 @@ __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
     // of key chunks 2i and 2i+1 form the A fragment of key step i of PV
     const bool full = k0 + BN <= nk;
     uint32_t pa[BN / 16][4];
+    if constexpr (kExact) {
+      // scores in log2 units, -inf past nk; the tile's row max over the
+      // quad; rescale l and acc by 2^(m - m')
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      float pj[4];
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-        pj[e] = (full || col < nk)
-                    ? exp2f(fminf(s[j][e] * sl2, clamp_l2) - shift_l2)
-                    : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+          const float x = (full || col < nk) ? s[j][e] * sl2 : -INFINITY;
+          s[j][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x);
+          else mx1 = fmaxf(mx1, x);
+        }
       }
-      l0 += pj[0] + pj[1];
-      l1 += pj[2] + pj[3];
-      pa[j / 2][(j & 1) * 2 + 0] = pack_bf16(pj[0], pj[1]);  // row g
-      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(pj[2], pj[3]);  // row g + 8
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float sh0 = shift_of(mn0), sh1 = shift_of(mn1);
+      const float a0 = exp2f(m0 - sh0), a1 = exp2f(m1 - sh1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        acc[nd][0] *= a0;
+        acc[nd][1] *= a0;
+        acc[nd][2] *= a1;
+        acc[nd][3] *= a1;
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        float pj[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pj[e] = exp2f(s[j][e] - (e < 2 ? sh0 : sh1));
+        l0 += pj[0] + pj[1];
+        l1 += pj[2] + pj[3];
+        pa[j / 2][(j & 1) * 2 + 0] = pack_bf16(pj[0], pj[1]);  // row g
+        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(pj[2], pj[3]);  // row g + 8
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        float pj[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+          pj[e] = (full || col < nk)
+                      ? exp2f(fminf(s[j][e] * sl2, clamp_l2) - shift_l2)
+                      : 0.f;
+        }
+        l0 += pj[0] + pj[1];
+        l1 += pj[2] + pj[3];
+        pa[j / 2][(j & 1) * 2 + 0] = pack_bf16(pj[0], pj[1]);  // row g
+        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(pj[2], pj[3]);  // row g + 8
+      }
     }
 
     // acc += p v
@@ -197,7 +266,7 @@ __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 
   const int r0 = wr + g, r1 = r0 + 8;
-  if (p.kc) {
+  if (!kExact && p.kc) {
     float sc0 = 0.f, sc1 = 0.f;
     for (int c = t4; c < D; c += 4) {
       const float kv = KCs[c];
@@ -236,8 +305,11 @@ __global__ void __launch_bounds__(Bf16Cfg<D>::kThreads)
   }
   if (t4 == 0) {
     float* lg = p.lse + ((long long)b * p.H + h) * nq;
-    if (row0 < nq) lg[row0] = kShift + logf(ls0);
-    if (row1 < nq) lg[row1] = kShift + logf(ls1);
+    // lse = shift + log l: the fixed shift, or the row max (log2 units)
+    const float b0 = kExact ? shift_of(m0) * kLn2 : kShift;
+    const float b1 = kExact ? shift_of(m1) * kLn2 : kShift;
+    if (row0 < nq) lg[row0] = b0 + logf(ls0);
+    if (row1 < nq) lg[row1] = b1 + logf(ls1);
   }
 }
 
@@ -275,7 +347,7 @@ __device__ __forceinline__ void load_tile_f32(float* s, const float* g,
   }
 }
 
-template <int D>
+template <int D, bool kExact>
 __global__ void __launch_bounds__(F32Cfg<D>::kThreads)
     fwd_f32_kernel(FwdParams p) {
   using Cfg = F32Cfg<D>;
@@ -287,7 +359,7 @@ __global__ void __launch_bounds__(F32Cfg<D>::kThreads)
   float* Vs = Ks + BN * LDQ;
   float* Ps = Vs + BN * D;
   float* Ls = Ps + BM * LDP;
-  float* PCs = Ls + BM;
+  float* PCs = Ls + BM;  // the cls p per row; the exact softmax's rescale
   float* KCs = PCs + BM;
   float* VCs = KCs + D;
 
@@ -318,6 +390,7 @@ __global__ void __launch_bounds__(F32Cfg<D>::kThreads)
   float acc[RPG];
 #pragma unroll
   for (int i = 0; i < RPG; ++i) acc[i] = 0.f;
+  float m_row = -INFINITY;  // exact softmax: row sr's running max
 
   for (int k0 = 0; k0 < nk; k0 += BN) {
     __syncthreads();
@@ -334,17 +407,47 @@ __global__ void __launch_bounds__(F32Cfg<D>::kThreads)
       for (int j = 0; j < 8; ++j) s[j] += qv * Ks[(sj + j) * LDQ + c];
     }
     float psum = 0.f;
+    float alpha = 1.f;
+    if constexpr (kExact) {
+      float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float pj = k0 + sj + j < nk ? p_of(s[j], p.scale) : 0.f;
-      psum += pj;
-      Ps[sr * LDP + sj + j] = pj;
+      for (int j = 0; j < 8; ++j) {
+        s[j] = k0 + sj + j < nk ? s[j] * p.scale : -INFINITY;
+        mx = fmaxf(mx, s[j]);
+      }
+      const float mn = fmaxf(m_row, quad_max(mx)), sh = shift_of(mn);
+      alpha = expf(m_row - sh);
+      m_row = mn;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float pj = expf(s[j] - sh);
+        psum += pj;
+        Ps[sr * LDP + sj + j] = pj;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float pj = k0 + sj + j < nk ? p_of(s[j], p.scale) : 0.f;
+        psum += pj;
+        Ps[sr * LDP + sj + j] = pj;
+      }
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    if (tid % 4 == 0) Ls[sr] += psum;
+    if (tid % 4 == 0) {
+      if constexpr (kExact) {
+        Ls[sr] = Ls[sr] * alpha + psum;
+        PCs[sr] = alpha;
+      } else {
+        Ls[sr] += psum;
+      }
+    }
     __syncthreads();
 
+    if constexpr (kExact) {
+#pragma unroll
+      for (int i = 0; i < RPG; ++i) acc[i] *= PCs[pr + i];
+    }
     for (int j = 0; j < BN; ++j) {
       const float vv = Vs[j * D + pc];
 #pragma unroll
@@ -352,7 +455,12 @@ __global__ void __launch_bounds__(F32Cfg<D>::kThreads)
     }
   }
 
-  if (p.kc) {
+  if constexpr (kExact) {  // row maxima for lse, once every PV has read PCs
+    __syncthreads();
+    if (tid % 4 == 0) PCs[sr] = shift_of(m_row);
+    __syncthreads();
+  }
+  if (!kExact && p.kc) {
     float sc = 0.f;
     for (int c = tid % 4; c < D; c += 4) sc += Qs[sr * LDQ + c] * KCs[c];
     sc += __shfl_xor_sync(0xffffffffu, sc, 1);
@@ -379,39 +487,41 @@ __global__ void __launch_bounds__(F32Cfg<D>::kThreads)
   if (tid < BM && q0 + tid < nq) {
     const float l = Ls[tid];
     p.lse[((long long)b * p.H + h) * nq + q0 + tid] =
-        kShift + logf(l <= 0.f ? 1.f : l);
+        (kExact ? PCs[tid] : kShift) + logf(l <= 0.f ? 1.f : l);
   }
 }
 
 // ---------------------------------------------------------------- launch
 
-template <int D>
+template <int D, bool kExact>
 cudaError_t fwd_launch_bf16(const FwdParams& p, cudaStream_t st) {
   using Cfg = Bf16Cfg<D>;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_bf16_kernel<D, kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.nq + Cfg::BM - 1) / Cfg::BM, p.H, p.B);
-  fwd_bf16_kernel<D><<<grid, Cfg::kThreads, Cfg::kSmem, st>>>(p);
+  fwd_bf16_kernel<D, kExact><<<grid, Cfg::kThreads, Cfg::kSmem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kExact>
 cudaError_t fwd_launch_f32(const FwdParams& p, cudaStream_t st) {
   using Cfg = F32Cfg<D>;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_f32_kernel<D, kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.nq + Cfg::BM - 1) / Cfg::BM, p.H, p.B);
-  fwd_f32_kernel<D><<<grid, Cfg::kThreads, Cfg::kSmem, st>>>(p);
+  fwd_f32_kernel<D, kExact><<<grid, Cfg::kThreads, Cfg::kSmem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+// kExact: B6's exact online softmax (no cls fold); else the fixed shift
+template <int D, bool kExact = false>
 cudaError_t fwd_launch(const FwdParams& p, int is_bf16, cudaStream_t st) {
-  return is_bf16 ? fwd_launch_bf16<D>(p, st) : fwd_launch_f32<D>(p, st);
+  return is_bf16 ? fwd_launch_bf16<D, kExact>(p, st)
+                 : fwd_launch_f32<D, kExact>(p, st);
 }
 
 }  // namespace

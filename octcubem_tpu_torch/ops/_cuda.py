@@ -15,7 +15,8 @@ machine with no ``nvcc``.
 a wrapper adds one exactly where it calls its kernel (one call may be
 several launches of one algorithm, as the backward's passes are), so a
 run can show that its main path went through the kernels.  The
-``[B, H, N, D]`` libraries serve two TPU kernels each, counted apart.
+``[B, H, N, D]`` forward library serves three TPU kernels (B3, B5, B6)
+and the backward two (B4, B7), counted apart.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ KERNELS = {
     }),
     "flash_fwd_bh": ("flash_fwd_bh.cu", {
         # q, k, v, kc, vc, o, lse, B, H, nq, nk, D, strides (q, k, v, o:
-        # batch, head, row), scale, is_bf16, stream
-        "octcube_flash_fwd_bh": ([_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
+        # batch, head, row), scale, is_bf16, exact, stream
+        "octcube_flash_fwd_bh": ([_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
                                  ctypes.c_int),
         "octcube_error_string": ([_I], ctypes.c_char_p),
     }),
@@ -73,17 +74,24 @@ KERNELS = {
         "octcube_flash_bwd_bh_scratch": ([_I] * 5, ctypes.c_longlong),
         "octcube_error_string": ([_I], ctypes.c_char_p),
     }),
+    "flash_ablate": ("flash_ablate.cu", {
+        # q, k, v, o, lse, BH, n, n_pad, D, tile, flags, scale, stream
+        "octcube_flash_ablate": ([_P] * 5 + [_I] * 6 + [_F, _P], ctypes.c_int),
+        "octcube_error_string": ([_I], ctypes.c_char_p),
+    }),
 }
 
 # launch counter -> the TPU kernel it replaces (octcubem_tpu/ops/
-# flash_attention.py)
+# flash_attention.py; B8 in scripts/kablate.py)
 COUNTERS = {
     "flash_fwd_packed": "B1 _fwd_kernel_packed",
     "flash_bwd_packed": "B2 _bwd_kernel_packed",
     "flash_fwd_bh_cls": "B3 _fwd_kernel_nomax_cls",
     "flash_bwd_bh_cls": "B4 _fused_bwd_kernel_cls",
     "flash_fwd_bh": "B5 _fwd_kernel_nomax",
+    "flash_fwd_bh_exact": "B6 _fwd_kernel",
     "flash_bwd_bh": "B7 _fused_bwd_kernel",
+    "flash_ablate": "B8 fwd_variant",
 }
 
 launches: dict[str, int] = {name: 0 for name in COUNTERS}

@@ -1,8 +1,8 @@
-"""Fixed-shift flash attention: the packed-head path and the
-``[B, H, N, D]`` path.
+"""Flash attention: the packed-head path and the ``[B, H, N, D]`` path,
+with the fixed-shift softmax and the exact one.
 
-Counterpart of ``octcubem_tpu/ops/flash_attention.py``.  Six hand-written
-CUDA kernels replace its TPU kernels; all compute one function,
+Counterpart of ``octcubem_tpu/ops/flash_attention.py``.  Seven hand-written
+CUDA kernels replace its TPU kernels; all but B6 compute one function,
 
     s   = (q . k) * scale                       (fp32)
     p   = exp(min(s, NOMAX_CLAMP) - NOMAX_SHIFT)
@@ -27,7 +27,13 @@ head:
   Nq != Nk with ``kv_valid`` too; B7 also the exact softmax's backward,
   ``no_max=False``): ``[B, H, N, D]`` views with any batch, head and row
   strides (csrc/flash_fwd_bh.cu, flash_bwd_bh.cu), head_dim in
-  ``BH_HEAD_DIMS``.
+  ``BH_HEAD_DIMS``;
+- B6 ``_fwd_kernel``, the exact online softmax (``no_max=False``, no cls
+  fold), on the same views and head dims: the running row max m over the
+  keys, p = exp(s - m), l = sum p, acc = sum p.astype(v.dtype) * v, o =
+  acc / l (l = 0 taken as 1), lse = m + log l; exact for any logits, where
+  the fixed shift saturates above NOMAX_CLAMP.  Its backward is B7's
+  ``no_max=False`` branch.
 
 Each ``*_plain`` function is the plain PyTorch version of a kernel, any
 head_dim.  The dispatchers (``fwd_packed``, ``bwd_packed``, ``fwd_bh``,
@@ -36,7 +42,9 @@ or raises; a CPU tensor runs the plain version.  There is no fallback
 from the card to the plain version.  The public functions are
 differentiable through ``torch.autograd.Function``s that run a forward
 kernel, save (o, lse), and run its backward kernel; lse is an output
-whose cotangent folds into delta.
+whose cotangent folds into delta.  The backward takes delta precomputed
+as well (the JAX ``_bwd_rect_prepare`` / ``_bwd_rect_core`` split), so
+ring attention forms it once and not once per ring step.
 
 The JAX kernels pad the sequence to their tile and remove the known
 e^-SHIFT mass of the zero pad keys (and of the zero "phantom" cls used
@@ -57,9 +65,7 @@ from . import _cuda
 NOMAX_SHIFT = 16.0
 NOMAX_CLAMP = 40.0
 HEAD_DIMS = (32, 64, 128, 256)          # B1, B2 on the card
-BH_HEAD_DIMS = (32, 64, 80, 128, 256)   # B3, B4, B5, B7 on the card
-_B6 = ("no_max=False (the exact online-softmax forward, TPU kernel B6 "
-       "_fwd_kernel) is not ported yet (ROADMAP B6)")
+BH_HEAD_DIMS = (32, 64, 80, 128, 256)   # B3-B7 on the card
 
 
 def _split_heads(hd: int, num_heads: int) -> int:
@@ -108,6 +114,24 @@ def fwd_bh_plain(q, k, v, kc, vc, scale: float, kv_valid: int | None = None):
     return o.to(q.dtype), NOMAX_SHIFT + torch.log(l_safe)
 
 
+def fwd_bh_exact_plain(q, k, v, scale: float, kv_valid: int | None = None):
+    """Plain PyTorch B6, the exact softmax over the full row.  q:
+    [B, H, Nq, D]; k, v: [B, H, Nk, D] -> (o [B, H, Nq, D] in q's dtype,
+    lse [B, H, Nq] fp32) over the first ``kv_valid`` keys (default all):
+    s fp32, m = rowmax s, p = exp(s - m), l = sum p, o = (p.astype(v.dtype)
+    v) / l with l = 0 taken as 1, lse = m + log l."""
+    if kv_valid is not None:
+        k, v = k[:, :, :kv_valid], v[:, :, :kv_valid]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    del s
+    l = p.sum(-1)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
+
+
 def fwd_packed_plain(q, k, v, kc, vc, num_heads: int, scale: float):
     """Plain PyTorch B1.  q, k, v: [B, m, H*D]; kc, vc: [B, 1, H*D] or
     None -> (o [B, m, H*D] in q's dtype, lse [B, H, m] fp32).  B5's and
@@ -128,20 +152,24 @@ def _delta_bh(o, do, g_lse):
 
 
 def bwd_bh_plain(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
-                 no_max: bool = True, kv_valid: int | None = None):
+                 no_max: bool = True, kv_valid: int | None = None,
+                 delta=None):
     """Plain PyTorch B4 (kc, vc given) and B7 (kc = vc = None; Nq != Nk
     and ``kv_valid`` for the rectangular form; ``no_max=False`` for the
     exact softmax's backward: no clamp in p, ds unmasked).  q, o, do:
     [B, H, Nq, D]; k, v: [B, H, Nk, D]; kc, vc: [B, H, 1, D] or None; lse,
     g_lse: [B, H, Nq] fp32 (g_lse may be None) -> (dq, dk, dv, dkc, dvc),
     dkc / dvc None without the cls fold; key rows at or past ``kv_valid``
-    get dk = dv = 0."""
+    get dk = dv = 0.  ``delta``: rowsum(dO o) - g_lse [B, H, Nq] fp32,
+    computed here from o, dO and g_lse when None (then o and g_lse are not
+    read)."""
     nk = k.shape[2]
     if kv_valid is not None:
         k, v = k[:, :, :kv_valid], v[:, :, :kv_valid]
     clamp = NOMAX_CLAMP if no_max else math.inf
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    delta = _delta_bh(o, do, g_lse)
+    if delta is None:
+        delta = _delta_bh(o, do, g_lse)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     clamped = s > clamp
     p = torch.exp(torch.clamp(s, max=clamp) - lse[..., None])
@@ -348,14 +376,14 @@ def bwd_packed(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
     return out
 
 
-# ------------------------------------------- [B, H, N, D]: B3, B4, B5, B7
+# ------------------------------------------ [B, H, N, D]: B3-B7
 
 def _check_bh_inputs(q, k, v, kc, vc) -> int:
-    """The inputs B3, B4, B5 and B7 take -> head_dim; raises on anything
+    """The inputs B3-B7 take -> head_dim; raises on anything
     else.  Every operand has its own strides; kc / vc share k's / v's
     batch and head strides."""
     b, h, nq, d = q.shape
-    _kernel_head_dim(d, BH_HEAD_DIMS, "B3, B4, B5, B7")
+    _kernel_head_dim(d, BH_HEAD_DIMS, "B3-B7")
     cls = [t for t in (kc, vc) if t is not None]
     if len(cls) == 1:
         raise ValueError("kc and vc are given together or not at all")
@@ -397,15 +425,19 @@ def _kv_valid(kv_valid, nk: int) -> int:
     return kv
 
 
-def fwd_bh_cuda(q, k, v, kc, vc, scale: float, kv_valid: int | None = None):
-    """B3 (kc, vc given) or B5 on the card.  q [B, H, Nq, D], k, v
-    [B, H, Nk, D], kc, vc [B, H, 1, D], each with any batch, head and row
-    strides and unit stride along D (e.g. the [B, H, N, D] views of a fused
-    Wqkv buffer).  o comes out laid out as q is (``_empty_like_rows``)."""
+def fwd_bh_cuda(q, k, v, kc, vc, scale: float, kv_valid: int | None = None,
+                no_max: bool = True):
+    """B3 (kc, vc given), B5, or with ``no_max=False`` B6 (no cls fold) on
+    the card.  q [B, H, Nq, D], k, v [B, H, Nk, D], kc, vc [B, H, 1, D],
+    each with any batch, head and row strides and unit stride along D (e.g.
+    the [B, H, N, D] views of a fused Wqkv buffer).  o comes out laid out
+    as q is (``_empty_like_rows``)."""
     b, h, nq, d = q.shape
     d = _check_bh_inputs(q, k, v, kc, vc)
     kv = _kv_valid(kv_valid, k.shape[2])
     cls = kc is not None
+    if cls and not no_max:
+        raise ValueError("the cls fold is a fixed-shift (no_max) path")
     o = _empty_like_rows(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     lib = _cuda.library("flash_fwd_bh")
@@ -415,31 +447,40 @@ def fwd_bh_cuda(q, k, v, kc, vc, scale: float, kv_valid: int | None = None):
             kc.data_ptr() if cls else None, vc.data_ptr() if cls else None,
             o.data_ptr(), lse.data_ptr(), b, h, nq, kv, d,
             _strides(q, k, v, o), float(scale),
-            int(q.dtype == torch.bfloat16),
+            int(q.dtype == torch.bfloat16), int(not no_max),
             torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(lib, err, "flash_fwd_bh")
-    _cuda.launches["flash_fwd_bh_cls" if cls else "flash_fwd_bh"] += 1
+    counter = ("flash_fwd_bh_cls" if cls else
+               "flash_fwd_bh" if no_max else "flash_fwd_bh_exact")
+    _cuda.launches[counter] += 1
     return o, lse
 
 
-def fwd_bh(q, k, v, kc, vc, scale: float, kv_valid: int | None = None):
-    """B3 / B5 -> (o, lse): the kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
+def fwd_bh(q, k, v, kc, vc, scale: float, kv_valid: int | None = None,
+           no_max: bool = True):
+    """B3 / B5, or B6 with ``no_max=False`` -> (o, lse): the kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
     if q.device.type == "cuda":
-        return fwd_bh_cuda(q, k, v, kc, vc, scale, kv_valid)
-    if q.device.type == "cpu":
+        return fwd_bh_cuda(q, k, v, kc, vc, scale, kv_valid, no_max)
+    if q.device.type != "cpu":
+        raise ValueError(f"no attention path for device {q.device}")
+    if no_max:
         return fwd_bh_plain(q, k, v, kc, vc, scale, kv_valid)
-    raise ValueError(f"no attention path for device {q.device}")
+    if kc is not None:
+        raise ValueError("the cls fold is a fixed-shift (no_max) path")
+    return fwd_bh_exact_plain(q, k, v, scale, kv_valid)
 
 
 def bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
-                no_max: bool = True, kv_valid: int | None = None):
+                no_max: bool = True, kv_valid: int | None = None,
+                delta=None):
     """B4 (kc, vc given) or B7 on the card.  Inputs as ``fwd_bh_cuda``
     takes them, plus the forward's o and lse and the incoming dO (any
     strides; copied only when its rows are not 16-byte aligned) -> (dq,
     dk, dv, dkc, dvc), dq, dk, dv laid out as q, k, v are, dkc / dvc
-    [B, H, 1, D].  One kernel call (the dk/dv pass, the dq pass and, with
-    the cls fold, the cls sums) counts once."""
+    [B, H, 1, D].  ``delta`` as ``bwd_bh_plain`` takes it.  One kernel call
+    (the dk/dv pass, the dq pass and, with the cls fold, the cls sums)
+    counts once."""
     b, h, nq, d = q.shape
     d = _check_bh_inputs(q, k, v, kc, vc)
     nk = k.shape[2]
@@ -454,7 +495,11 @@ def bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
     if not _rows_aligned(do):
         do = do.contiguous()
     lse = lse.contiguous()
-    delta = _delta_bh(o, do, g_lse)
+    if delta is None:
+        delta = _delta_bh(o, do, g_lse)
+    elif delta.shape != (b, h, nq) or delta.dtype != torch.float32:
+        raise ValueError("delta must be [B, H, Nq] fp32")
+    delta = delta.contiguous()
     dq, dk, dv = (_empty_like_rows(t) for t in (q, k, v))
     dkc, dvc = ((torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
                  for _ in range(2)) if cls else (None, None))
@@ -481,15 +526,16 @@ def bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
 
 
 def bwd_bh(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
-           no_max: bool = True, kv_valid: int | None = None):
+           no_max: bool = True, kv_valid: int | None = None, delta=None):
     """B4 / B7 -> (dq, dk, dv, dkc, dvc): the kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor; ``delta`` as ``bwd_bh_plain`` takes
+    it."""
     if q.device.type == "cuda":
         return bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale, no_max,
-                           kv_valid)
+                           kv_valid, delta)
     if q.device.type == "cpu":
         return bwd_bh_plain(q, k, v, kc, vc, o, lse, do, g_lse, scale, no_max,
-                            kv_valid)
+                            kv_valid, delta)
     raise ValueError(f"no attention path for device {q.device}")
 
 
@@ -500,16 +546,17 @@ def _zero_grad_if_none(g, o):
 
 
 class FlashBHRect(torch.autograd.Function):
-    """B5 forward, B7 backward (the JAX ``_flash_bh_rect``):
-    ``apply(q, k, v, scale, kv_valid)`` with q [B, H, Nq, D] and k, v
-    [B, H, Nk, D] -> (o, lse) over the first ``kv_valid`` keys (None: all);
-    dk and dv are 0 in the rows at or past it."""
+    """B5 forward (B6 with ``no_max=False``), B7 backward (the JAX
+    ``_flash_bh_rect``): ``apply(q, k, v, scale, kv_valid, no_max=True)``
+    with q [B, H, Nq, D] and k, v [B, H, Nk, D] -> (o, lse) over the first
+    ``kv_valid`` keys (None: all); dk and dv are 0 in the rows at or past
+    it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, kv_valid):
-        o, lse = fwd_bh(q, k, v, None, None, scale, kv_valid)
+    def forward(ctx, q, k, v, scale: float, kv_valid, no_max: bool = True):
+        o, lse = fwd_bh(q, k, v, None, None, scale, kv_valid, no_max)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.kv_valid = scale, kv_valid
+        ctx.scale, ctx.kv_valid, ctx.no_max = scale, kv_valid, no_max
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -517,24 +564,25 @@ class FlashBHRect(torch.autograd.Function):
     def backward(ctx, g, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
         if g is None and g_lse is None:
-            return (None,) * 5
+            return (None,) * 6
         dq, dk, dv, _, _ = bwd_bh(q, k, v, None, None, o, lse,
                                   _zero_grad_if_none(g, o), g_lse, ctx.scale,
-                                  kv_valid=ctx.kv_valid)
-        return dq, dk, dv, None, None
+                                  ctx.no_max, ctx.kv_valid)
+        return dq, dk, dv, None, None, None
 
 
 class FlashBH(FlashBHRect):
-    """B5 forward, B7 backward over [B, H, N, D] (the JAX ``_flash_bh``):
-    ``apply(q, k, v, scale)`` -> (o, lse)."""
+    """B5 forward (B6 with ``no_max=False``), B7 backward over
+    [B, H, N, D] (the JAX ``_flash_bh``): ``apply(q, k, v, scale,
+    no_max=True)`` -> (o, lse)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
-        return FlashBHRect.forward(ctx, q, k, v, scale, None)
+    def forward(ctx, q, k, v, scale: float, no_max: bool = True):
+        return FlashBHRect.forward(ctx, q, k, v, scale, None, no_max)
 
     @staticmethod
     def backward(ctx, g, g_lse):
-        return FlashBHRect.backward(ctx, g, g_lse)[:4]
+        return FlashBHRect.backward(ctx, g, g_lse)[:5]
 
 
 class FlashBHCls(torch.autograd.Function):
@@ -655,42 +703,43 @@ def _split_cls_attention(q, k, v, scale: float):
 def flash_attention(q, k, v, scale: float | None = None, no_max: bool = True):
     """q, k, v: [B, H, N, D] -> [B, H, N, D].  Differentiable.
 
-    A cls-prefixed sequence (n % 128 == 1, n > 128) runs B3 / B4 on tokens
-    1: (``_split_cls_attention``); any other n runs B5 / B7.  Any batch,
-    head and row strides with unit stride along D reach the kernels as
-    they are.  ``no_max=False`` (the exact online softmax, TPU kernel B6)
-    is not ported yet.  The TPU tiling knobs ``block_q`` / ``block_k`` are
-    not carried over."""
-    if not no_max:
-        raise NotImplementedError(_B6)
+    ``no_max=True``, the fixed-shift softmax: a cls-prefixed sequence
+    (n % 128 == 1, n > 128) runs B3 / B4 on tokens 1:
+    (``_split_cls_attention``); any other n runs B5 / B7.
+    ``no_max=False``, the exact online softmax: B6 / B7 over all n tokens,
+    with no cls split (as the JAX package).  Any batch, head and row
+    strides with unit stride along D reach the kernels as they are.  The
+    TPU tiling knobs ``block_q`` / ``block_k`` are not carried over."""
     d, n = q.shape[-1], q.shape[2]
     scale = float(d ** -0.5 if scale is None else scale)
-    if _cls_split(n):
+    if no_max and _cls_split(n):
         return _split_cls_attention(q, k, v, scale)
-    out, _ = FlashBH.apply(q, k, v, scale)
+    out, _ = FlashBH.apply(q, k, v, scale, bool(no_max))
     return out
 
 
 def flash_attention_rect(q, k, v, scale: float | None = None,
                          no_max: bool = True, kv_valid: int | None = None):
     """Cross-attention-shaped flash: q [B, H, Nq, D] against k, v
-    [B, H, Nk, D], Nq != Nk allowed.  Differentiable; B5 / B7.
+    [B, H, Nk, D], Nq != Nk allowed.  Differentiable; B5 / B7, or B6 / B7
+    with ``no_max=False``.
 
-    Only the first ``kv_valid`` keys (default all) are attended.  As in the
-    JAX package, the caller keeps the tail rows of k and v at zero and
-    zeroes their gradient (the JAX backward leaves values there; the
-    kernels here write zeros, so the two agree through that zeroing)."""
-    if not no_max:
-        raise NotImplementedError(_B6)
+    Only the first ``kv_valid`` keys (default all) are attended: the
+    kernels mask the keys at or past it (B6 with -inf, as the JAX
+    ``_fwd_kernel`` does with NEG_INF), so the tail rows of k and v may
+    hold anything.  The JAX fixed-shift kernel instead needs them zero
+    (its caller zeroes them and their gradient); its backward leaves
+    values there, the kernels here write zeros, so the two agree through
+    that zeroing."""
     d = q.shape[-1]
     scale = float(d ** -0.5 if scale is None else scale)
     kv = _kv_valid(kv_valid, k.shape[2])
-    out, _ = FlashBHRect.apply(q, k, v, scale, kv)
+    out, _ = FlashBHRect.apply(q, k, v, scale, kv, bool(no_max))
     return out
 
 
 def flash_attention_packed(q, k, v, num_heads: int,
-                           scale: float | None = None):
+                           scale: float | None = None, no_max: bool = True):
     """q, k, v: [B, N, H*D] -> [B, N, H*D].  Differentiable.
 
     A head_dim that B1 / B2 serve (``HEAD_DIMS``) runs them: a cls-prefixed
@@ -699,15 +748,17 @@ def flash_attention_packed(q, k, v, num_heads: int,
     B1 over all tokens; the backward is B2.  Any other head_dim (80 for
     the ViT-H/14 family at 16 heads) goes to ``flash_attention`` on the
     [B, H, N, D] views, as the JAX package falls back for shapes its
-    packed kernels do not serve.  The JAX rule there is the TPU's lane
-    grouping (G = 128 / d heads per kernel instance); B1 indexes heads by
-    stride, so only the head_dim decides here."""
+    packed kernels do not serve, and so does ``no_max=False`` (the exact
+    softmax, B6 / B7), as in the JAX package.  The JAX rule there is the
+    TPU's lane grouping (G = 128 / d heads per kernel instance); B1
+    indexes heads by stride, so only the head_dim decides here."""
     b, n, hd = q.shape
     d = _split_heads(hd, num_heads)
     scale = float(d ** -0.5 if scale is None else scale)
-    if d not in HEAD_DIMS:
+    if not no_max or d not in HEAD_DIMS:
         return _packed(flash_attention(_bhnd(q, num_heads), _bhnd(k, num_heads),
-                                       _bhnd(v, num_heads), scale=scale))
+                                       _bhnd(v, num_heads), scale=scale,
+                                       no_max=no_max))
     if _cls_split(n):
         out_tok, _ = FlashPacked.apply(q[:, 1:], k[:, 1:], v[:, 1:], k[:, :1],
                                        v[:, :1], num_heads, scale)
@@ -720,23 +771,26 @@ def flash_attention_packed(q, k, v, num_heads: int,
 
 
 def flash_attention_packed_qkv(qkv, num_heads: int,
-                               scale: float | None = None):
+                               scale: float | None = None,
+                               no_max: bool = True):
     """qkv: [B, N, 3*H*D], the raw fused Wqkv projection -> [B, N, H*D].
     Differentiable.
 
     The kernels read q, k and v as column views of the fused buffer
     (q at column h*D, k at H*D + h*D, v at 2*H*D + h*D), so the slices
     never materialize, and B2 writes the gradient into one dqkv buffer.
-    A head_dim outside ``HEAD_DIMS`` goes to ``flash_attention`` on the
-    [B, H, N, D] views of the buffer (batch stride N*3*H*D, head stride D,
-    row stride 3*H*D), which B3-B7 read with no transpose copy."""
+    A head_dim outside ``HEAD_DIMS``, or ``no_max=False``, goes to
+    ``flash_attention`` on the [B, H, N, D] views of the buffer (batch
+    stride N*3*H*D, head stride D, row stride 3*H*D), which B3-B7 read
+    with no transpose copy."""
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
     d = _split_heads(hd, num_heads)
     scale = float(d ** -0.5 if scale is None else scale)
-    if d not in HEAD_DIMS:
+    if not no_max or d not in HEAD_DIMS:
         q, k, v, _, _ = _split_qkv(qkv, False)
-        return flash_attention_packed(q, k, v, num_heads, scale=scale)
+        return flash_attention_packed(q, k, v, num_heads, scale=scale,
+                                      no_max=no_max)
     cls = _cls_split(n)
     out, _ = FlashPackedQKV.apply(qkv, num_heads, scale, cls)
     if not cls:

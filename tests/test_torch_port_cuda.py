@@ -1,4 +1,4 @@
-"""B1-B5 and B7 on the card against their plain versions, at small ragged
+"""B1-B8 on the card against their plain versions, at small ragged
 shapes.
 
 Needs an NVIDIA card (marker ``cuda``); skips without one.  Imports no
@@ -15,6 +15,12 @@ both sides, and p and ds are rounded to bf16 before their products, so a
 score whose fp32 value differs in the last bit may round the other way:
 one bf16 step of the largest gradient, 2^-8, twice over).
 
+B6 (the exact softmax) at the same o / lse limits, with logits x 8 far
+above the fixed shift's clamp.  B8 (the ablation variants) within 2^-7
+of the largest plain output in bf16 (a stripped variant's outputs have no
+softmax scale; p is rounded to bf16 on both sides), its raw l within
+1e-4 of the largest.
+
 Batch 2 throughout, and the cls-fold dO is the [:, 1:] slice of a
 [B, m + 1, H*D] buffer, as autograd hands it over after the cls row's
 concat: the kernels' batch strides are exercised.  B3-B5 and B7 take
@@ -27,6 +33,8 @@ import torch
 
 from octcubem_tpu_torch.ops import _cuda
 from octcubem_tpu_torch.ops import flash_attention as fa
+from octcubem_tpu_torch.ops.attention import naive_attention
+from octcubem_tpu_torch.scripts import kablate
 
 pytestmark = pytest.mark.cuda
 
@@ -243,3 +251,73 @@ def test_bh_refuses_what_it_does_not_serve(gen):
         fa.fwd_bh_cuda(q, q, q, None, None, 0.1, kv_valid=65)
     with pytest.raises(ValueError, match="dtype"):
         fa.fwd_bh_cuda(q.half(), q.half(), q.half(), None, None, 0.1)
+
+
+# ------------------------------------------------------ B6: exact softmax
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq,nk,kv_valid,h,d,qmul", [
+    (200, 200, None, 2, 32, 1.0), (129, 129, None, 2, 80, 8.0),
+    (300, 300, None, 2, 64, 8.0), (257, 257, None, 1, 128, 1.0),
+    (129, 129, None, 1, 256, 8.0), (70, 260, 250, 2, 80, 8.0),
+    (100, 513, 500, 4, 32, 1.0)])
+def test_b6_matches_plain(gen, nq, nk, kv_valid, h, d, qmul, dtype):
+    """B6 against fwd_bh_exact_plain: square on the fused buffer's
+    [B, H, N, D] views, rect (Nq != Nk, kv_valid) on contiguous tensors;
+    at x 8 B6 agrees with naive attention, where B5 cannot."""
+    scale = d ** -0.5
+    if nq == nk:
+        q, k, v = _bh_views(_qkv(gen, nq, h, d, dtype, qmul), h, d)
+    else:
+        q = (qmul * torch.randn((2, h, nq, d), generator=gen,
+                                device="cuda")).to(dtype)
+        k, v = (torch.randn((2, h, nk, d), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+    o, lse = fa.fwd_bh_cuda(q, k, v, None, None, scale, kv_valid, no_max=False)
+    o_ref, lse_ref = fa.fwd_bh_exact_plain(q, k, v, scale, kv_valid)
+    atol, rtol = TOL_O[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    if qmul > 1.0 and dtype == torch.float32:
+        kk, vv = k[:, :, :kv_valid], v[:, :, :kv_valid]
+        torch.testing.assert_close(o, naive_attention(q, kk, vv), atol=atol,
+                                   rtol=rtol)
+
+
+def test_b6_public_path_counts_launches(gen):
+    """flash_attention(no_max=False) launches B6 / B7 (no cls split at
+    n = 129); the packed API's no_max=False reaches the same kernels; q,
+    k, v gradients match the CPU plain path."""
+    qkv = _qkv(gen, 129, 2, 80, torch.bfloat16, 8.0)
+    g = torch.randn((2, 129, 160), generator=gen, device="cuda").to(qkv.dtype)
+    _cuda.reset_launches()
+    x = qkv.clone().requires_grad_()
+    fa.flash_attention_packed_qkv(x, 2, no_max=False).backward(g)
+    assert {k: c for k, c in _cuda.launches.items() if c} == {
+        "flash_fwd_bh_exact": 1, "flash_bwd_bh": 1}
+    xc = qkv.cpu().requires_grad_()
+    fa.flash_attention_packed_qkv(xc, 2, no_max=False).backward(g.cpu())
+    _assert_grad_close(x.grad.cpu(), xc.grad, torch.bfloat16, "dqkv")
+
+
+# -------------------------------------------------- B8: ablation variants
+
+@pytest.mark.parametrize("variant,tile", [
+    (v, "f128x64") for v in ("base", "noexp", "nosum", "qkonly", "mxonly",
+                             "mxbf16")] + [
+    ("base", t) for t in ("f64x64", "f128x128", "f64x128")])
+def test_b8_matches_plain(gen, variant, tile):
+    """Every flag variant at the base tile, the base variant at the other
+    tiles, each at its own padding."""
+    flags = kablate.VARIANTS[variant]
+    q, k, v = (torch.randn((2, 200, 32), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = _cuda.launches["flash_ablate"]
+    o, lse = kablate.fwd_variant(q, k, v, tile, **flags)
+    assert _cuda.launches["flash_ablate"] == before + 1
+    o_ref, lse_ref = kablate.fwd_variant_plain(
+        q, k, v, kablate.n_pad_of(200, tile), kablate.TILES[tile][2], **flags)
+    err = (o.float() - o_ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * o_ref.float().abs().max().item(), err
+    lerr = (lse - lse_ref).abs().max().item()
+    assert lerr <= 1e-4 * max(lse_ref.abs().max().item(), 1e-30), lerr

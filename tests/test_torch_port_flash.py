@@ -128,7 +128,10 @@ def test_unsupported_inputs_raise():
     q = torch.zeros((1, 129, 128))
     with pytest.raises(ValueError, match="CUDA"):  # host pointers never reach it
         tfa.fwd_packed_cuda(q, q, q, None, None, 2, 0.125)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A14"):  # head parallel
+        tattn.multi_head_attention_qkv(torch.zeros((1, 129, 384)), 2,
+                                       impl="flash_tp")
+    with pytest.raises(RuntimeError, match="use_sequence_parallel"):
         tattn.multi_head_attention_qkv(torch.zeros((1, 129, 384)), 2,
                                        impl="flash_sp")
     with pytest.raises(ValueError):

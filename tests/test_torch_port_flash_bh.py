@@ -3,9 +3,9 @@ package.
 
 ``flash_attention`` (B3 / B4 with the cls fold, B5 / B7 without),
 ``flash_attention_rect`` (B5 / B7 with ``kv_valid``), the private
-``(o, lse)`` Functions with an lse cotangent, B7's exact-softmax branch
-and the packed path's reroute for head dims B1 / B2 do not serve (48 and
-80) are held against the JAX package, whose Pallas kernels run in
+``(o, lse)`` Functions with an lse cotangent, B7's exact-softmax branch,
+the packed path's reroute for head dims B1 / B2 do not serve (48 and 80)
+and its ``no_max=False`` route (B6 / B7) are held against the JAX package, whose Pallas kernels run in
 interpret mode on the CPU; the port runs the kernels' plain versions.
 Every length of ROADMAP A2's list appears (128, 129, 200, 256, 257, 385,
 513, 577, 700) and every head_dim (32 at 4 heads, 64, 80, 128).  The
@@ -253,6 +253,42 @@ def test_packed_reroutes_head_dims_b1_does_not_serve(n, d, monkeypatch):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(grad_ref), **TOL_G)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("d", [64, 80])
+def test_packed_exact_softmax_matches_jax(d, fused):
+    """flash_attention_packed(_qkv)(no_max=False) routes to
+    flash_attention on the [B, H, N, D] views (B6 / B7), as the JAX
+    functions do: output and gradients against jax.vjp of the JAX
+    function, logits x 8 (far past the fixed shift's clamp)."""
+    h, n = 2, 129
+    rng = np.random.default_rng(d + fused)
+    x = rng.standard_normal((2, n, 3 * h * d)).astype(np.float32)
+    x[..., :h * d] *= 8.0
+    g = rng.standard_normal((2, n, h * d)).astype(np.float32)
+    hd = h * d
+    if fused:
+        out_ref, grads_ref = _jax_vjp(
+            lambda a: jfa.flash_attention_packed_qkv(a, h, no_max=False),
+            [jnp.asarray(x)], jnp.asarray(g))
+        xt = torch.from_numpy(x).requires_grad_()
+        ts = [xt]
+        out = tfa.flash_attention_packed_qkv(xt, h, no_max=False)
+    else:
+        parts = [np.ascontiguousarray(x[..., i * hd:(i + 1) * hd])
+                 for i in range(3)]
+        out_ref, grads_ref = _jax_vjp(
+            lambda q, k, v: jfa.flash_attention_packed(q, k, v, h,
+                                                       no_max=False),
+            [jnp.asarray(a) for a in parts], jnp.asarray(g))
+        ts = [torch.from_numpy(a).requires_grad_() for a in parts]
+        out = tfa.flash_attention_packed(*ts, h, no_max=False)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref),
+                               **TOL_O)
+    for t, ref in zip(ts, grads_ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref), **TOL_G)
+
+
 @pytest.mark.parametrize("impl", ["auto", "flash", "naive"])
 def test_multi_head_attention_matches_jax_naive(impl):
     x, _ = _data(2, 129, 2, 80, seed=6)
@@ -264,11 +300,24 @@ def test_multi_head_attention_matches_jax_naive(impl):
 
 
 def test_exact_softmax_forward_and_bad_kv_valid_refused():
+    """no_max=False runs B6's plain version (no cls split at n = 129) and
+    matches the JAX exact kernel; a kv_valid out of range and host
+    pointers are refused."""
+    x, _ = _data(1, 129, 2, 80, qmul=8.0, seed=7)
+    qkv = _jax_qkv(x)
+    _, (q, k, v) = _torch_qkv(x)
+    with torch.no_grad():
+        out = tfa.flash_attention(q, k, v, no_max=False)
+        rect = tfa.flash_attention_rect(q[:, :, :40], k, v, no_max=False,
+                                        kv_valid=100)
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(jfa.flash_attention(*qkv, no_max=False)),
+        **TOL_O)
+    np.testing.assert_allclose(
+        rect.numpy(), np.asarray(jfa.flash_attention_rect(
+            qkv[0][:, :, :40], qkv[1], qkv[2], no_max=False, kv_valid=100)),
+        **TOL_O)
     q = torch.zeros((1, 2, 129, 80))
-    with pytest.raises(NotImplementedError, match="B6"):
-        tfa.flash_attention(q, q, q, no_max=False)
-    with pytest.raises(NotImplementedError, match="B6"):
-        tfa.flash_attention_rect(q, q, q, no_max=False)
     for kv in (0, 130):
         with pytest.raises(ValueError, match="kv_valid"):
             tfa.flash_attention_rect(q, q, q, kv_valid=kv)
