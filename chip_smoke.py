@@ -12,7 +12,11 @@ Phases, each fatal on failure (no phase's error is caught):
      B2 (backward) on the packed layout; B3 / B5 (forward with and
      without the cls fold) and B4 / B7 (their backward) on the
      [B, H, N, D] views of the fused buffer, with the rectangular
-     kv_valid form and B7's exact-softmax branch;
+     kv_valid form and B7's exact-softmax branch; ragged cases at each
+     head_dim of the bf16 one-pass backward (query rows not a multiple
+     of its query tile, keys not a multiple of its 128-key tile); every
+     backward called twice: dk, dv, dkc, dvc bit-identical, dq (fp32
+     adds in varying order) within tolerance on both runs;
   4. the serving path: entry()'s ViT-L 48x256x256 bf16 forward, its
      launch counts, finite [1, 16] logits that agree with the same model
      run with impl="naive";
@@ -29,13 +33,14 @@ Phases, each fatal on failure (no phase's error is caught):
      ViT-H/14 at 60x224x224 (32 B5 + 32 B7 in the encoder, 8 B1 + 8 B2 in
      the decoder); finite loss and grad norm, params unchanged by the
      first update (its LR is 0) and changed by the next two, peak device
-     memory, the step's time;
+     memory, the step's time beside the parent tree's;
   8. flash against impl="naive" under autograd: each MAE cut to 2 + 2
      blocks at batch 2, loss and per-leaf gradients, fp32 and bf16;
   9. B1 and B2 at the ViT-L step's shapes, B3-B5 and B7 at the ViT-H
      paths' shapes, laid out as the paths lay them out, against their
-     plain versions; timings with CUDA events (kernel, plain version, a
-     PyTorch library yardstick, the bound; the forwards and the steps);
+     plain versions (the backward twice, as in phase 3); timings with
+     CUDA events (kernel, plain version, a PyTorch library yardstick, the
+     bound; the forwards and the steps);
  10. B6, the exact online softmax, against its plain version, fp32 and
      bf16, D in {32, 64, 80, 128, 256}, square (the fused buffer's
      views) and rect with kv_valid < Nk, and with logits far above the
@@ -97,7 +102,16 @@ TOL_LSE = 1e-4  # fp32 statistics on both sides
 # p and ds are rounded to bf16 before their products on both sides, so a
 # score whose fp32 value differs in the last bit may round the other way;
 # allow one bf16 step of the largest gradient, 2^-8, twice over.
+# The bf16 backward at head_dim <= 128 adds dq's per-key-tile shares in
+# fp32 in varying order: dq is held to the same tolerance on each of two
+# runs, dk, dv, dkc and dvc must be bit-identical between them.
 TOL_GRAD = {"float32": 5e-4, "bfloat16": 2 ** -7}
+
+# the ViT-L and ViT-H step times of the parent tree: this script's own
+# phase 7 in PR 4's final run, NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+PARENT_STEP_MS = {("ViT-L/16 60x256x256", 16): 118.597,
+                  ("ViT-L/16 60x256x256", 4): 105.866,
+                  ("ViT-H/14 60x224x224", 16): 151.139}
 # the ViT-L logits, flash (fixed shift, unnormalised bf16 p) vs naive
 # (exact softmax, normalised bf16 p) through 24 bf16 blocks.  Measured on an
 # H100 at 700 W with seeded weights: 7.8e-3 (first kernel version) and
@@ -169,6 +183,40 @@ def check_flash_fwd(torch, fa):
     return vitl_err
 
 
+def _grads_twice(torch, what, call, ref, dtype):
+    """A backward ``call`` made twice on the same inputs against its plain
+    version ``ref`` (dq, dk, dv, dkc, dvc): each output of each run within
+    TOL_GRAD x max|plain| and finite; dk, dv, dkc, dvc bit-identical
+    between the runs.  Prints the largest run-to-run |d dq|.  Returns
+    ({output: max |d|}, the outputs) of the first run."""
+    first = call()
+    second = call()
+    torch.cuda.synchronize()
+    tol = TOL_GRAD[str(dtype).split(".")[1]]
+    errs, ok = {}, True
+    for name, a, b, r in zip(("dq", "dk", "dv", "dkc", "dvc"), first, second,
+                             ref):
+        if r is None:
+            ok &= a is None and b is None
+            continue
+        top = r.float().abs().max().item()
+        errs[name] = (a.float() - r.float()).abs().max().item()
+        for got in (a, b):
+            ok &= ((got.float() - r.float()).abs().max().item() <= tol * top
+                   and bool(torch.isfinite(got.float()).all()))
+        if name != "dq":
+            ok &= torch.equal(a, b)
+    rerun = (first[0].float() - second[0].float()).abs().max().item()
+    print(f"{what}: max|d| " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f" (tol {tol:.1e} x max|plain|); run to run max|d dq|="
+          f"{rerun:.3e}, dk dv dkc dvc identical")
+    if not ok:
+        raise AssertionError(f"{what}: the backward disagrees with its plain "
+                             "version, or dk / dv / dkc / dvc moved between "
+                             "two runs")
+    return errs, first
+
+
 def check_flash_bwd(torch, fa):
     """Phase 3, B2: against its plain version at B=1 on B1's own (o, lse),
     with a random dO and g_lse.  (Phase 8 holds it at B=4, as the training
@@ -177,7 +225,9 @@ def check_flash_bwd(torch, fa):
     cases = [(5121, 16, 32, 1.0), (5121, 4, 128, 1.0),  # the decoder's
              (512, 16, 64, 1.0),  # the encoder's: 511 + cls, no fold
              (4000, 16, 64, 1.0), (1025, 8, 128, 1.0), (513, 4, 256, 1.0),
-             (1025, 8, 128, 40.0)]  # q scaled: most logits above the clamp
+             (1025, 8, 128, 40.0),  # q scaled: most logits above the clamp
+             # ragged: rows and keys not multiples of the one pass's tiles
+             (700, 8, 32, 1.0), (333, 4, 64, 1.0), (901, 2, 128, 1.0)]
     for n, h, d, qmul in cases:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((1, n, 3 * h * d), generator=gen, device="cuda")
@@ -188,28 +238,13 @@ def check_flash_bwd(torch, fa):
             o, lse = fa.fwd_packed_cuda(*args, h, scale)
             do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
             g_lse = 0.1 * torch.randn(lse.shape, generator=gen, device="cuda")
-            got = fa.bwd_packed_cuda(*args, o, lse, do, g_lse, h, scale)
-            torch.cuda.synchronize()
             ref = fa.bwd_packed_plain(*args, o, lse, do, g_lse, h, scale)
-            tol = TOL_GRAD[str(dtype).split(".")[1]]
-            errs, ok = {}, True
-            for name, a, b in zip(("dq", "dk", "dv", "dkc", "dvc"), got, ref):
-                if b is None:
-                    ok &= a is None
-                    continue
-                err = (a.float() - b.float()).abs().max().item()
-                errs[name] = err
-                ok &= (err <= tol * b.float().abs().max().item()
-                       and bool(torch.isfinite(a.float()).all()))
             clamped = "" if qmul == 1.0 else " large-logit"
-            print(f"B2 n={n} H={h} D={d} {str(dtype)[6:]}{clamped} "
-                  f"cls={args[3] is not None}: max|d| "
-                  + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
-                  + f" (tol {tol:.1e} x max|plain|)")
-            if not ok:
-                raise AssertionError(f"B2 disagrees with its plain version "
-                                     f"at n={n} H={h} D={d} {dtype}")
-            del qkv, o, lse, do, got, ref
+            _grads_twice(torch, f"B2 n={n} H={h} D={d} {str(dtype)[6:]}"
+                         f"{clamped} cls={args[3] is not None}",
+                         lambda: fa.bwd_packed_cuda(*args, o, lse, do, g_lse,
+                                                    h, scale), ref, dtype)
+            del qkv, o, lse, do, ref
 
 
 def _nonzero(launches):
@@ -404,7 +439,8 @@ def run_train(torch, _cuda, entry_mod, optim, name, geometries, expect,
         flops = mae_train_flops(**flops_kw) * x.shape[0]
         bound = flops / PEAK_BF16_FLOPS * 1e3
         print(f"train step {name} dec_heads={dec_heads} (mask 0.90, batch "
-              f"{x.shape[0]}, bf16): {ms:.3f} ms per step, "
+              f"{x.shape[0]}, bf16): {ms:.3f} ms per step (parent "
+              f"{PARENT_STEP_MS[(name, dec_heads)]:.3f}), "
               f"{x.shape[0] / ms * 1e3:.3f} vol/s; bound {bound:.3f} ms "
               f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
               f"max_memory_allocated {peak:.2f} GiB")
@@ -484,25 +520,18 @@ def _check_main_path_shape(torch, fa, name, args, o, lse, do, out, h,
     excess = (do_o - rtol * o_ref.float().abs()).max().item()
     dlse = (lse - lse_ref).abs().max().item()
     del o_ref, lse_ref
-    got = fa.bwd_packed_cuda(*args, o, lse, do, None, h, scale, out=out)
-    torch.cuda.synchronize()
+    print(f"B1 {name} B={o.shape[0]} bf16 as on the main path: max|do|="
+          f"{do_o.max().item():.3e} max|dlse|={dlse:.3e}")
+    if not (excess <= atol and dlse <= TOL_LSE):
+        raise AssertionError(f"B1 disagrees with its plain version at the "
+                             f"{name} shape, B={o.shape[0]}")
     ref = fa.bwd_packed_plain(*args, o, lse, do, None, h, scale)
-    tol = TOL_GRAD["bfloat16"]
-    errs, ok = {}, True
-    for key, a, b in zip(("dq", "dk", "dv", "dkc", "dvc"), got, ref):
-        if b is None:
-            ok &= a is None
-            continue
-        errs[key] = (a.float() - b.float()).abs().max().item()
-        ok &= (errs[key] <= tol * b.float().abs().max().item()
-               and bool(torch.isfinite(a.float()).all()))
-    print(f"B1 + B2 {name} B={o.shape[0]} bf16 as on the main path: "
-          f"B1 max|do|={do_o.max().item():.3e} max|dlse|={dlse:.3e}; B2 "
-          f"max|d| " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
-          + f" (tol {tol:.1e} x max|plain|)")
-    if not (excess <= atol and dlse <= TOL_LSE and ok):
-        raise AssertionError(f"B1 / B2 disagree with their plain versions "
-                             f"at the {name} shape, B={o.shape[0]}")
+    # each run writes the dqkv views whole; keep the first run's apart
+    errs, _ = _grads_twice(
+        torch, f"B2 {name} B={o.shape[0]} bf16 as on the main path",
+        lambda: tuple(None if t is None else t.clone() for t in
+                      fa.bwd_packed_cuda(*args, o, lse, do, None, h, scale,
+                                         out=out)), ref, torch.bfloat16)
     return max(errs.values())
 
 
@@ -641,31 +670,17 @@ def _hold_bh(torch, fa, what, args, dtype, gen, kv_valid=None, no_max=True):
     cls = args[3] is not None
     do = _bh_do(torch, gen, b, nq + cls, h, d, dtype, cls)
     g_lse = 0.1 * torch.randn(lse_ref.shape, generator=gen, device="cuda")
-    got = fa.bwd_bh_cuda(*args, o_ref, lse_ref, do, g_lse, scale, no_max,
-                         kv_valid)
-    torch.cuda.synchronize()
     ref = fa.bwd_bh_plain(*args, o_ref, lse_ref, do, g_lse, scale, no_max,
                           kv_valid)
-    tol = TOL_GRAD[str(dtype).split(".")[1]]
-    errs, rels, ok = {}, {}, True
-    for name, a, r in zip(("dq", "dk", "dv", "dkc", "dvc"), got, ref):
-        if r is None:
-            ok &= a is None
-            continue
-        errs[name] = (a.float() - r.float()).abs().max().item()
-        rels[name] = errs[name] / max(r.float().abs().max().item(), 1e-30)
-        ok &= rels[name] <= tol and bool(torch.isfinite(a.float()).all())
-    if kv_valid is not None:
-        ok &= bool((got[1][:, :, kv_valid:] == 0).all()
-                   and (got[2][:, :, kv_valid:] == 0).all())
-    print(f"{what} {str(dtype)[6:]}: "
-          + (f"fwd max|do|={fwd_err:.3e}; " if no_max else "")
-          + "bwd max|d| (/ max|plain|) " + " ".join(
-              f"{k}={v:.3e} ({rels[k]:.1e})" for k, v in errs.items())
-          + f" (tol {tol:.1e} x max|plain|)")
-    if not ok:
-        raise AssertionError(f"{what}: the backward disagrees with its plain "
-                             f"version")
+    errs, got = _grads_twice(
+        torch, f"{what} {str(dtype)[6:]}"
+        + (f" (fwd max|do|={fwd_err:.3e})" if no_max else ""),
+        lambda: fa.bwd_bh_cuda(*args, o_ref, lse_ref, do, g_lse, scale,
+                               no_max, kv_valid), ref, dtype)
+    if kv_valid is not None and not bool(
+            (got[1][:, :, kv_valid:] == 0).all()
+            and (got[2][:, :, kv_valid:] == 0).all()):
+        raise AssertionError(f"{what}: dk / dv not 0 past kv_valid")
     return fwd_err, max(errs.values())
 
 
@@ -683,7 +698,10 @@ def check_bh_kernels(torch, fa):
              ("ViT-H encoder", 4, 512, 16, 80, 1.0),
              ("D=64", 2, 1025, 8, 64, 1.0), ("D=128", 2, 700, 4, 128, 1.0),
              ("D=32", 2, 513, 8, 32, 1.0), ("D=256", 1, 300, 2, 256, 1.0),
-             ("large-logit D=80", 2, 1025, 4, 80, 40.0)]
+             ("large-logit D=80", 2, 1025, 4, 80, 40.0),
+             # ragged: rows and keys not multiples of the one pass's tiles
+             ("ragged D=80", 2, 333, 4, 80, 1.0),
+             ("ragged D=32", 2, 700, 4, 32, 1.0)]
     for name, b, n, h, d, qmul in cases:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda")
@@ -793,6 +811,10 @@ def time_bh_kernels(torch, fa):
         scale = d ** -0.5
         o, lse = fa.fwd_bh_cuda(*args, scale)
         do = _bh_do(torch, gen, b, n, h, d, torch.bfloat16, cls)
+        _grads_twice(torch, f"{bwd} {path} B={b} bf16 as on the main path",
+                     lambda: fa.bwd_bh_cuda(*args, o, lse, do, None, scale),
+                     fa.bwd_bh_plain(*args, o, lse, do, None, scale),
+                     torch.bfloat16)
         t = {fwd: _elapsed_ms(lambda: fa.fwd_bh_cuda(*args, scale), 50),
              bwd: _elapsed_ms(lambda: fa.bwd_bh_cuda(*args, o, lse, do, None,
                                                      scale), 20)}

@@ -23,6 +23,13 @@
 // - B7 at the ViT-H/14 MAE encoder shape (B=4, H=16, N=512, D=80):
 //   1.3e10 FLOP -> 0.0136 ms, against ~42 MB -> 0.0125 ms: operations and
 //   bytes about even.
+// bf16 runs flash_bwd.cuh's one pass on wgmma: B4 0.76 ms per call (3.5x
+// its bound), B7 0.083 ms (6x) on an H100 at 700 W, device time
+// (scripts/time_kernels.py).  B4 is held back most by dq's trip through
+// shared memory to its fp32 accumulator (0.23 of 0.69 ms of kernel time);
+// B7's 256 blocks fill two waves of 132 SMs, and
+// the call's delta, memset and dq epilogue take a quarter of it (0.022 of
+// 0.083 ms).
 
 #include <limits>
 
@@ -39,11 +46,13 @@ extern "C" long long octcube_flash_bwd_bh_scratch(int B, int H, int nq, int D,
 extern "C" int octcube_flash_bwd_bh(
     const void* q, const void* k, const void* v, const void* kc,
     const void* vc, const void* dout, const void* lse, const void* delta,
-    void* dq, void* dk, void* dv, void* dkc, void* dvc, void* scratch, int B,
+    void* dq, void* dk, void* dv, void* dkc, void* dvc, void* scratch,
+    void* acc, int B,
     int H, int nq, int nk, int kv_valid, int D, const long long* strides,
     float scale, int no_max, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || nq <= 0 || nk <= 0) return cudaSuccess;
   if ((kc == nullptr) != (vc == nullptr) || (kc && !scratch) ||
+      (one_pass(D, is_bf16) && !acc) ||
       kv_valid <= 0 || kv_valid > nk)
     return cudaErrorInvalidValue;
   int s[24];
@@ -56,6 +65,7 @@ extern "C" int octcube_flash_bwd_bh(
                     static_cast<const float*>(lse),
                     static_cast<const float*>(delta),
                     dq, dk, dv, dkc, dvc, static_cast<float*>(scratch),
+                    static_cast<float*>(acc),
                     B, H, nq, nk, kv_valid, (nq + rows - 1) / rows,
                     Lay{s[0], s[1], s[2]}, Lay{s[3], s[4], s[5]},
                     Lay{s[6], s[7], s[8]}, Lay{s[9], s[10], s[11]},

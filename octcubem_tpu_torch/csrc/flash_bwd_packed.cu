@@ -16,7 +16,13 @@
 // 10*B*H*n*(n+1)*D = 5.4e11 FLOP -> 0.54 ms at 989 TFLOP/s dense bf16; the
 // bytes are one read of q, k, v, dO, lse and delta and one write of dq,
 // dk, dv, ~0.13 GB -> 0.04 ms at 3.35 TB/s.  So the call is bound by
-// tensor-core operations; the exp per score is a second, smaller cost.
+// tensor-core operations.  bf16 runs flash_bwd.cuh's one pass on wgmma:
+// 2.33 ms per call at 16 heads of 32 and 1.70 at 4 heads of 128 on an H100
+// at 700 W (device time, scripts/time_kernels.py), 4.3x and 3.1x the bound;
+// what keeps it from the bound is mostly dq's trip through shared memory
+// to its fp32 accumulator, and at D = 32 also the exp (flash_bwd.cuh,
+// PERF.md).  The call also forms delta (delta_kernel) and zeroes the
+// accumulator.
 
 #include "flash_bwd.cuh"
 
@@ -29,13 +35,15 @@ extern "C" long long octcube_flash_bwd_packed_scratch(int B, int H, int n,
 extern "C" int octcube_flash_bwd_packed(
     const void* q, const void* k, const void* v, const void* kc,
     const void* vc, const void* dout, const void* lse, const void* delta,
-    void* dq, void* dk, void* dv, void* dkc, void* dvc, void* scratch, int B,
+    void* dq, void* dk, void* dv, void* dkc, void* dvc, void* scratch,
+    void* acc, int B,
     int H, int n, int D, long long row_stride, long long batch_stride,
     long long do_row_stride, long long do_batch_stride, long long g_row_stride,
     long long g_batch_stride, long long gc_batch_stride, float scale,
     int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || n <= 0) return cudaSuccess;
-  if ((kc == nullptr) != (vc == nullptr) || (kc && !scratch))
+  if ((kc == nullptr) != (vc == nullptr) || (kc && !scratch) ||
+      (one_pass(D, is_bf16) && !acc))
     return cudaErrorInvalidValue;
   for (long long s : {row_stride, batch_stride, do_row_stride, do_batch_stride,
                       g_row_stride, g_batch_stride, gc_batch_stride})
@@ -47,6 +55,7 @@ extern "C" int octcube_flash_bwd_packed(
                     static_cast<const float*>(lse),
                     static_cast<const float*>(delta),
                     dq, dk, dv, dkc, dvc, static_cast<float*>(scratch),
+                    static_cast<float*>(acc),
                     B, H, n, n, n, (n + rows - 1) / rows,
                     l, l, l, Lay{int(do_batch_stride), D, int(do_row_stride)},
                     lg, lg, lg, Lay{int(gc_batch_stride), D, 0}, scale, kClamp};

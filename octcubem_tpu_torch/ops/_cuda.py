@@ -36,6 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
+# both backward libraries: o, dO, g_lse, delta, B, H, n, D, strides (o, dO:
+# batch, head, row), is_bf16, stream
+_DELTA = ([_P] * 4 + [_I] * 4 + [_P, _I, _P], ctypes.c_int)
+
 # library name -> (source file, {exported C function: (argtypes, restype)})
 KERNELS = {
     "flash_fwd_packed": ("flash_fwd_packed.cu", {
@@ -48,13 +52,14 @@ KERNELS = {
     }),
     "flash_bwd_packed": ("flash_bwd_packed.cu", {
         # q, k, v, kc, vc, dO, lse, delta, dq, dk, dv, dkc, dvc, scratch,
-        # B, H, n, D, row_stride, batch_stride, do_row_stride,
+        # dq_acc, B, H, n, D, row_stride, batch_stride, do_row_stride,
         # do_batch_stride, g_row_stride, g_batch_stride, gc_batch_stride,
         # scale, is_bf16, stream
-        "octcube_flash_bwd_packed": ([_P] * 14 + [_I] * 4 + [_L] * 7
+        "octcube_flash_bwd_packed": ([_P] * 15 + [_I] * 4 + [_L] * 7
                                      + [_F, _I, _P], ctypes.c_int),
         # B, H, n, D, is_bf16 -> fp32 floats of cls partial sums
         "octcube_flash_bwd_packed_scratch": ([_I] * 5, ctypes.c_longlong),
+        "octcube_flash_bwd_delta": _DELTA,
         "octcube_error_string": ([_I], ctypes.c_char_p),
     }),
     "flash_fwd_bh": ("flash_fwd_bh.cu", {
@@ -66,12 +71,13 @@ KERNELS = {
     }),
     "flash_bwd_bh": ("flash_bwd_bh.cu", {
         # q, k, v, kc, vc, dO, lse, delta, dq, dk, dv, dkc, dvc, scratch,
-        # B, H, nq, nk, kv_valid, D, strides (q, k, v, dO, dq, dk, dv,
-        # dkc / dvc: batch, head, row), scale, no_max, is_bf16, stream
-        "octcube_flash_bwd_bh": ([_P] * 14 + [_I] * 6 + [_P, _F, _I, _I, _P],
+        # dq_acc, B, H, nq, nk, kv_valid, D, strides (q, k, v, dO, dq, dk,
+        # dv, dkc / dvc: batch, head, row), scale, no_max, is_bf16, stream
+        "octcube_flash_bwd_bh": ([_P] * 15 + [_I] * 6 + [_P, _F, _I, _I, _P],
                                  ctypes.c_int),
         # B, H, nq, D, is_bf16 -> fp32 floats of cls partial sums
         "octcube_flash_bwd_bh_scratch": ([_I] * 5, ctypes.c_longlong),
+        "octcube_flash_bwd_delta": _DELTA,
         "octcube_error_string": ([_I], ctypes.c_char_p),
     }),
     "flash_ablate": ("flash_ablate.cu", {

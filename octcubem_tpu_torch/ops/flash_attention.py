@@ -151,6 +151,25 @@ def _delta_bh(o, do, g_lse):
     return delta.contiguous()
 
 
+def _delta_cuda(lib, o, do, g_lse):
+    """``_delta_bh`` on the card: the backward library's delta kernel (one
+    read of o and dO, fp32 sums) for [B, H, n, D] views -> [B, H, n]
+    fp32."""
+    b, h, n, d = do.shape
+    o = o.to(do.dtype)
+    if o.stride(-1) != 1:
+        o = o.contiguous()
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=do.device)
+    g = None if g_lse is None else g_lse.float().contiguous()
+    with torch.cuda.device(do.device):
+        err = lib.octcube_flash_bwd_delta(
+            o.data_ptr(), do.data_ptr(), _ptr(g), delta.data_ptr(), b, h, n, d,
+            _strides(o, do), int(do.dtype == torch.bfloat16),
+            torch.cuda.current_stream(do.device).cuda_stream)
+    _cuda.check(lib, err, "flash_bwd delta")
+    return delta
+
+
 def bwd_bh_plain(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
                  no_max: bool = True, kv_valid: int | None = None,
                  delta=None):
@@ -224,6 +243,41 @@ def _rows_aligned(t) -> bool:
     es = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all((s * es) % 16 == 0 for s in t.stride()[:-1]))
+
+
+def _for_tma(t):
+    """``t`` itself when a TMA tensor map can describe it with its own
+    strides (``_rows_aligned``: cuTensorMapEncodeTiled takes a 16-byte
+    aligned base and strides that are multiples of 16 bytes), else a
+    contiguous copy.  The backward kernels load q, k, v and dO through such
+    maps; the fused buffer's column views and autograd's dO pass as they
+    are."""
+    return t if _rows_aligned(t) else t.contiguous()
+
+
+# the bf16 backward's fp32 dq accumulator pads the query rows to whole
+# tiles of its pass (csrc/flash_bwd.cuh, kAccRows)
+DQ_ACC_ROWS = 128
+
+
+def dq_accum_shape(b: int, h: int, nq: int, d: int, dtype):
+    """The fp32 dq accumulator the bf16 one-pass backward (head_dim <= 128)
+    adds every key tile's share into: [B, H, nq rounded up to DQ_ACC_ROWS,
+    D], zeroed by the wrapper.  None where the CUDA-core passes run (fp32,
+    head_dim 256), which need none."""
+    if dtype != torch.bfloat16 or d > 128:
+        return None
+    return (b, h, -(-nq // DQ_ACC_ROWS) * DQ_ACC_ROWS, d)
+
+
+def _dq_accum(b: int, h: int, nq: int, d: int, q):
+    shape = dq_accum_shape(b, h, nq, d, q.dtype)
+    return (None if shape is None else
+            torch.zeros(shape, dtype=torch.float32, device=q.device))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_rows(ts, what: str) -> None:
@@ -304,20 +358,20 @@ def bwd_packed_cuda(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
     are not 16-byte aligned).  ``out``: (dq, dk, dv, dkc, dvc) to write
     into, e.g. column views of one dqkv buffer of the fused layout, with
     dq, dk, dv sharing shape and strides and dkc, dvc [B, 1, H*D] sharing
-    a batch stride; allocated when None.  One kernel call (three
-    launches: the dk/dv pass, the dq pass and the cls sums) counts
-    once."""
+    a batch stride; allocated when None.  One kernel call counts once
+    (``bwd_bh_cuda`` says what it launches)."""
     b, m, hd = q.shape
+    q, k, v = (_for_tma(t) for t in (q, k, v))
     d = _check_kernel_inputs(q, k, v, kc, vc, num_heads)
     cls = kc is not None
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("dO must match q's shape, dtype and device")
     if lse.shape != (b, num_heads, m) or lse.dtype != torch.float32:
         raise ValueError("lse must be [B, H, m] fp32")
-    if not _rows_aligned(do):
-        do = do.contiguous()
+    do = _for_tma(do)
     lse = lse.contiguous()
-    delta = _delta_bh(_bhnd(o, num_heads), _bhnd(do, num_heads), g_lse)
+    lib = _cuda.library("flash_bwd_packed")
+    delta = _delta_cuda(lib, _bhnd(o, num_heads), _bhnd(do, num_heads), g_lse)
     if out is None:
         dq, dk, dv = (torch.empty((b, m, hd), dtype=q.dtype, device=q.device)
                       for _ in range(3))
@@ -337,18 +391,16 @@ def bwd_packed_cuda(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
                                      "batch stride")
     _check_rows((dq, dk, dv) + ((dkc, dvc) if cls else ()), "dq, dk, dv")
     bf16 = int(q.dtype == torch.bfloat16)
-    lib = _cuda.library("flash_bwd_packed")
     scratch = (torch.empty(lib.octcube_flash_bwd_packed_scratch(
         b, num_heads, m, d, bf16), dtype=torch.float32, device=q.device)
         if cls else None)
+    acc = _dq_accum(b, num_heads, m, d, q)
     with torch.cuda.device(q.device):
         err = lib.octcube_flash_bwd_packed(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kc.data_ptr() if cls else None, vc.data_ptr() if cls else None,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kc), _ptr(vc),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dkc.data_ptr() if cls else None, dvc.data_ptr() if cls else None,
-            scratch.data_ptr() if cls else None, b, num_heads, m, d,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dkc), _ptr(dvc),
+            _ptr(scratch), _ptr(acc), b, num_heads, m, d,
             q.stride(1), q.stride(0), do.stride(1), do.stride(0),
             dq.stride(1), dq.stride(0), dkc.stride(0) if cls else 0,
             float(scale), bf16, torch.cuda.current_stream(q.device).cuda_stream)
@@ -478,10 +530,16 @@ def bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
     takes them, plus the forward's o and lse and the incoming dO (any
     strides; copied only when its rows are not 16-byte aligned) -> (dq,
     dk, dv, dkc, dvc), dq, dk, dv laid out as q, k, v are, dkc / dvc
-    [B, H, 1, D].  ``delta`` as ``bwd_bh_plain`` takes it.  One kernel call
-    (the dk/dv pass, the dq pass and, with the cls fold, the cls sums)
-    counts once."""
+    [B, H, 1, D].  ``delta`` as ``bwd_bh_plain`` takes it.  q, k, v and
+    dO that a TMA tensor map cannot describe are copied (``_for_tma``).
+    One kernel call counts once: in bf16 at head_dim <= 128, one pass over
+    the key tiles (dk, dv, and each tile's share of dq added into a zeroed
+    fp32 accumulator, ``dq_accum_shape``), the dq epilogue and, with the
+    cls fold, the cls sums; dq is then not bit-identical from run to run
+    (the fp32 adds arrive in varying order), dk, dv, dkc and dvc are.
+    fp32 and head_dim 256 run two CUDA-core passes and the cls sums."""
     b, h, nq, d = q.shape
+    q, k, v = (_for_tma(t) for t in (q, k, v))
     d = _check_bh_inputs(q, k, v, kc, vc)
     nk = k.shape[2]
     kv = _kv_valid(kv_valid, nk)
@@ -492,11 +550,11 @@ def bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
         raise ValueError("dO must match q's shape, dtype and device")
     if lse.shape != (b, h, nq) or lse.dtype != torch.float32:
         raise ValueError("lse must be [B, H, Nq] fp32")
-    if not _rows_aligned(do):
-        do = do.contiguous()
+    do = _for_tma(do)
     lse = lse.contiguous()
+    lib = _cuda.library("flash_bwd_bh")
     if delta is None:
-        delta = _delta_bh(o, do, g_lse)
+        delta = _delta_cuda(lib, o, do, g_lse)
     elif delta.shape != (b, h, nq) or delta.dtype != torch.float32:
         raise ValueError("delta must be [B, H, Nq] fp32")
     delta = delta.contiguous()
@@ -504,20 +562,18 @@ def bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
     dkc, dvc = ((torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
                  for _ in range(2)) if cls else (None, None))
     bf16 = int(q.dtype == torch.bfloat16)
-    lib = _cuda.library("flash_bwd_bh")
     scratch = (torch.empty(lib.octcube_flash_bwd_bh_scratch(b, h, nq, d, bf16),
                            dtype=torch.float32, device=q.device)
                if cls else None)
+    acc = _dq_accum(b, h, nq, d, q)
     # dkc / dvc share one layout; without the cls fold q's stands in, unread
     strides = _strides(q, k, v, do, dq, dk, dv, dkc if cls else q)
     with torch.cuda.device(q.device):
         err = lib.octcube_flash_bwd_bh(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kc.data_ptr() if cls else None, vc.data_ptr() if cls else None,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kc), _ptr(vc),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dkc.data_ptr() if cls else None, dvc.data_ptr() if cls else None,
-            scratch.data_ptr() if cls else None, b, h, nq, nk, kv, d, strides,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dkc), _ptr(dvc),
+            _ptr(scratch), _ptr(acc), b, h, nq, nk, kv, d, strides,
             float(scale), int(no_max), bf16,
             torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(lib, err, "flash_bwd_bh")

@@ -1,9 +1,12 @@
 """Where the serving forward's time goes: entry()'s bf16 classifier
 forward under torch.profiler, on one card: ViT-L/16 at 48x256x256, or
 ViT-H/14 (16 heads of 80, kernel B3) at 48x224x224 with ``--model vit-h``.
+``--backward`` profiles the fine-tuning pass instead: the forward in
+train mode and its backward under a cross-entropy on one label (kernels
+B3 and B4 for ViT-H), as chip_smoke.py's phase 6 runs it.
 
     python -m octcubem_tpu_torch.scripts.profile_forward [--model vit-l]
-        [--iters 5]
+        [--backward] [--iters 5]
 
 Prints the card's name and power limit, the wall time per forward (host
 clock around forwards that end in a synchronize), the device-busy time
@@ -45,6 +48,7 @@ def main(argv=None) -> int:
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--trace", default=None)
+    parser.add_argument("--backward", action="store_true")
     args = parser.parse_args(argv)
 
     import torch
@@ -58,19 +62,32 @@ def main(argv=None) -> int:
         return 2
     fn, (model, x) = entry(**(dict(ctor=vit_st.vit_huge_patch14, img_size=224)
                               if args.model == "vit-h" else {}))
+    if args.backward:
+        import torch.nn.functional as F
+
+        model.train()
+        label = torch.tensor([3], device=x.device)
+        gen = torch.Generator(device=x.device).manual_seed(8)
+
+        def run():
+            model.zero_grad(set_to_none=True)
+            F.cross_entropy(model(x, gen).float(), label).backward()
+    else:
+        def run():
+            fn(model, x)
     for _ in range(2):
-        fn(model, x)
+        run()
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     for _ in range(args.iters):
-        fn(model, x)
+        run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.iters):
-            fn(model, x)
+            run()
         torch.cuda.synchronize()
     if args.trace:
         prof.export_chrome_trace(args.trace)
@@ -80,11 +97,12 @@ def main(argv=None) -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip())
-    print(json.dumps({"model": args.model, "wall_ms_per_forward": wall_ms,
-                      "device_busy_ms_per_forward": busy_ms,
+    what = "fwd_bwd" if args.backward else "forward"
+    print(json.dumps({"model": args.model, f"wall_ms_per_{what}": wall_ms,
+                      f"device_busy_ms_per_{what}": busy_ms,
                       "idle_share": 1.0 - busy_ms / wall_ms}))
     for key, count, us in kernels[:args.top]:
-        print(f"{us / 1e3 / args.iters:9.4f} ms/fwd  {count // args.iters:5d}/fwd  "
+        print(f"{us / 1e3 / args.iters:9.4f} ms/call  {count // args.iters:5d}/call  "
               f"{key[:110]}")
     return 0
 

@@ -27,8 +27,8 @@ import time
 from .profile_forward import kernel_rows
 
 FWD = ("fwd_bf16_kernel", "fwd_f32_kernel")
-BWD = ("dkdv_bf16_kernel", "dq_bf16_kernel", "dkdv_core_kernel",
-       "dq_core_kernel", "cls_reduce_kernel")
+BWD = ("bwd_hopper_kernel", "dq_epilogue_kernel", "delta_kernel",
+       "dkdv_core_kernel", "dq_core_kernel", "cls_reduce_kernel")
 # kernel-name substrings -> group, first match wins
 GROUPS = (
     ("flash forward, head_dim 80 (B3 / B5)", tuple(k + "<80" for k in FWD)),

@@ -13,7 +13,10 @@ fp32 at 5e-4 relative to the largest gradient (sums of up to n terms in
 another order); bf16 at 2^-7 relative (each output is rounded to bf16 on
 both sides, and p and ds are rounded to bf16 before their products, so a
 score whose fp32 value differs in the last bit may round the other way:
-one bf16 step of the largest gradient, 2^-8, twice over).
+one bf16 step of the largest gradient, 2^-8, twice over).  The bf16
+backward at head_dim <= 128 sums dq in fp32 across blocks in varying
+order: dq is held within that tolerance on two runs, dk, dv, dkc and dvc
+bit-identical between them.
 
 B6 (the exact softmax) at the same o / lse limits, with logits x 8 far
 above the fixed shift's clamp.  B8 (the ablation variants) within 2^-7
@@ -223,6 +226,50 @@ def test_bh_rect_and_exact_backward_match_plain(gen, nq, nk, kv_valid, no_max,
     k, v = (torch.randn((2, h, nk, d), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     _check_bh((q, k, v, None, None), h, d, dtype, gen, kv_valid, no_max)
+
+
+@pytest.mark.parametrize("nq,nk,kv_valid,h,d,cls", [
+    (70, 200, 190, 2, 32, True), (130, 300, 300, 2, 64, False),
+    (100, 250, 201, 2, 80, True), (77, 129, 129, 1, 128, False),
+    (200, 333, 333, 2, 80, False)])
+def test_bf16_one_pass_ragged_and_run_to_run(gen, nq, nk, kv_valid, h, d,
+                                             cls):
+    """The bf16 one-pass body at each of its head dims, nq not a multiple
+    of the query tile and the key count not a multiple of the 128-key
+    tile, called twice on the same inputs: dk, dv, dkc and dvc are
+    bit-identical, dq (fp32 adds in varying order) within tolerance on
+    both runs."""
+    dtype = torch.bfloat16
+    q = torch.randn((2, h, nq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((2, h, nk, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    kc, vc = ((torch.randn((2, h, 1, d), generator=gen, device="cuda")
+               .to(dtype) for _ in range(2)) if cls else (None, None))
+    if cls:  # kc / vc must share k's / v's batch and head strides
+        k, v = (torch.cat([c, t], 2) for c, t in ((kc, k), (vc, v)))
+        kc, vc, k, v = k[:, :, :1], v[:, :, :1], k[:, :, 1:], v[:, :, 1:]
+    kv = kv_valid if kv_valid < nk else None
+    scale = d ** -0.5
+    o, lse = fa.fwd_bh_plain(q, k, v, kc, vc, scale, kv)
+    do = torch.randn((2, nq, h, d), generator=gen, device="cuda").to(dtype)
+    do = do.transpose(1, 2)
+    g_lse = 0.1 * torch.randn(lse.shape, generator=gen, device="cuda")
+    args = (q, k, v, kc, vc, o, lse, do, g_lse, scale, True, kv)
+    first, second = fa.bwd_bh_cuda(*args), fa.bwd_bh_cuda(*args)
+    ref = fa.bwd_bh_plain(*args)
+    for name, a, b, r in zip(("dq", "dk", "dv", "dkc", "dvc"), first, second,
+                             ref):
+        if r is None:
+            assert a is None and b is None
+            continue
+        if name != "dq":
+            assert torch.equal(a, b), name
+        for got in (a, b):
+            assert torch.isfinite(got.float()).all()
+            _assert_grad_close(got, r, dtype, name)
+    if kv is not None:
+        assert (first[1][:, :, kv:] == 0).all()
+        assert (first[2][:, :, kv:] == 0).all()
 
 
 def test_bh_public_path_counts_launches(gen):
