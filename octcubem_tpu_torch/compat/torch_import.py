@@ -9,19 +9,29 @@ weights, pos-embed interpolation) are not ported yet (ROADMAP A9).
 
 from __future__ import annotations
 
+import argparse
+
 import torch
 
 _OTHER_LAYOUTS = (".attn.q.", ".attn.k.", ".attn.v.", ".attn.qkv.",
                   ".attn.proj.")
+# the reference save paths' wrappers (OCTCube/util/misc.py, COEM's
+# main_retclip.py), in the order the JAX loader tries them
+_WRAPPERS = ("model", "state_dict", "model_state", "teacher")
 
 
 def load_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:
-    """A flash-layout .pth -> {key: fp32 tensor} on the CPU.  Unwraps
-    {'model': ...} and drops 'module.' prefixes; raises on any other
-    key layout."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict):
-        ckpt = ckpt["model"]
+    """A flash-layout .pth -> {key: fp32 tensor} on the CPU.  Unwraps the
+    first of 'model', 'state_dict', 'model_state' and 'teacher' that holds
+    a dict (the JAX loader's order) and drops 'module.' prefixes; raises on
+    any other key layout.  Loads with ``weights_only=True``, allowing the
+    ``argparse.Namespace`` the reference saves under 'args'."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in _WRAPPERS:
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
+            ckpt = ckpt[key]
+            break
     out = {}
     for k, v in ckpt.items():
         if not isinstance(v, torch.Tensor):

@@ -93,9 +93,8 @@
 
 #pragma once
 
-#include <cuda.h>
-
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -394,57 +393,6 @@ __host__ __device__ __forceinline__ int acc_rows(int nq) {
   return (nq + kAccRows - 1) / kAccRows * kAccRows;
 }
 
-// 2^x (MUFU, flushing subnormal results to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// until the phase of parity ``parity`` of bar has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map (columns, rows, heads, batch) into shared
-// memory, completing on bar's transaction count
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // g[0, bytes / 4) += s[0, bytes / 4) in fp32, by the bulk copy engine
 __device__ __forceinline__ void bulk_reduce_add(float* g, const float* s,
                                                 int bytes) {
@@ -479,59 +427,8 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// generic-proxy writes to shared memory, visible to wgmma and the bulk
-// copies
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// until every committed group of this warpgroup is done
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps registers that wgmma reads or writes asynchronously where they are
-// until this point (after the wait)
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-
-// a wgmma matrix descriptor of a no-swizzle ("interleave") tile: 8 x 16-
-// byte core matrices, each 128 contiguous bytes; lbo the byte stride
-// between core matrices along K, sbo along M or N
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
-}
-
-// Tiles in shared memory are "column-chunked": an R-row tile is D / 8
-// chunks of 8 columns, each R rows of 16 bytes, so element (r, c) sits at
-// ((c / 8) * R + r) * 8 + c % 8.  One TMA box of 8 columns x R rows fills a
-// chunk; every 8 x 8 block is a 128-byte core matrix.
+// Tiles in shared memory are column-chunked (flash_hopper.cuh): element
+// (r, c) of an R-row tile at ((c / 8) * R + r) * 8 + c % 8.
 template <int D>
 struct HopperCfg {
   static constexpr int BN = 128;  // keys per block: 64 per consumer warpgroup
@@ -948,13 +845,6 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------- launch
 
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
 // the bf16 one-pass body serves these head dims; fp32 and D = 256 run the
 // CUDA-core passes
 bool one_pass(int D, int is_bf16) { return is_bf16 && D <= 128; }
@@ -985,47 +875,6 @@ cudaError_t bwd_launch_core(const BwdParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// a map of boxes of 8 columns x R rows over a [B, H, rows, D] bf16 operand
-// with strides l (elements; the wrapper makes them 16-byte multiples);
-// rows at or past ``rows`` read as zeros
-cudaError_t tile_map(CUtensorMap* m, const void* base, int D, int rows,
-                     const BwdParams& p, Lay l, int R) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(p.H),
-                              cuuint64_t(p.B)};
-  const cuuint64_t strides[3] = {2ull * l.r, 2ull * l.h, 2ull * l.b};
-  const cuuint32_t box[4] = {8, cuuint32_t(R), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // a map of boxes of 32 columns x R rows, in TMA's 128-byte swizzle, over
 // the fp32 dq accumulator viewed as [B * H * acc_rows(nq), D]
 cudaError_t acc_map(CUtensorMap* m, const BwdParams& p, int D, int R) {
@@ -1051,10 +900,10 @@ cudaError_t bwd_launch_bf16(const BwdParams& p, cudaStream_t st) {
   if (!p.acc) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo, tacc{};  // tacc: D <= 64 only
   cudaError_t e;
-  if ((e = tile_map(&tq, p.q, D, p.nq, p, p.lq, Cfg::BM)) != cudaSuccess ||
-      (e = tile_map(&tk, p.k, D, p.kv, p, p.lk, Cfg::BN)) != cudaSuccess ||
-      (e = tile_map(&tv, p.v, D, p.kv, p, p.lv, Cfg::BN)) != cudaSuccess ||
-      (e = tile_map(&tdo, p.dout, D, p.nq, p, p.ldo, Cfg::BM)) != cudaSuccess ||
+  if ((e = tile_map(&tq, p.q, D, p.nq, p.B, p.H, p.lq, Cfg::BM)) != cudaSuccess ||
+      (e = tile_map(&tk, p.k, D, p.kv, p.B, p.H, p.lk, Cfg::BN)) != cudaSuccess ||
+      (e = tile_map(&tv, p.v, D, p.kv, p.B, p.H, p.lv, Cfg::BN)) != cudaSuccess ||
+      (e = tile_map(&tdo, p.dout, D, p.nq, p.B, p.H, p.ldo, Cfg::BM)) != cudaSuccess ||
       (Cfg::kSwizzleDq &&
        (e = acc_map(&tacc, p, D, Cfg::BM)) != cudaSuccess) ||
       (e = set_smem(bwd_hopper_kernel<D>, Cfg::kSmem)) != cudaSuccess)

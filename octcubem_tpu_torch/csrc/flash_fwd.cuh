@@ -22,9 +22,7 @@
 // The first tile starts from m = -inf, l = acc = 0; where the row max is
 // still -inf (a row with no key yet) the shift is taken as 0, so
 // exp(-inf - (-inf)) never forms (the JAX kernel's finite NEG_INF = -1e30
-// does the same).  One body serves both: the flag is a template argument,
-// so the fixed-shift kernels compile to what they were and the by-value
-// parameters stay at 128 bytes.
+// does the same).
 //
 // Layout: every operand is a [B, H, rows, D] view given by its batch, head
 // and row strides in elements, with unit stride along D: the packed
@@ -33,24 +31,63 @@
 // kc / vc point at the cls row of k / v and share their batch and head
 // strides.  o has its own strides; lse is [B, H, nq] fp32.
 //
-// Design: one block per (query tile, head, batch); K/V tiles staged in
-// shared memory, each tile read once per query tile; fp32 accumulators
-// in registers.  bf16 runs the two products on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), 16 query rows per warp,
-// 8 warps sharing each K/V tile at D <= 64 (4 above, for registers).
-// Operands come from padded shared memory by ldmatrix (.trans for V);
-// K/V tiles are double-buffered with cp.async, so the next tile loads
-// while this one computes; the score fragment is re-packed in registers
-// as the A operand of PV (no shared-memory round trip for p); exp is
-// one exp2 per score.  fp32 (the parity path) runs on the CUDA cores.
-// D need only be a multiple of 16: D = 80 takes five k16 steps in QK^T
-// and five pairs of n8 tiles in PV.
-// Not yet: wgmma, TMA, warp specialisation; see PERF.md for how far
-// from the bound this leaves it.
+// Two bodies.  The fixed shift in bf16 at D in {32, 64, 80, 128} (B1 at
+// 32, 64, 128; B3 and B5 at 80) runs fwd_hopper_kernel, FlashAttention-3's
+// forward written here from the Hopper guides:
+//   - one block per (128-query tile, head, batch), 384 threads: a producer
+//     warpgroup whose one TMA thread loads the block's Q tile once and
+//     streams 128-key K and V tiles through a ring of 3-4 stages (K and V
+//     each with a full mbarrier, one empty mbarrier per stage), and two
+//     consumer warpgroups of 64 query rows each, registers rebalanced with
+//     setmaxnreg (24 / 240);
+//   - both products on wgmma: s = Q K^T from shared memory (both K-major),
+//     acc += P V with P from registers (the S accumulator repacked as the
+//     A fragment, flash_wgmma.cuh) and V MN-major;
+//   - the exp under the products: per key tile t each warpgroup issues
+//     s_t = Q K_t^T and then acc += p_{t-1} V_{t-1}, waits for s_t alone
+//     and forms p_t while the tensor cores run PV (p alternates between
+//     two register sets); the two warpgroups share nothing but the ring,
+//     so one's exp also runs under the other's products.  At D = 80 and
+//     128 they take turns issuing their products (two named barriers,
+//     FlashAttention-3's ping-pong), which measured faster there and
+//     slower at D = 64.  Per score: one FFMA (scale and shift folded), one
+//     FMNMX (the clamp in log2 units), one ex2.approx.ftz, the row-sum FADD
+//     and half a bf16x2 pack; the key mask only on a ragged last tile.  At
+//     D = 32, where the exp is the bound, every 16th 8-key chunk takes its
+//     exps on the FMA pipe instead (ex2_fma, FlashAttention-4's trick);
+//   - the epilogue: l over the quad, the cls fold per row from the Q tile
+//     still in shared memory (its own buffer, outside the ring), o and lse
+//     stored directly with the row mask.
+// The tiles are panels of 64 columns (32 at D = 32) in TMA's 128-byte
+// (64-byte) swizzle, one TMA box per panel: D = 80 takes two panels, the
+// second zero-filled by TMA past column 80 and read only in its first 16
+// columns.  The backward's column-chunked layout (8-column boxes,
+// flash_hopper.cuh) served D = 80 with no padding but measured 1.5-2.3x
+// slower here.  One 4-D tensor map per operand (columns, rows, heads,
+// batch) over its own strides, whose row count (nq for Q, nk for K and V)
+// makes TMA fill the ragged tiles with zeros.  Zero keys give s = 0 and p = e^-16,
+// not 0, so keys at or past nk stay masked; rows past nq are not stored.
+// The maps are separate __grid_constant__ parameters, built in the C
+// launcher per call; FwdParams goes by value (124 bytes).
+//
+// The exact softmax (B6), D = 256 and fp32 (the parity path) keep the first
+// body, fwd_bf16_kernel / fwd_f32_kernel: mma.sync m16n8k16 from padded
+// shared memory by ldmatrix, K/V tiles double-buffered with cp.async, 16
+// query rows per warp (8 warps at D <= 64, 4 above); fp32 on the CUDA
+// cores.
+//
+// What bounds the fixed shift on the H100: the products (4 D FLOP per
+// score at 989 TFLOP/s) and the exp (one MUFU ex2 per score, 16 per clock
+// per SM, about 4e12 per second over 132 SMs) weigh about the same at
+// D = 64; the exp weighs twice the products at D = 32 and 0.8 of them at
+// D = 80.  Hence the overlap above.  Measured times and ablations are in
+// PERF.md (scripts/time_kernels.py, scripts/ablate_fwd.py).
 
 #pragma once
 
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -84,7 +121,370 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// ---------------------------------------------------------------- bf16
+// ------------------------------------------ Hopper: fixed shift, bf16
+
+template <int D>
+struct FwdHopperCfg {
+  static constexpr int BM = 128;  // query rows per block: 64 per consumer
+  static constexpr int BN = 128;  // keys per tile
+  // A tile is kPanels panels of W columns, each R rows of 2 W bytes in
+  // TMA's 128-byte swizzle (64-byte at D = 32, whose rows are 64 bytes):
+  // one TMA box per panel.  D = 80 takes two panels, the second one's
+  // columns 80-127 zero-filled by TMA and never read.
+  static constexpr int W = D == 32 ? 32 : 64;
+  static constexpr int kPanels = (D + W - 1) / W;
+  static constexpr int kRow = 2 * W;  // bytes of a panel row
+  static constexpr int kLayout = W == 64 ? 1 : 2;  // wgmma's swizzle code
+  static constexpr int kGroup = 8 * kRow;  // bytes of 8 rows: the swizzle atom
+  // K/V tiles in flight, as shared memory allows; a stage is freed one
+  // tile after its keys are read, so the ring needs 3
+  static constexpr int kStages = kPanels == 2 ? 3 : 4;
+  static constexpr int kThreads = 384;  // producer warpgroup + 2 consumers
+  // the consumers take turns issuing their products (turn_take): measured
+  // faster at D = 80 and 128, slower at 64 (PERF.md)
+  static constexpr bool kPingPong = D >= 80;
+  // every kEmuEvery-th 8-key chunk's exps on the FMA pipe (ex2_fma), the
+  // rest on the SFU; 0: all on the SFU.  Only D = 32, where the exp is the
+  // bound, measured faster with a share on the FMA pipe
+  static constexpr int kEmuEvery = D == 32 ? 16 : 0;
+  static constexpr int kQ = kPanels * BM * kRow;   // bytes of the Q tile
+  static constexpr int kKV = kPanels * BN * kRow;  // bytes of a K or V tile
+  static constexpr int oQ = 0;
+  static constexpr int oKV = kQ;  // stage s: K at oKV + 2 s kKV, V after it
+  static constexpr int oC = oKV + kStages * 2 * kKV;  // kc, vc: fp32 [2][D]
+  static constexpr int oBar = oC + 2 * D * 4;  // q, full_k[S], full_v[S], empty[S]
+  // + 1024: the kernel aligns its base to 1 KB, as the swizzle needs
+  static constexpr int kSmem = oBar + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(D % 16 == 0 && D <= 128, "whole k16 steps; wgmma N <= 128");
+  static_assert(kStages >= 3, "the ring frees a stage a tile late");
+};
+
+// the byte offset of element (r, c) in an R-row tile of Cfg's panels
+template <typename Cfg, int R>
+__device__ __forceinline__ int panel_at(int r, int c) {
+  const int o = r * Cfg::kRow + (c % Cfg::W) * 2;
+  return (c / Cfg::W) * R * Cfg::kRow + (o ^ ((o >> 3) & (Cfg::kRow / 16 - 1) << 4));
+}
+
+// s (64 query rows x BN keys) = Q_w K^T over D: Q_w the warpgroup's 64
+// rows of the BM-row Q tile, K a BN-row tile, both K-major; k16 step kk
+// is 32 bytes into its panel's rows
+template <int D>
+__device__ __forceinline__ void qk_issue(float (&s)[FwdHopperCfg<D>::BN / 2],
+                                         const unsigned char* Qw,
+                                         const unsigned char* Ks) {
+  using Cfg = FwdHopperCfg<D>;
+  constexpr int BM = Cfg::BM, BN = Cfg::BN, W = Cfg::W, L = Cfg::kLayout;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk * 16 / W, off = (kk * 16 % W) * 2;
+    Wgmma<BN>::template ss<0, 0>(
+        s, gmma_desc(Qw + p * BM * Cfg::kRow + off, 16, Cfg::kGroup, L),
+        gmma_desc(Ks + p * BN * Cfg::kRow + off, 16, Cfg::kGroup, L), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// acc (64 x D) += P V: P the A fragments of BN / 16 key steps, V a BN-row
+// tile read MN-major (panels lbo apart along D, 8-key groups sbo apart)
+template <int D>
+__device__ __forceinline__ void pv_issue(
+    float (&acc)[D / 2], const uint32_t (&pa)[FwdHopperCfg<D>::BN / 16][4],
+    const unsigned char* Vs) {
+  using Cfg = FwdHopperCfg<D>;
+  constexpr int BN = Cfg::BN;
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < BN / 16; ++i)
+    Wgmma<D>::template rs<1>(acc, pa[i],
+                             gmma_desc(Vs + i * 16 * Cfg::kRow, BN * Cfg::kRow,
+                                       Cfg::kGroup, Cfg::kLayout));
+  wgmma_commit();
+}
+
+// 2^x on the FMA pipe (FlashAttention-4's trick; x <= 35): x = n + f by
+// rounding with the 1.5 * 2^23 shifter, |f| <= 1/2, 2^f by a degree-4
+// polynomial (relative error below 3e-6), n added to its exponent.  Below
+// 2^-125 it returns about 2^-125 where ex2.approx.ftz returns 0.
+__device__ __forceinline__ float ex2_fma(float x) {
+  const float t = fmaxf(x, -125.f) + 12582912.f;
+  const float f = fmaxf(x, -125.f) - (t - 12582912.f);
+  float p = fmaf(0.009570101f, f, 0.05591786f);
+  p = fmaf(p, f, 0.24024744f);
+  p = fmaf(p, f, 0.69312179f);
+  p = fmaf(p, f, 0.99999928f);
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(t) << 23));
+}
+
+// whether 8-key chunk j takes its exps on the FMA pipe: every kEmu-th one
+template <int kEmu>
+__device__ __forceinline__ bool on_fma(int j) {
+  if constexpr (kEmu == 0)
+    return false;
+  else
+    return j % kEmu == kEmu - 1;
+}
+
+// p = 2^min(s sl2 - shift, top) of one key tile into the A fragments of PV
+// (the C fragments of key chunks 2i and 2i + 1 form key step i) and the
+// row sums of fp32 p (rows g and g + 8 of the warp); kMask: zero at or
+// past key nk (col0: the key of this thread's first column); kEmu: every
+// kEmu-th chunk by ex2_fma
+template <bool kMask, int BN, int kEmu>
+__device__ __forceinline__ void fixed_p(const float (&s)[BN / 2],
+                                        uint32_t (&pa)[BN / 16][4], float& l0,
+                                        float& l1, float sl2, float shift,
+                                        float top, int col0, int nk) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    float pj[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = fminf(fmaf(s[4 * j + e], sl2, -shift), top);
+      pj[e] = on_fma<kEmu>(j) ? ex2_fma(x) : ex2(x);
+      if (kMask && col0 + 8 * j + (e & 1) >= nk) pj[e] = 0.f;
+    }
+    l0 += pj[0] + pj[1];
+    l1 += pj[2] + pj[3];
+    pa[j / 2][(j & 1) * 2 + 0] = pack_bf16(pj[0], pj[1]);  // row g
+    pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(pj[2], pj[3]);  // row g + 8
+  }
+}
+
+// FlashAttention-3's scheduling of the two consumer warpgroups, when kOn:
+// each waits for its turn (named barrier 1 + w) before it issues its
+// products and then hands the turn to the other, so that one's exp runs
+// while the other's products do
+template <bool kOn>
+__device__ __forceinline__ void turn_take(int w) {
+  if (kOn) named_sync(1 + w, 256);
+}
+
+template <bool kOn>
+__device__ __forceinline__ void turn_give(int w) {
+  if (kOn) named_arrive(2 - w, 256);
+}
+
+// p of key tile t (masked past nk where the tile is ragged) from s
+template <int BN, int kEmu>
+__device__ __forceinline__ void tile_p(const float (&s)[BN / 2],
+                                       uint32_t (&pa)[BN / 16][4], float& l0,
+                                       float& l1, int t, int nk, float sl2,
+                                       float shift, float top, int t4) {
+  const int k0 = t * BN;
+  if (k0 + BN <= nk)
+    fixed_p<false, BN, kEmu>(s, pa, l0, l1, sl2, shift, top, 0, nk);
+  else
+    fixed_p<true, BN, kEmu>(s, pa, l0, l1, sl2, shift, top, k0 + 2 * t4, nk);
+}
+
+// One key tile t >= 1 of a consumer warpgroup, p_{t-1} in pr: issue
+// s = Q K_t^T, then acc += p_{t-1} V_{t-1}; wait for s alone and form p_t
+// into pw while the tensor cores run PV; then wait for PV and free stage
+// t - 1 (its K and V are read).  pw was last read by PV_{t-2}, done.
+template <int D>
+__device__ __forceinline__ void fwd_tile(
+    float (&s)[FwdHopperCfg<D>::BN / 2], float (&acc)[D / 2],
+    uint32_t (&pw)[FwdHopperCfg<D>::BN / 16][4],
+    uint32_t (&pr)[FwdHopperCfg<D>::BN / 16][4], float& l0, float& l1, int t,
+    int nk, unsigned char* smem, const unsigned char* Qw, uint64_t* full_k,
+    uint64_t* full_v, uint64_t* empty, float sl2, float shift, float top,
+    int t4, int w) {
+  using Cfg = FwdHopperCfg<D>;
+  constexpr int BN = Cfg::BN, S = Cfg::kStages;
+  const int sk = t % S, sv = (t - 1) % S;
+  unsigned char* ring = smem + Cfg::oKV;
+  mbar_wait(full_k + sk, (t / S) & 1);
+  turn_take<Cfg::kPingPong>(w);
+  qk_issue<D>(s, Qw, ring + sk * 2 * Cfg::kKV);
+  mbar_wait(full_v + sv, ((t - 1) / S) & 1);
+  pv_issue<D>(acc, pr, ring + sv * 2 * Cfg::kKV + Cfg::kKV);
+  turn_give<Cfg::kPingPong>(w);
+  wgmma_wait<1>();  // s done; PV runs on
+  reg_fence(s);
+  reg_fence(pw);
+  tile_p<BN, Cfg::kEmuEvery>(s, pw, l0, l1, t, nk, sl2, shift, top, t4);
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(pr);
+  mbar_arrive(empty + sv);
+}
+
+// The fixed-shift forward in bf16 (see the header): one block per
+// (BM-query tile, head, batch); warpgroup 0 gives up its registers and one
+// thread loads Q once and K / V tiles through the ring; warpgroups 1 and 2
+// take 64 query rows each: s_0 and p_0 first, then per key tile t >= 1
+//   issue s = Q K_t^T and acc += p_{t-1} V_{t-1};  wait for s;
+//   p_t = exp(...) -> registers (under PV);  wait for PV, free stage t - 1
+// and last acc += p_{nt-1} V_{nt-1}.  p alternates between two register
+// sets, so p_t forms while PV reads p_{t-1}.
+template <int D>
+__global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
+    fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const FwdParams p) {
+  using Cfg = FwdHopperCfg<D>;
+  constexpr int BM = Cfg::BM, BN = Cfg::BN, S = Cfg::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem + Cfg::oQ;
+  float* KCs = reinterpret_cast<float*>(smem + Cfg::oC);
+  float* VCs = KCs + D;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + Cfg::oBar);
+  uint64_t* full_k = q_bar + 1;
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty = full_v + S;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BM;
+  const int nq = p.nq, nk = p.nk;
+  const int nt = (nk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (p.kc) {
+    const __nv_bfloat16* kcg =
+        static_cast<const __nv_bfloat16*>(p.kc) + p.lk.at(b, h);
+    const __nv_bfloat16* vcg =
+        static_cast<const __nv_bfloat16*>(p.vc) + p.lv.at(b, h);
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      KCs[c] = __bfloat162float(kcg[c]);
+      VCs[c] = __bfloat162float(vcg[c]);
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // ---------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x != 0) return;
+    constexpr int W = Cfg::W;
+    mbar_expect_tx(q_bar, Cfg::kQ);
+    for (int c = 0; c < Cfg::kPanels; ++c)
+      tma_load(Qs + c * BM * Cfg::kRow, &tq, q_bar, c * W, q0, h, b);
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % S, k0 = t * BN;
+      unsigned char* Ks = smem + Cfg::oKV + s * 2 * Cfg::kKV;
+      unsigned char* Vs = Ks + Cfg::kKV;
+      mbar_wait(empty + s, ((t / S) & 1) ^ 1);
+      mbar_expect_tx(full_k + s, Cfg::kKV);
+      for (int c = 0; c < Cfg::kPanels; ++c)
+        tma_load(Ks + c * BN * Cfg::kRow, &tk, full_k + s, c * W, k0, h, b);
+      mbar_expect_tx(full_v + s, Cfg::kKV);
+      for (int c = 0; c < Cfg::kPanels; ++c)
+        tma_load(Vs + c * BN * Cfg::kRow, &tv, full_v + s, c * W, k0, h, b);
+    }
+    return;
+  }
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int w = threadIdx.x / 128 - 1;  // query rows 64 w .. 64 w + 63
+  const int wq = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const unsigned char* Qw = Qs + 64 * w * Cfg::kRow;
+  unsigned char* ring = smem + Cfg::oKV;
+  // p = 2^(min(s scale log2e, 40 log2e) - 16 log2e)
+  //   = 2^min(s scale log2e - 16 log2e, (40 - 16) log2e)
+  const float sl2 = p.scale * kLog2e, shift = kShift * kLog2e;
+  const float top = kClamp * kLog2e - shift;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;  // rows g and g + 8 of this warp, partial
+  float s[BN / 2];
+  uint32_t pa0[BN / 16][4] = {}, pa1[BN / 16][4] = {};  // p of even / odd tiles
+
+  constexpr bool kPP = Cfg::kPingPong;
+  if (w == 1) turn_give<kPP>(w);  // warpgroup 0 goes first
+  mbar_wait(q_bar, 0);
+  mbar_wait(full_k, 0);
+  turn_take<kPP>(w);
+  qk_issue<D>(s, Qw, ring);
+  turn_give<kPP>(w);
+  wgmma_wait<0>();
+  reg_fence(s);
+  tile_p<BN, Cfg::kEmuEvery>(s, pa0, l0, l1, 0, nk, sl2, shift, top, t4);
+  for (int t = 1; t < nt; t += 2) {  // the two p sets trade roles
+    fwd_tile<D>(s, acc, pa1, pa0, l0, l1, t, nk, smem, Qw, full_k, full_v,
+                empty, sl2, shift, top, t4, w);
+    if (t + 1 < nt)
+      fwd_tile<D>(s, acc, pa0, pa1, l0, l1, t + 1, nk, smem, Qw, full_k,
+                  full_v, empty, sl2, shift, top, t4, w);
+  }
+  const int sl = (nt - 1) % S;  // the last tile's PV
+  mbar_wait(full_v + sl, ((nt - 1) / S) & 1);
+  turn_take<kPP>(w);
+  if ((nt - 1) & 1)
+    pv_issue<D>(acc, pa1, ring + sl * 2 * Cfg::kKV + Cfg::kKV);
+  else
+    pv_issue<D>(acc, pa0, ring + sl * 2 * Cfg::kKV + Cfg::kKV);
+  if (w == 0) turn_give<kPP>(w);  // each turn taken is given once
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(pa0);
+  reg_fence(pa1);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  const int r0 = 64 * w + 16 * wq + g, r1 = r0 + 8;  // rows of the Q tile
+  if (p.kc) {
+    // s_c = q . kc from the Q tile
+    float sc0 = 0.f, sc1 = 0.f;
+    for (int c = t4; c < D; c += 4) {
+      const float kv = KCs[c];
+      sc0 += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                 Qs + panel_at<Cfg, BM>(r0, c))) * kv;
+      sc1 += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                 Qs + panel_at<Cfg, BM>(r1, c))) * kv;
+    }
+    sc0 += __shfl_xor_sync(0xffffffffu, sc0, 1);
+    sc0 += __shfl_xor_sync(0xffffffffu, sc0, 2);
+    sc1 += __shfl_xor_sync(0xffffffffu, sc1, 1);
+    sc1 += __shfl_xor_sync(0xffffffffu, sc1, 2);
+    const float pc0 = p_of(sc0, p.scale), pc1 = p_of(sc1, p.scale);
+    l0 += pc0;
+    l1 += pc1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      acc[4 * j + 0] += pc0 * VCs[c];
+      acc[4 * j + 1] += pc0 * VCs[c + 1];
+      acc[4 * j + 2] += pc1 * VCs[c];
+      acc[4 * j + 3] += pc1 * VCs[c + 1];
+    }
+  }
+
+  const float ls0 = l0 <= 0.f ? 1.f : l0, ls1 = l1 <= 0.f ? 1.f : l1;
+  const int row0 = q0 + r0, row1 = q0 + r1;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + p.lo.at(b, h);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    if (row0 < nq)
+      *reinterpret_cast<uint32_t*>(og + (long long)row0 * p.lo.r + c) =
+          pack_bf16(acc[4 * j] / ls0, acc[4 * j + 1] / ls0);
+    if (row1 < nq)
+      *reinterpret_cast<uint32_t*>(og + (long long)row1 * p.lo.r + c) =
+          pack_bf16(acc[4 * j + 2] / ls1, acc[4 * j + 3] / ls1);
+  }
+  if (t4 == 0) {
+    float* lg = p.lse + ((long long)b * p.H + h) * nq;
+    if (row0 < nq) lg[row0] = kShift + logf(ls0);
+    if (row1 < nq) lg[row1] = kShift + logf(ls1);
+  }
+}
+
+// ------------------------------------------ mma.sync (B6, D = 256), bf16
 
 template <int D>
 struct Bf16Cfg {
@@ -493,16 +893,41 @@ __global__ void __launch_bounds__(F32Cfg<D>::kThreads)
 
 // ---------------------------------------------------------------- launch
 
+// the Hopper body: its three tensor maps, then the launch
+template <int D>
+cudaError_t fwd_launch_hopper(const FwdParams& p, cudaStream_t st) {
+  using Cfg = FwdHopperCfg<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e;
+  const CUtensorMapSwizzle sw =
+      Cfg::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  if ((e = tile_map(&tq, p.q, D, p.nq, p.B, p.H, p.lq, Cfg::BM, Cfg::W, sw)) !=
+          cudaSuccess ||
+      (e = tile_map(&tk, p.k, D, p.nk, p.B, p.H, p.lk, Cfg::BN, Cfg::W, sw)) !=
+          cudaSuccess ||
+      (e = tile_map(&tv, p.v, D, p.nk, p.B, p.H, p.lv, Cfg::BN, Cfg::W, sw)) !=
+          cudaSuccess ||
+      (e = set_smem(fwd_hopper_kernel<D>, Cfg::kSmem)) != cudaSuccess)
+    return e;
+  fwd_hopper_kernel<D><<<dim3((p.nq + Cfg::BM - 1) / Cfg::BM, p.H, p.B),
+                         Cfg::kThreads, Cfg::kSmem, st>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+// bf16: the Hopper body for the fixed shift at D <= 128, the mma.sync body
+// for the exact softmax and D = 256
 template <int D, bool kExact>
 cudaError_t fwd_launch_bf16(const FwdParams& p, cudaStream_t st) {
-  using Cfg = Bf16Cfg<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      fwd_bf16_kernel<D, kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg::kSmem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.nq + Cfg::BM - 1) / Cfg::BM, p.H, p.B);
-  fwd_bf16_kernel<D, kExact><<<grid, Cfg::kThreads, Cfg::kSmem, st>>>(p);
-  return cudaGetLastError();
+  if constexpr (!kExact && D <= 128) {
+    return fwd_launch_hopper<D>(p, st);
+  } else {
+    using Cfg = Bf16Cfg<D>;
+    cudaError_t e = set_smem(fwd_bf16_kernel<D, kExact>, Cfg::kSmem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((p.nq + Cfg::BM - 1) / Cfg::BM, p.H, p.B);
+    fwd_bf16_kernel<D, kExact><<<grid, Cfg::kThreads, Cfg::kSmem, st>>>(p);
+    return cudaGetLastError();
+  }
 }
 
 template <int D, bool kExact>

@@ -249,10 +249,52 @@ def _for_tma(t):
     """``t`` itself when a TMA tensor map can describe it with its own
     strides (``_rows_aligned``: cuTensorMapEncodeTiled takes a 16-byte
     aligned base and strides that are multiples of 16 bytes), else a
-    contiguous copy.  The backward kernels load q, k, v and dO through such
-    maps; the fused buffer's column views and autograd's dO pass as they
-    are."""
-    return t if _rows_aligned(t) else t.contiguous()
+    contiguous copy in fresh (aligned) memory: ``contiguous()`` would hand
+    back a contiguous view whose base is off the grid as it is.  The bf16
+    kernels load q, k, v and dO through such maps; the fused buffer's
+    column views and autograd's dO pass as they are."""
+    if _rows_aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _kv_for_tma(t, tc):
+    """k (or v) [..., rows, D] and its cls row ``tc`` [..., 1, D] (or None)
+    for the kernels, which read the cls row with t's batch and head
+    strides: both as they are when aligned and so strided, else one copy
+    of [tc; t] along the rows, split again."""
+    if tc is None:
+        return _for_tma(t), None
+    if (tc.dtype != t.dtype or tc.shape != t.shape[:-2] + (1, t.shape[-1])
+            or (_rows_aligned(t) and _rows_aligned(tc)
+                and tc.stride()[:-2] == t.stride()[:-2])):
+        return t, tc  # the wrapper's checks raise on what does not fit
+    both = torch.cat([tc, t], dim=-2)
+    return both[..., 1:, :], both[..., :1, :]
+
+
+def _packed_for_tma(q, k, v, kc, vc):
+    """B1's and B2's q, k, v, kc, vc ([B, m, H*D], the cls rows
+    [B, 1, H*D] or None), which the kernels read with one row and batch
+    stride: as they are when a tensor map takes each and they share those
+    strides, else copied into one fused [B, (1 +) m, 3*H*D] buffer laid
+    out as the model's and split again."""
+    cls = kc is not None
+    ts = (q, k, v, kc, vc) if cls else (q, k, v)
+    if (cls != (vc is not None) or not q.shape == k.shape == v.shape
+            or any(t.dtype != q.dtype for t in ts)
+            or (all(_rows_aligned(t) for t in ts)
+                and q.stride() == k.stride() == v.stride()
+                and all(t.stride(0) == k.stride(0) for t in ts))):
+        return q, k, v, kc, vc
+    b, m, hd = q.shape
+    buf = q.new_zeros((b, m + cls, 3 * hd))
+    for i, (t, tc) in enumerate(((q, None), (k, kc), (v, vc))):
+        cols = slice(i * hd, (i + 1) * hd)
+        buf[:, cls:, cols] = t
+        if cls and tc is not None:
+            buf[:, :1, cols] = tc  # q's cls row stays 0, unread
+    return _split_qkv(buf, cls)
 
 
 # the bf16 backward's fp32 dq accumulator pads the query rows to whole
@@ -323,6 +365,7 @@ def fwd_packed_cuda(q, k, v, kc, vc, num_heads: int, scale: float):
     packed heads.  kc / vc (the cls row of k / v) share k's batch
     stride."""
     b, m, hd = q.shape
+    q, k, v, kc, vc = _packed_for_tma(q, k, v, kc, vc)
     d = _check_kernel_inputs(q, k, v, kc, vc, num_heads)
     cls = kc is not None
     o = torch.empty((b, m, hd), dtype=q.dtype, device=q.device)
@@ -361,7 +404,7 @@ def bwd_packed_cuda(q, k, v, kc, vc, o, lse, do, g_lse, num_heads: int,
     a batch stride; allocated when None.  One kernel call counts once
     (``bwd_bh_cuda`` says what it launches)."""
     b, m, hd = q.shape
-    q, k, v = (_for_tma(t) for t in (q, k, v))
+    q, k, v, kc, vc = _packed_for_tma(q, k, v, kc, vc)
     d = _check_kernel_inputs(q, k, v, kc, vc, num_heads)
     cls = kc is not None
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
@@ -485,6 +528,8 @@ def fwd_bh_cuda(q, k, v, kc, vc, scale: float, kv_valid: int | None = None,
     the [B, H, N, D] views of a fused Wqkv buffer).  o comes out laid out
     as q is (``_empty_like_rows``)."""
     b, h, nq, d = q.shape
+    q = _for_tma(q)
+    (k, kc), (v, vc) = _kv_for_tma(k, kc), _kv_for_tma(v, vc)
     d = _check_bh_inputs(q, k, v, kc, vc)
     kv = _kv_valid(kv_valid, k.shape[2])
     cls = kc is not None
@@ -539,7 +584,8 @@ def bwd_bh_cuda(q, k, v, kc, vc, o, lse, do, g_lse, scale: float,
     (the fp32 adds arrive in varying order), dk, dv, dkc and dvc are.
     fp32 and head_dim 256 run two CUDA-core passes and the cls sums."""
     b, h, nq, d = q.shape
-    q, k, v = (_for_tma(t) for t in (q, k, v))
+    q = _for_tma(q)
+    (k, kc), (v, vc) = _kv_for_tma(k, kc), _kv_for_tma(v, vc)
     d = _check_bh_inputs(q, k, v, kc, vc)
     nk = k.shape[2]
     kv = _kv_valid(kv_valid, nk)

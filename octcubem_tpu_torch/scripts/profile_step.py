@@ -26,7 +26,7 @@ import time
 
 from .profile_forward import kernel_rows
 
-FWD = ("fwd_bf16_kernel", "fwd_f32_kernel")
+FWD = ("fwd_hopper_kernel", "fwd_bf16_kernel", "fwd_f32_kernel")
 BWD = ("bwd_hopper_kernel", "dq_epilogue_kernel", "delta_kernel",
        "dkdv_core_kernel", "dq_core_kernel", "cls_reduce_kernel")
 # kernel-name substrings -> group, first match wins

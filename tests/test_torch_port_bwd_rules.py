@@ -42,6 +42,8 @@ def test_packed_views_pass_as_they_are(b, n, h, d):
     for t in (q, k, v, do):
         assert fa._for_tma(t) is t
     assert q.stride(1) == 3 * h * d
+    got = fa._packed_for_tma(q, k, v, kc, vc)
+    assert all(a is b for a, b in zip(got, (q, k, v, kc, vc)))
 
 
 @pytest.mark.parametrize("b,n,h,d", [
@@ -52,8 +54,13 @@ def test_bh_views_pass_as_they_are(b, n, h, d):
     D = 160 bytes, row stride 3*H*D) and autograd's transposed dO."""
     q, k, v = _bh_views(_fused(b, n, h, d), h)
     cls = fa._cls_split(n)
+    kc = vc = None
     if cls:
-        q, k, v = q[:, :, 1:], k[:, :, 1:], v[:, :, 1:]
+        q, k, v, kc, vc = (q[:, :, 1:], k[:, :, 1:], v[:, :, 1:],
+                           k[:, :, :1], v[:, :, :1])
+    for t, tc in ((k, kc), (v, vc)):
+        got = fa._kv_for_tma(t, tc)
+        assert got[0] is t and got[1] is tc
     do = torch.zeros((b, n, h, d), dtype=torch.bfloat16).transpose(1, 2)
     do = do[:, :, 1:] if cls else do
     for t in (q, k, v, do):
@@ -70,24 +77,66 @@ def test_rect_shard_passes_as_it_is():
         assert fa._for_tma(t) is t
 
 
-@pytest.mark.parametrize("what", ["base", "row stride", "unit stride"])
+def _unaligned(what, h=2, d=80, n=130):
+    """A [2, h, n, d] bf16 view that a tensor map cannot take."""
+    if what == "base":
+        x = torch.randn((2, n, 3 * h * d + 4)).to(torch.bfloat16)
+        return x[..., 4:4 + h * d].view(2, n, h, d).transpose(1, 2)
+    if what == "row stride":
+        x = torch.randn((2, n, 3 * h * d + 1)).to(torch.bfloat16)
+        return x[..., :h * d].view(2, n, h, d).transpose(1, 2)
+    if what == "offset":
+        x = torch.randn((2 * h * n * d + 2,)).to(torch.bfloat16)
+        return x[2:].view(2, h, n, d)
+    return torch.randn((2, h, d, n)).to(torch.bfloat16).transpose(2, 3)
+
+
+@pytest.mark.parametrize("what", ["base", "row stride", "unit stride",
+                                  "offset"])
 def test_views_a_tensor_map_cannot_take_are_copied(what):
     """A column view 8 bytes off the 16-byte grid, a fused buffer whose row
-    is not a multiple of 16 bytes, and a view with a non-unit stride along
-    D: each is copied to a contiguous tensor of the same values."""
-    h, d = 2, 80
-    if what == "base":
-        x = torch.randn((2, 130, 3 * h * d + 4)).to(torch.bfloat16)
-        t = x[..., 4:4 + h * d].view(2, 130, h, d).transpose(1, 2)
-    elif what == "row stride":
-        x = torch.randn((2, 130, 3 * h * d + 1)).to(torch.bfloat16)
-        t = x[..., :h * d].view(2, 130, h, d).transpose(1, 2)
-    else:
-        t = torch.randn((2, h, d, 130)).to(torch.bfloat16).transpose(2, 3)
+    is not a multiple of 16 bytes, a view with a non-unit stride along D,
+    and a contiguous view 2 elements (4 bytes) into its storage, which
+    ``contiguous()`` would return as it is: each is copied to a contiguous
+    tensor of the same values in aligned memory."""
+    t = _unaligned(what)
     assert not fa._rows_aligned(t)
+    assert t.is_contiguous() == (what == "offset")
     c = fa._for_tma(t)
     assert c is not t and c.is_contiguous() and fa._rows_aligned(c)
     assert torch.equal(c, t)
+
+
+@pytest.mark.parametrize("what", ["base", "offset"])
+def test_cls_rows_copy_with_their_keys(what):
+    """k (or v) and its cls row: when either needs a copy, both come out of
+    one copy of [cls; k], so they share the batch and head strides the
+    kernels read the cls row with."""
+    k = _unaligned(what)
+    kc = torch.randn((2, 2, 1, 80)).to(torch.bfloat16)
+    k2, kc2 = fa._kv_for_tma(k, kc)
+    assert fa._rows_aligned(k2) and fa._rows_aligned(kc2)
+    assert k2.stride()[:2] == kc2.stride()[:2]
+    assert torch.equal(k2, k) and torch.equal(kc2, kc)
+
+
+@pytest.mark.parametrize("cls", [False, True])
+def test_packed_operands_copy_into_one_fused_buffer(cls):
+    """B1's / B2's q, k, v (and kc, vc), separate tensors with unaligned or
+    unequal strides, come out as the column views of one fused buffer of
+    the same values: one row and one batch stride, as the kernels read."""
+    b, m, h, d = 2, 130, 2, 64
+    q = torch.randn((b, m, h * d + 4)).to(torch.bfloat16)[..., 4:]
+    k, v = (torch.randn((b, m, h * d)).to(torch.bfloat16) for _ in range(2))
+    kc, vc = ((torch.randn((b, 1, h * d)).to(torch.bfloat16)
+               for _ in range(2)) if cls else (None, None))
+    got = fa._packed_for_tma(q, k, v, kc, vc)
+    for a, r in zip(got, (q, k, v, kc, vc)):
+        assert (a is None) == (r is None)
+        if r is not None:
+            assert torch.equal(a, r) and fa._rows_aligned(a)
+            assert a.stride() == got[0].stride()
+    assert got[0].stride(1) == 3 * h * d
 
 
 @pytest.mark.parametrize("b,h,nq,d,rows", [

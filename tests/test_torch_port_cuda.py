@@ -1,5 +1,6 @@
 """B1-B8 on the card against their plain versions, at small ragged
-shapes.
+shapes; the bf16 Hopper forward body (B1, B3, B5) at each head_dim it
+serves, with the cls fold, the rect form and large logits, run twice.
 
 Needs an NVIDIA card (marker ``cuda``); skips without one.  Imports no
 JAX, so it runs on a machine that has only PyTorch, without the JAX
@@ -148,6 +149,74 @@ def test_cuda_path_refuses_what_it_does_not_serve(gen):
     o, lse = fa.fwd_packed_cuda(*args, 2, 0.125)
     with pytest.raises(ValueError, match="dO"):
         fa.bwd_packed_cuda(*args, o, lse, o[:, 1:], None, 2, 0.125)
+
+
+# the bf16 Hopper forward body (B1, B3, B5 at D <= 128): (route, D, case)
+HOPPER_FWD = [(r, d, c) for d in (32, 64, 80, 128)
+              for c in ("ragged", "cls", "large-logit cls", "rect")
+              for r in ("bh", "packed")
+              if r == "bh" or (d in fa.HEAD_DIMS and c != "rect")]
+
+
+@pytest.mark.parametrize("route,d,case", HOPPER_FWD)
+def test_hopper_fwd_matches_plain_and_repeats(gen, route, d, case):
+    """333 query rows and keys (no multiple of the 128-row and 128-key
+    tiles) without the cls fold, 333 + cls with it, q x 40 with it, and
+    the rect form (200 query rows, 300 keys, kv_valid 259, NaN in k and v
+    past it), on the packed route (column views of the fused buffer) and
+    the [B, H, N, D] views; each call made twice, o and lse
+    bit-identical (the forward has no atomics)."""
+    dtype, h, scale, kv = torch.bfloat16, 2, d ** -0.5, None
+    if case == "rect":
+        q = torch.randn((2, h, 200, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((2, h, 300, d), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        kv = 259
+        k[:, :, kv:], v[:, :, kv:] = float("nan"), float("nan")
+        args = (q, k, v, None, None)
+    else:
+        cls = case != "ragged"
+        qkv = _qkv(gen, 333 + cls, h, d, dtype,
+                   40.0 if case.startswith("large") else 1.0)
+        if route == "packed":
+            args = fa._split_qkv(qkv, cls)
+        else:
+            q, k, v = _bh_views(qkv, h, d)
+            args = ((q[:, :, 1:], k[:, :, 1:], v[:, :, 1:], k[:, :, :1],
+                     v[:, :, :1]) if cls else (q, k, v, None, None))
+    if route == "packed":
+        first, second = (fa.fwd_packed_cuda(*args, h, scale) for _ in range(2))
+        o_ref, lse_ref = fa.fwd_packed_plain(*args, h, scale)
+    else:
+        first, second = (fa.fwd_bh_cuda(*args, scale, kv) for _ in range(2))
+        o_ref, lse_ref = fa.fwd_bh_plain(*args, scale, kv)
+    atol, rtol = TOL_O[dtype]
+    for o, lse in (first, second):
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_fwd_copies_views_a_tensor_map_cannot_take(gen):
+    """Views off the 16-byte grid (a contiguous view 2 elements into its
+    storage, a column view 8 bytes off) reach the forward kernels through a
+    copy and match the plain version."""
+    h, d, n = 2, 64, 200
+    x = torch.randn((2 * n * 3 * h * d + 2,), generator=gen, device="cuda")
+    qkv = x.to(torch.bfloat16)[2:].view(2, n, 3 * h * d)
+    args = fa._split_qkv(qkv, True)
+    o, lse = fa.fwd_packed_cuda(*args, h, d ** -0.5)
+    o_ref, lse_ref = fa.fwd_packed_plain(*args, h, d ** -0.5)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2 ** -8,
+                               rtol=2 ** -6)
+    q, k, v = _bh_views(qkv, h, d)
+    args = (q[:, :, 1:], k[:, :, 1:], v[:, :, 1:], k[:, :, :1], v[:, :, :1])
+    o, lse = fa.fwd_bh_cuda(*args, d ** -0.5)
+    o_ref, lse_ref = fa.fwd_bh_plain(*args, d ** -0.5)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2 ** -8,
+                               rtol=2 ** -6)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
 
 
 # ------------------------------------------------- [B, H, N, D]: B3-B5, B7
