@@ -49,9 +49,12 @@ Phases, each fatal on failure (no phase's error is caught):
      16 per clock per SM and the card's max SM clock: time_kernels.py);
  10. B6, the exact online softmax, against its plain version, fp32 and
      bf16, D in {32, 64, 80, 128, 256}, square (the fused buffer's
-     views) and rect with kv_valid < Nk, and with logits far above the
-     fixed shift's clamp, where B6 agrees with impl="naive" and B5 does
-     not; then B6 + B7's exact branch under autograd against the plain
+     views, ragged against the tiles) and rect with kv_valid < Nk and NaN
+     past it, and with logits far above the fixed shift's clamp (q, k x 8;
+     q x 40), where B6 agrees with impl="naive" and B5 does not; each
+     case on the body it should run (bf16 at D <= 128 the Hopper body, by
+     the kernel's name in a profile) and called twice, bit-identical;
+     then B6 + B7's exact branch under autograd against the plain
      versions;
  11. the sequence-parallel layer on a one-rank NCCL group (a FileStore,
      no port): sequence_parallel_attention (no_max True and False) and
@@ -66,12 +69,13 @@ Phases, each fatal on failure (no phase's error is caught):
      padded to 5,124, against all 5,124 keys with kv_valid 5,121), B5 and
      B6, against unsharded attention; the shards' gradients summed
      against the unsharded ones, pad rows' gradients exactly 0;
- 13. B8, every ablation variant, against its plain version at the
-     harness's shape (BH 64, N 5,121, D 32), then the harness's timings
-     (scripts/kablate.py);
- 14. timings of B6 (the decoder's square shape and the shard shape) and
-     B8 against their bounds, plain versions and SDPA, then one
-     {"kernels": [...]} line with B1-B8.
+ 13. B8 on the Hopper body, every ablation variant at every tile,
+     against its plain version at the harness's shape (BH 64, N 5,121,
+     D 32), then the harness's timings (scripts/kablate.py);
+ 14. timings of B6 (the decoder's square shape and the shard shape,
+     beside the parent's mma.sync body's) and B8 against their bounds,
+     plain versions and SDPA, then one {"kernels": [...]} line with
+     B1-B8.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -118,6 +122,11 @@ TOL_GRAD = {"float32": 5e-4, "bfloat16": 2 ** -7}
 PARENT_STEP_MS = {("ViT-L/16 60x256x256", 16): 118.597,
                   ("ViT-L/16 60x256x256", 4): 105.866,
                   ("ViT-H/14 60x224x224", 16): 151.139}
+# B6 on the body it ran before the Hopper one (the mma.sync kernel), CUDA
+# events per call at phase 14's two shapes, NVIDIA H100 80GB HBM3 at
+# 700 W: the mean of scripts/time_kernels.py's two parent runs in an A/B
+# call (PERF.md)
+PARENT_B6_MS = {"square": 1.24775, "shard": 0.38244}
 # the ViT-L logits, flash (fixed shift, unnormalised bf16 p) vs naive
 # (exact softmax, normalised bf16 p) through 24 bf16 blocks.  Measured on an
 # H100 at 700 W with seeded weights: 7.8e-3 (first kernel version) and
@@ -967,41 +976,96 @@ def _grads_close(torch, what, got, ref, dtype):
     return worst
 
 
+def _body_of(torch, fn):
+    """Which forward body one call of fn runs: the name, up to its '<', of
+    the one forward kernel in a profile of the call (after a call outside
+    the profile, which loads the kernel).  A profile that records no
+    device kernel (seen now and then on the first profile of a process)
+    is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()}
+        bodies = {n.split("<")[0].split("::")[-1] for n in names
+                  if "fwd_" in n and "_kernel" in n}
+        if bodies:
+            break
+    if len(bodies) != 1:
+        raise AssertionError(f"expected one forward kernel, ran {names}")
+    return bodies.pop()
+
+
 def check_b6(torch, fa, naive):
-    """Phase 10: B6 against fwd_bh_exact_plain, fp32 and bf16, then B6 +
-    B7 (exact branch) under autograd against the plain versions.  Returns
-    max |do| at the decoder shape in bf16."""
+    """Phase 10: B6 against fwd_bh_exact_plain, fp32 and bf16, on the body
+    each case should run (bf16 at D <= 128 the Hopper body, found by name
+    in a profile of the call), each call made twice with o and lse
+    bit-identical; then B6 + B7 (exact branch) under autograd against the
+    plain versions.  The rect cases hold NaN in k and v past kv_valid for
+    the forward (the gradients take finite tails).  Returns max |do| at
+    the decoder shape in bf16."""
     gen = torch.Generator(device="cuda").manual_seed(10)
-    # (name, B, Nq, Nk, kv_valid, H, D, q and k multiplier); square cases
-    # read the fused buffer's [B, H, N, D] views
-    cases = [("decoder D=32", 4, 5121, 5121, None, 16, 32, 1.0),
-             ("D=64", 2, 1025, 1025, None, 8, 64, 1.0),
-             ("ViT-H D=80", 1, 4097, 4097, None, 16, 80, 1.0),
-             ("D=128", 2, 513, 513, None, 4, 128, 1.0),
-             ("D=256", 1, 300, 300, None, 2, 256, 1.0),
-             ("decoder shard rect D=32", 4, 1281, 5124, 5121, 16, 32, 1.0),
-             ("rect D=80", 2, 300, 1000, 950, 4, 80, 1.0),
-             ("large-logit q, k x 8 D=80", 2, 1025, 1025, None, 4, 80, 8.0),
-             ("large-logit q, k x 8 rect D=64", 2, 200, 700, 650, 4, 64, 8.0)]
+    # (name, B, Nq, Nk, kv_valid, H, D, q multiplier, k multiplier); square
+    # cases read the fused buffer's [B, H, N, D] views; every N ragged
+    # against the 128-key and 128-row tiles
+    cases = [("decoder D=32", 4, 5121, 5121, None, 16, 32, 1.0, 1.0),
+             ("D=64", 2, 1025, 1025, None, 8, 64, 1.0, 1.0),
+             ("ViT-H D=80", 1, 4097, 4097, None, 16, 80, 1.0, 1.0),
+             ("D=128", 2, 513, 513, None, 4, 128, 1.0, 1.0),
+             ("D=256", 1, 300, 300, None, 2, 256, 1.0, 1.0),
+             ("decoder shard rect D=32", 4, 1281, 5124, 5121, 16, 32, 1.0,
+              1.0),
+             ("rect D=80", 2, 300, 1000, 950, 4, 80, 1.0, 1.0),
+             ("large-logit q, k x 8 D=80", 2, 1025, 1025, None, 4, 80, 8.0,
+              8.0),
+             ("large-logit q, k x 8 rect D=64", 2, 200, 700, 650, 4, 64, 8.0,
+              8.0),
+             ("large-logit q x 40 D=32", 2, 1025, 1025, None, 4, 32, 40.0,
+              1.0),
+             ("large-logit q x 40 rect D=128", 2, 333, 700, 651, 4, 128, 40.0,
+              1.0)]
     dec_err = None
-    for name, b, nq, nk, kv, h, d, mul in cases:
+    for name, b, nq, nk, kv, h, d, qmul, kmul in cases:
+        mul = qmul * kmul
         for dtype in (torch.bfloat16, torch.float32):
             scale = d ** -0.5
             if nq == nk:
                 qkv = torch.randn((b, nq, 3 * h * d), generator=gen,
                                   device="cuda")
-                qkv[..., :2 * h * d] *= mul
+                qkv[..., :h * d] *= qmul
+                qkv[..., h * d:2 * h * d] *= kmul
                 q, k, v = _bh_views(qkv.to(dtype), h)
+                kn, vn = k, v
             else:
-                q = mul * torch.randn((b, h, nq, d), generator=gen,
-                                      device="cuda")
+                q = qmul * torch.randn((b, h, nq, d), generator=gen,
+                                       device="cuda")
                 k, v = (torch.randn((b, h, nk, d), generator=gen,
                                     device="cuda") for _ in range(2))
-                q, k, v = q.to(dtype), (mul * k).to(dtype), v.to(dtype)
-            o, lse = fa.fwd_bh_cuda(q, k, v, None, None, scale, kv, False)
+                q, k, v = q.to(dtype), (kmul * k).to(dtype), v.to(dtype)
+                kn, vn = k.clone(), v.clone()
+                kn[:, :, kv:], vn[:, :, kv:] = math.nan, math.nan
+
+            def call():
+                return fa.fwd_bh_cuda(q, kn, vn, None, None, scale, kv, False)
+
+            body = _body_of(torch, call)
+            want = ("fwd_f32_kernel" if dtype == torch.float32 else
+                    "fwd_hopper_kernel" if d <= 128 else "fwd_bf16_kernel")
+            if body != want:
+                raise AssertionError(f"B6 {name} {dtype} ran {body}, not "
+                                     f"{want}")
+            (o, lse), (o2, lse2) = call(), call()
             torch.cuda.synchronize()
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
+            if not same:
+                raise AssertionError(f"B6 {name} {dtype}: two calls differ")
             o_ref, lse_ref = fa.fwd_bh_exact_plain(q, k, v, scale, kv)
-            # large logits (q, k x 8), where a few keys carry each row:
+            # large logits (q, k x 8; q x 40), where a few keys carry each
+            # row:
             # - bf16: the kernel rounds p relative to its running max, the
             #   plain version (and naive) relative to the row max or after
             #   normalising, each to 2^-9 of p, so o may differ by 2^-8 of
@@ -1026,8 +1090,10 @@ def check_b6(torch, fa, naive):
             if dlse > tol_lse:
                 raise AssertionError(f"B6 {name} {dtype}: max|dlse| {dlse}")
             line = (f"B6 {name} B={b} Nq={nq} Nk={nk} kv_valid={kv} H={h} "
-                    f"D={d} {str(dtype)[6:]}: max|do|={err:.3e} "
-                    f"max|dlse|={dlse:.3e} (tol {tol_lse:.1e})")
+                    f"D={d} {str(dtype)[6:]} ({body}"
+                    f"{', NaN tail' if kv else ''}): max|do|={err:.3e} "
+                    f"max|dlse|={dlse:.3e} (tol {tol_lse:.1e}); two calls "
+                    f"bit-identical")
             if mul > 1.0:
                 kk, vv = (t[:, :, :kv] if kv else t for t in (k, v))
                 ref = naive(q, kk, vv, scale=scale)
@@ -1056,7 +1122,8 @@ def check_b6(torch, fa, naive):
             print(f"B6 + B7 exact {name} {str(dtype)[6:]}: gradients against "
                   f"the plain versions, worst rel {rel:.3e} (tol "
                   f"{TOL_GRAD[str(dtype)[6:]]:.1e} x max|plain|)")
-            del q, k, v, o, lse, o_ref, lse_ref, g, grads, ref
+            del q, k, v, kn, vn, o, lse, o2, lse2, o_ref, lse_ref, g, grads
+            del ref
         torch.cuda.empty_cache()
     return dec_err
 
@@ -1212,15 +1279,20 @@ def run_sp_shards(torch, _cuda, fa):
 # ------------------------------------------------------ B8 and timings
 
 def check_b8(torch, kablate):
-    """Phase 13: B8, every flag variant at the base tile and the base
-    variant at the other tiles, against its plain version at the
-    harness's shape, each at its own padding.  Returns max |do| of base."""
+    """Phase 13: B8, every flag variant at every tile of the Hopper body,
+    against its plain version at the harness's shape, each at its own
+    padding; the base variant's call is profiled to show the body it ran.
+    Returns max |do| of base at the base tile."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     q, k, v = (torch.randn((kablate.BH, kablate.N, kablate.D), generator=gen,
                            device="cuda", dtype=torch.bfloat16)
                for _ in range(3))
-    runs = ([(name, kablate.BASE_TILE) for name in kablate.VARIANTS]
-            + [("base", t) for t in kablate.TILES if t != kablate.BASE_TILE])
+    runs = [(name, tile) for tile in kablate.TILES
+            for name in kablate.VARIANTS]
+    body = _body_of(torch, lambda: kablate.fwd_variant_cuda(q, k, v))
+    print(f"B8 base {kablate.BASE_TILE} runs {body}")
+    if body != "fwd_hopper_kernel":
+        raise AssertionError(f"B8 ran {body}, not the Hopper body")
     base_err = None
     for name, tile in runs:
         flags = kablate.VARIANTS[name]
@@ -1261,7 +1333,8 @@ def _row(ms, plain_ms, library_ms, work, rate):
 def time_b6(torch, fa, rate):
     """Phase 14, B6 at the decoder's square shape (the fused buffer's
     views) and at the 4-shard shape: kernel, plain version, SDPA at the
-    same [B, H, N, D] and the bound.  Returns the square shape's row."""
+    same [B, H, N, D], the bound, and the parent's body's time
+    (PARENT_B6_MS).  Returns the square shape's row."""
     import torch.nn.functional as F
 
     from octcubem_tpu_torch.scripts.time_kernels import fwd_work
@@ -1280,9 +1353,11 @@ def time_b6(torch, fa, rate):
         qc, kc, vc, scale=scale), 20)
     row = _row(ms, plain_ms, sdpa, fwd_work(b, h, n, n, d), rate)
     print(f"B6 timing decoder square B={b} H={h} N={n} D={d} bf16: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
-          f"{4 * b * h * n * n * d / ms / 1e9:.1f} TFLOP/s achieved")
+          f"{ms:.4f} ms (the parent's mma.sync body "
+          f"{PARENT_B6_MS['square']:.4f}), plain {plain_ms:.4f} ms, sdpa "
+          f"{sdpa:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); {4 * b * h * n * n * d / ms / 1e9:.1f} "
+          "TFLOP/s achieved")
     del qkv, q, k, v, qc, kc, vc
     nq, nk, kv = 1281, 5124, 5121
     q = torch.randn((b, h, nq, d), generator=gen, device="cuda",
@@ -1298,7 +1373,8 @@ def time_b6(torch, fa, rate):
         q, kk, vv, scale=scale), 20)
     shard = _row(ms_s, plain_s, sdpa_s, fwd_work(b, h, nq, kv, d), rate)
     print(f"B6 timing shard rect B={b} H={h} Nq={nq} Nk={nk} kv_valid={kv} "
-          f"D={d} bf16: kernel {ms_s:.4f} ms, plain {plain_s:.4f} ms, sdpa "
+          f"D={d} bf16: kernel {ms_s:.4f} ms (the parent's mma.sync body "
+          f"{PARENT_B6_MS['shard']:.4f}), plain {plain_s:.4f} ms, sdpa "
           f"{sdpa_s:.4f} ms, bound {shard['bound_ms']:.4f} ms "
           f"({shard['bound_by']})")
     return row

@@ -1,6 +1,6 @@
-// The flash-attention forward shared by kernels B1 (flash_fwd_packed.cu)
-// and B3 / B5 / B6 (flash_fwd_bh.cu).  The fixed shift (B1, B3, B5), for
-// every query row and head:
+// The flash-attention forward shared by kernels B1 (flash_fwd_packed.cu),
+// B3 / B5 / B6 (flash_fwd_bh.cu) and B8 (flash_ablate.cu).  The fixed shift
+// (B1, B3, B5), for every query row and head:
 //     s = (q . k) * scale                        fp32
 //     p = exp(min(s, 40) - 16)                   NOMAX_CLAMP, NOMAX_SHIFT
 //     l = sum p,  acc = sum bf16(p) * v          fp32 (p rounded to the
@@ -13,8 +13,7 @@
 // kv_valid of the rectangular one); these kernels mask their ragged tiles
 // and stop at key nk instead, so they need no correction.
 //
-// The exact online softmax (B6, template flag kExact; no cls fold), the
-// JAX _fwd_kernel:
+// The exact online softmax (B6; no cls fold), the JAX _fwd_kernel:
 //     m = running row max of s (keys at or past nk masked to -inf),
 //     on each tile: m' = max(m, tile max), a = exp(m - m'),
 //     l = a l + sum exp(s - m'),  acc = a acc + sum bf16(exp(s - m')) v
@@ -31,15 +30,18 @@
 // kc / vc point at the cls row of k / v and share their batch and head
 // strides.  o has its own strides; lse is [B, H, nq] fp32.
 //
-// Two bodies.  The fixed shift in bf16 at D in {32, 64, 80, 128} (B1 at
-// 32, 64, 128; B3 and B5 at 80) runs fwd_hopper_kernel, FlashAttention-3's
-// forward written here from the Hopper guides:
+// Two bodies.  bf16 at D in {32, 64, 80, 128} runs fwd_hopper_kernel,
+// FlashAttention-3's forward written here for the H100, with one
+// softmax policy as a template parameter: the fixed shift (B1 at 32, 64,
+// 128; B3 and B5 at 80), the exact online softmax (B6) and B8's ablation
+// switches (flash_ablate.cu).  The body:
 //   - one block per (128-query tile, head, batch), 384 threads: a producer
 //     warpgroup whose one TMA thread loads the block's Q tile once and
 //     streams 128-key K and V tiles through a ring of 3-4 stages (K and V
 //     each with a full mbarrier, one empty mbarrier per stage), and two
 //     consumer warpgroups of 64 query rows each, registers rebalanced with
-//     setmaxnreg (24 / 240);
+//     setmaxnreg (24 / 240).  B8's tiles also take 64-key tiles and one
+//     consumer warpgroup (64 query rows, 256 threads);
 //   - both products on wgmma: s = Q K^T from shared memory (both K-major),
 //     acc += P V with P from registers (the S accumulator repacked as the
 //     A fragment, flash_wgmma.cuh) and V MN-major;
@@ -50,11 +52,24 @@
 //     so one's exp also runs under the other's products.  At D = 80 and
 //     128 they take turns issuing their products (two named barriers,
 //     FlashAttention-3's ping-pong), which measured faster there and
-//     slower at D = 64.  Per score: one FFMA (scale and shift folded), one
-//     FMNMX (the clamp in log2 units), one ex2.approx.ftz, the row-sum FADD
-//     and half a bf16x2 pack; the key mask only on a ragged last tile.  At
-//     D = 32, where the exp is the bound, every 16th 8-key chunk takes its
-//     exps on the FMA pipe instead (ex2_fma, FlashAttention-4's trick);
+//     slower at D = 64.  Per score of the fixed shift: one FFMA (scale and
+//     shift folded), one FMNMX (the clamp), one ex2.approx.ftz, the
+//     row-sum FADD and half a bf16x2 pack; the key mask only on a ragged
+//     last tile.  At D = 32, where the exp is the bound, every 16th 8-key
+//     chunk takes its exps on the FMA pipe instead (ex2_fma,
+//     FlashAttention-4's trick);
+//   - the exact softmax (FlashAttention-3's): once s_t is in, x = s sl2
+//     rounded (the ragged tile's keys past nk at -inf), the tile's row max
+//     of x joins the running max m over the quad, a_t = 2^(m_{t-1} - m_t)
+//     scales l at once and acc once PV_{t-1} has retired (p_{t-1} was
+//     formed against m_{t-1}), and
+//     p_t = 2^(x - m_t): the plain version's steps, so the row max's own
+//     p is exactly 1; an FMUL, an FMNMX, an FADD and the exp per score
+//     (at D = 32 every 16th chunk's on the FMA pipe, as in the fixed
+//     shift).  p's exponent by one FFMA against the max of
+//     the unscaled s measured faster (PERF.md) but rounds p apart from the
+//     plain version, which moved a gradient at large logits past
+//     chip_smoke.py's limit;
 //   - the epilogue: l over the quad, the cls fold per row from the Q tile
 //     still in shared memory (its own buffer, outside the ring), o and lse
 //     stored directly with the row mask.
@@ -65,23 +80,26 @@
 // flash_hopper.cuh) served D = 80 with no padding but measured 1.5-2.3x
 // slower here.  One 4-D tensor map per operand (columns, rows, heads,
 // batch) over its own strides, whose row count (nq for Q, nk for K and V)
-// makes TMA fill the ragged tiles with zeros.  Zero keys give s = 0 and p = e^-16,
-// not 0, so keys at or past nk stay masked; rows past nq are not stored.
-// The maps are separate __grid_constant__ parameters, built in the C
-// launcher per call; FwdParams goes by value (124 bytes).
+// makes TMA fill the ragged tiles with zeros.  Zero keys give s = 0 and
+// p = e^-16 (or the exact softmax's exp(-m)), not 0, so keys at or past nk
+// stay masked; rows past nq are not stored.  The maps are separate
+// __grid_constant__ parameters, built in the C launcher per call;
+// FwdParams goes by value (124 bytes).
 //
-// The exact softmax (B6), D = 256 and fp32 (the parity path) keep the first
-// body, fwd_bf16_kernel / fwd_f32_kernel: mma.sync m16n8k16 from padded
-// shared memory by ldmatrix, K/V tiles double-buffered with cp.async, 16
-// query rows per warp (8 warps at D <= 64, 4 above); fp32 on the CUDA
+// fp32 (the parity path) and bf16 at D = 256 keep the first body,
+// fwd_bf16_kernel / fwd_f32_kernel, with the exact softmax as a template
+// flag: mma.sync m16n8k16 from padded shared memory by ldmatrix, K/V tiles
+// double-buffered with cp.async, 16 query rows per warp; fp32 on the CUDA
 // cores.
 //
-// What bounds the fixed shift on the H100: the products (4 D FLOP per
+// What bounds the Hopper body on the H100: the products (4 D FLOP per
 // score at 989 TFLOP/s) and the exp (one MUFU ex2 per score, 16 per clock
 // per SM, about 4e12 per second over 132 SMs) weigh about the same at
 // D = 64; the exp weighs twice the products at D = 32 and 0.8 of them at
-// D = 80.  Hence the overlap above.  Measured times and ablations are in
-// PERF.md (scripts/time_kernels.py, scripts/ablate_fwd.py).
+// D = 80.  Hence the overlap above.  The exact softmax adds, per key tile
+// and row, a quad max, one ex2 and a rescale of D / 2 accumulator floats
+// per thread.  Measured times and ablations are in PERF.md
+// (scripts/time_kernels.py, scripts/ablate_fwd.py).
 
 #pragma once
 
@@ -121,12 +139,38 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// ------------------------------------------ Hopper: fixed shift, bf16
+// ------------------------------------------ Hopper: bf16, three softmaxes
 
-template <int D>
+// fwd_hopper_kernel's softmax policy, its one template parameter:
+//   FixedShift  p = 2^min(s sl2 - 16 log2e, 24 log2e), keys masked at nk
+//               (B1, B3, B5);
+//   OnlineMax   the exact online softmax, a running row max (B6);
+//   Ablate<F>   B8's switches F (kAbExp, kAbSum, kAbPV, kAbSBf16) on the
+//               fixed shift, every key up to nk (the padded length) and
+//               none masked.
+// A policy's parts that are off compile to nothing.
+enum : int { kAbExp = 1, kAbSum = 2, kAbPV = 4, kAbSBf16 = 8 };
+
+template <int kKind, int kFlags = kAbExp | kAbSum | kAbPV>
+struct Softmax {
+  static constexpr bool kFixed = kKind == 0, kExact = kKind == 1;
+  static constexpr bool kAblate = kKind == 2;
+  static constexpr bool kExp = kFlags & kAbExp;  // else p = s scale
+  static constexpr bool kSum = kFlags & kAbSum;  // else l = 0, o = acc
+  static constexpr bool kPV = kFlags & kAbPV;  // else acc += p[:, :D], fp32
+  static constexpr bool kSBf16 = kFlags & kAbSBf16;  // s rounded to bf16
+  static_assert(kAblate || kFlags == (kAbExp | kAbSum | kAbPV),
+                "only the ablation policy has switches");
+};
+using FixedShift = Softmax<0>;
+using OnlineMax = Softmax<1>;
+template <int kFlags>
+using Ablate = Softmax<2, kFlags>;
+
+template <int D, int kBN, int kWG>
 struct FwdHopperCfg {
-  static constexpr int BM = 128;  // query rows per block: 64 per consumer
-  static constexpr int BN = 128;  // keys per tile
+  static constexpr int BM = 64 * kWG;  // query rows per block: 64 per consumer
+  static constexpr int BN = kBN;  // keys per tile
   // A tile is kPanels panels of W columns, each R rows of 2 W bytes in
   // TMA's 128-byte swizzle (64-byte at D = 32, whose rows are 64 bytes):
   // one TMA box per panel.  D = 80 takes two panels, the second one's
@@ -139,10 +183,12 @@ struct FwdHopperCfg {
   // K/V tiles in flight, as shared memory allows; a stage is freed one
   // tile after its keys are read, so the ring needs 3
   static constexpr int kStages = kPanels == 2 ? 3 : 4;
-  static constexpr int kThreads = 384;  // producer warpgroup + 2 consumers
+  // a producer warpgroup and kWG consumer warpgroups (1 only in B8's
+  // 64-row tiles)
+  static constexpr int kThreads = 128 * (1 + kWG);
   // the consumers take turns issuing their products (turn_take): measured
   // faster at D = 80 and 128, slower at 64 (PERF.md)
-  static constexpr bool kPingPong = D >= 80;
+  static constexpr bool kPingPong = kWG == 2 && D >= 80;
   // every kEmuEvery-th 8-key chunk's exps on the FMA pipe (ex2_fma), the
   // rest on the SFU; 0: all on the SFU.  Only D = 32, where the exp is the
   // bound, measured faster with a share on the FMA pipe
@@ -157,6 +203,8 @@ struct FwdHopperCfg {
   static constexpr int kSmem = oBar + 8 * (1 + 3 * kStages) + 1024;
   static_assert(D % 16 == 0 && D <= 128, "whole k16 steps; wgmma N <= 128");
   static_assert(kStages >= 3, "the ring frees a stage a tile late");
+  static_assert(kWG == 1 || kWG == 2, "one or two consumer warpgroups");
+  static_assert(BN == 64 || BN == 128, "wgmma N of the QK^T product");
 };
 
 // the byte offset of element (r, c) in an R-row tile of Cfg's panels
@@ -169,11 +217,10 @@ __device__ __forceinline__ int panel_at(int r, int c) {
 // s (64 query rows x BN keys) = Q_w K^T over D: Q_w the warpgroup's 64
 // rows of the BM-row Q tile, K a BN-row tile, both K-major; k16 step kk
 // is 32 bytes into its panel's rows
-template <int D>
-__device__ __forceinline__ void qk_issue(float (&s)[FwdHopperCfg<D>::BN / 2],
+template <int D, typename Cfg>
+__device__ __forceinline__ void qk_issue(float (&s)[Cfg::BN / 2],
                                          const unsigned char* Qw,
                                          const unsigned char* Ks) {
-  using Cfg = FwdHopperCfg<D>;
   constexpr int BM = Cfg::BM, BN = Cfg::BN, W = Cfg::W, L = Cfg::kLayout;
   wgmma_fence();
 #pragma unroll
@@ -188,11 +235,10 @@ __device__ __forceinline__ void qk_issue(float (&s)[FwdHopperCfg<D>::BN / 2],
 
 // acc (64 x D) += P V: P the A fragments of BN / 16 key steps, V a BN-row
 // tile read MN-major (panels lbo apart along D, 8-key groups sbo apart)
-template <int D>
-__device__ __forceinline__ void pv_issue(
-    float (&acc)[D / 2], const uint32_t (&pa)[FwdHopperCfg<D>::BN / 16][4],
-    const unsigned char* Vs) {
-  using Cfg = FwdHopperCfg<D>;
+template <int D, typename Cfg>
+__device__ __forceinline__ void pv_issue(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[Cfg::BN / 16][4],
+                                         const unsigned char* Vs) {
   constexpr int BN = Cfg::BN;
   wgmma_fence();
 #pragma unroll
@@ -226,6 +272,16 @@ __device__ __forceinline__ bool on_fma(int j) {
     return j % kEmu == kEmu - 1;
 }
 
+// A consumer thread's two rows (g and g + 8 of its warp): the partial row
+// sums of its columns and, for the exact softmax, the running max of
+// s sl2 (log2 units; -inf before any key) and the rescale of acc that this
+// tile owes once PV_{t-1} is done
+struct Rows {
+  float l0, l1;
+  float m0, m1;
+  float a0, a1;
+};
+
 // p = 2^min(s sl2 - shift, top) of one key tile into the A fragments of PV
 // (the C fragments of key chunks 2i and 2i + 1 form key step i) and the
 // row sums of fp32 p (rows g and g + 8 of the warp); kMask: zero at or
@@ -252,6 +308,123 @@ __device__ __forceinline__ void fixed_p(const float (&s)[BN / 2],
   }
 }
 
+// The exact softmax's tile max: s scaled in place to log2 units, x =
+// s sl2 rounded, or -inf at or past key nk (kMask; TMA's zero keys would
+// give s = 0), then the row max of this thread's columns in four chains
+// per row and over the quad (rows g and g + 8)
+template <bool kMask, int BN>
+__device__ __forceinline__ void exact_max(float (&s)[BN / 2], float& t0,
+                                          float& t1, float sl2, int col0,
+                                          int nk) {
+  float mx[2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mx[0][i] = mx[1][i] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x = s[4 * j + e];
+      x = kMask && col0 + 8 * j + (e & 1) >= nk ? -INFINITY : x * sl2;
+      float& m = mx[e >> 1][(j & 1) * 2 + (e & 1)];
+      m = fmaxf(m, x);
+    }
+  t0 = quad_max(fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3])));
+  t1 = quad_max(fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3])));
+}
+
+// p = 2^(x - sh) of one key tile (rows g and g + 8 against sh0 and sh1;
+// zero at or past key nk, kMask), its row sums into l0, l1 and its bf16 A
+// fragments as fixed_p's; every kEmu-th chunk by ex2_fma (x - sh <= 0;
+// below 2^-125 it gives about 2^-125 for the SFU's 0)
+template <bool kMask, int BN, int kEmu>
+__device__ __forceinline__ void exact_exps(const float (&x)[BN / 2],
+                                           uint32_t (&pa)[BN / 16][4],
+                                           float& l0, float& l1, float sh0,
+                                           float sh1, int col0, int nk) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    float pj[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float xe = x[4 * j + e] - (e < 2 ? sh0 : sh1);
+      pj[e] = on_fma<kEmu>(j) ? ex2_fma(xe) : ex2(xe);
+      if (kMask && col0 + 8 * j + (e & 1) >= nk) pj[e] = 0.f;
+    }
+    l0 += pj[0] + pj[1];
+    l1 += pj[2] + pj[3];
+    pa[j / 2][(j & 1) * 2 + 0] = pack_bf16(pj[0], pj[1]);  // row g
+    pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(pj[2], pj[3]);  // row g + 8
+  }
+}
+
+// a row's running max m (log2 units) joins the tile's max t: a =
+// 2^(m_old - m) (0 while m_old is -inf) scales l now and is owed by acc;
+// returns p's shift, m (0 while m is -inf, shift_of)
+__device__ __forceinline__ float max_join(float& m, float t, float& a,
+                                          float& l) {
+  const float mn = fmaxf(m, t), sh = shift_of(mn);
+  a = m == -INFINITY ? 0.f : ex2(m - sh);
+  m = mn;
+  l *= a;
+  return sh;
+}
+
+// The exact softmax's p of one key tile (FlashAttention-3's): the tile's
+// max joins the running max, then p against it.  The steps are the plain
+// version's, in log2 units: the scores scaled and rounded, their max, the
+// difference rounded, its exp, so the row max's own p is exactly 1 (an
+// FMUL, an FMNMX, an FADD and the exp per score)
+template <bool kMask, int BN, int kEmu>
+__device__ __forceinline__ void exact_p(float (&s)[BN / 2],
+                                        uint32_t (&pa)[BN / 16][4], Rows& r,
+                                        float sl2, int col0, int nk) {
+  float t0, t1;
+  exact_max<kMask, BN>(s, t0, t1, sl2, col0, nk);
+  const float sh0 = max_join(r.m0, t0, r.a0, r.l0);
+  const float sh1 = max_join(r.m1, t1, r.a1, r.l1);
+  exact_exps<kMask, BN, kEmu>(s, pa, r.l0, r.l1, sh0, sh1, col0, nk);
+}
+
+// B8's p of one key tile (Ablate<F>): every key, the pad keys past n
+// unmasked (TMA's zeros: s = 0, p = e^-16); s rounded to bf16 first
+// (kSBf16); p = 2^min(s sl2 - shift, top) (kExp) or s scale; its row sums
+// (kSum); its bf16 A fragments (kPV) or else, in fp32, its first D columns
+// added to acc, whose fragment they line up with
+template <class Sm, int D, int BN, int kEmu>
+__device__ __forceinline__ void ablate_p(const float (&s)[BN / 2],
+                                         uint32_t (&pa)[BN / 16][4],
+                                         float (&acc)[D / 2], Rows& r,
+                                         float scale, float sl2, float shift,
+                                         float top) {
+  static_assert(Sm::kPV || BN >= D, "p's first D columns in one key tile");
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    float pj[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e];
+      if constexpr (Sm::kSBf16) x = __bfloat162float(__float2bfloat16(x));
+      if constexpr (Sm::kExp) {
+        const float y = fminf(fmaf(x, sl2, -shift), top);
+        pj[e] = on_fma<kEmu>(j) ? ex2_fma(y) : ex2(y);
+      } else {
+        pj[e] = x * scale;
+      }
+    }
+    if constexpr (Sm::kSum) {
+      r.l0 += pj[0] + pj[1];
+      r.l1 += pj[2] + pj[3];
+    }
+    if constexpr (Sm::kPV) {
+      pa[j / 2][(j & 1) * 2 + 0] = pack_bf16(pj[0], pj[1]);  // row g
+      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(pj[2], pj[3]);  // row g + 8
+    } else if (j < D / 8) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] += pj[e];
+    }
+  }
+}
+
 // FlashAttention-3's scheduling of the two consumer warpgroups, when kOn:
 // each waits for its turn (named barrier 1 + w) before it issues its
 // products and then hands the turn to the other, so that one's exp runs
@@ -266,66 +439,99 @@ __device__ __forceinline__ void turn_give(int w) {
   if (kOn) named_arrive(2 - w, 256);
 }
 
-// p of key tile t (masked past nk where the tile is ragged) from s
-template <int BN, int kEmu>
-__device__ __forceinline__ void tile_p(const float (&s)[BN / 2],
-                                       uint32_t (&pa)[BN / 16][4], float& l0,
-                                       float& l1, int t, int nk, float sl2,
+// p of key tile t from s by the policy Sm (masked past nk where the tile
+// is ragged, except in B8's)
+template <int D, class Sm, typename Cfg>
+__device__ __forceinline__ void tile_p(float (&s)[Cfg::BN / 2],
+                                       uint32_t (&pa)[Cfg::BN / 16][4],
+                                       float (&acc)[D / 2], Rows& r, int t,
+                                       int nk, float scale, float sl2,
                                        float shift, float top, int t4) {
+  constexpr int BN = Cfg::BN, kEmu = Cfg::kEmuEvery;
   const int k0 = t * BN;
-  if (k0 + BN <= nk)
-    fixed_p<false, BN, kEmu>(s, pa, l0, l1, sl2, shift, top, 0, nk);
-  else
-    fixed_p<true, BN, kEmu>(s, pa, l0, l1, sl2, shift, top, k0 + 2 * t4, nk);
+  if constexpr (Sm::kFixed) {
+    if (k0 + BN <= nk)
+      fixed_p<false, BN, kEmu>(s, pa, r.l0, r.l1, sl2, shift, top, 0, nk);
+    else
+      fixed_p<true, BN, kEmu>(s, pa, r.l0, r.l1, sl2, shift, top,
+                              k0 + 2 * t4, nk);
+  } else if constexpr (Sm::kExact) {
+    if (k0 + BN <= nk)
+      exact_p<false, BN, kEmu>(s, pa, r, sl2, 0, nk);
+    else
+      exact_p<true, BN, kEmu>(s, pa, r, sl2, k0 + 2 * t4, nk);
+  } else {
+    ablate_p<Sm, D, BN, kEmu>(s, pa, acc, r, scale, sl2, shift, top);
+  }
+}
+
+// acc (rows g, g + 8) *= the exact softmax's rescale a0, a1
+template <int D>
+__device__ __forceinline__ void acc_rescale(float (&acc)[D / 2], float a0,
+                                            float a1) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[4 * j + 0] *= a0;
+    acc[4 * j + 1] *= a0;
+    acc[4 * j + 2] *= a1;
+    acc[4 * j + 3] *= a1;
+  }
 }
 
 // One key tile t >= 1 of a consumer warpgroup, p_{t-1} in pr: issue
 // s = Q K_t^T, then acc += p_{t-1} V_{t-1}; wait for s alone and form p_t
 // into pw while the tensor cores run PV; then wait for PV and free stage
-// t - 1 (its K and V are read).  pw was last read by PV_{t-2}, done.
-template <int D>
+// t - 1 (its K and V are read).  pw was last read by PV_{t-2}, done.  The
+// exact softmax then rescales acc to p_t's max (a_t): p_{t-1} was formed
+// against the max before this tile, so acc holds nothing else, and a
+// rescale before PV_{t-1} retires would race it.  Without PV (B8's
+// qkonly) V_{t-1} is still waited for before its stage is freed.
+template <int D, class Sm, typename Cfg>
 __device__ __forceinline__ void fwd_tile(
-    float (&s)[FwdHopperCfg<D>::BN / 2], float (&acc)[D / 2],
-    uint32_t (&pw)[FwdHopperCfg<D>::BN / 16][4],
-    uint32_t (&pr)[FwdHopperCfg<D>::BN / 16][4], float& l0, float& l1, int t,
-    int nk, unsigned char* smem, const unsigned char* Qw, uint64_t* full_k,
-    uint64_t* full_v, uint64_t* empty, float sl2, float shift, float top,
-    int t4, int w) {
-  using Cfg = FwdHopperCfg<D>;
-  constexpr int BN = Cfg::BN, S = Cfg::kStages;
+    float (&s)[Cfg::BN / 2], float (&acc)[D / 2],
+    uint32_t (&pw)[Cfg::BN / 16][4], uint32_t (&pr)[Cfg::BN / 16][4],
+    Rows& r, int t, int nk, unsigned char* smem, const unsigned char* Qw,
+    uint64_t* full_k, uint64_t* full_v, uint64_t* empty, float scale,
+    float sl2, float shift, float top, int t4, int w) {
+  constexpr int S = Cfg::kStages;
   const int sk = t % S, sv = (t - 1) % S;
   unsigned char* ring = smem + Cfg::oKV;
   mbar_wait(full_k + sk, (t / S) & 1);
   turn_take<Cfg::kPingPong>(w);
-  qk_issue<D>(s, Qw, ring + sk * 2 * Cfg::kKV);
+  qk_issue<D, Cfg>(s, Qw, ring + sk * 2 * Cfg::kKV);
   mbar_wait(full_v + sv, ((t - 1) / S) & 1);
-  pv_issue<D>(acc, pr, ring + sv * 2 * Cfg::kKV + Cfg::kKV);
+  if constexpr (Sm::kPV)
+    pv_issue<D, Cfg>(acc, pr, ring + sv * 2 * Cfg::kKV + Cfg::kKV);
   turn_give<Cfg::kPingPong>(w);
-  wgmma_wait<1>();  // s done; PV runs on
+  wgmma_wait<Sm::kPV ? 1 : 0>();  // s done; PV runs on
   reg_fence(s);
   reg_fence(pw);
-  tile_p<BN, Cfg::kEmuEvery>(s, pw, l0, l1, t, nk, sl2, shift, top, t4);
+  tile_p<D, Sm, Cfg>(s, pw, acc, r, t, nk, scale, sl2, shift, top, t4);
   wgmma_wait<0>();
   reg_fence(acc);
   reg_fence(pr);
+  if constexpr (Sm::kExact) acc_rescale<D>(acc, r.a0, r.a1);
   mbar_arrive(empty + sv);
 }
 
-// The fixed-shift forward in bf16 (see the header): one block per
+// The bf16 forward (see the header) by the policy Sm: one block per
 // (BM-query tile, head, batch); warpgroup 0 gives up its registers and one
-// thread loads Q once and K / V tiles through the ring; warpgroups 1 and 2
-// take 64 query rows each: s_0 and p_0 first, then per key tile t >= 1
+// thread loads Q once and K / V tiles through the ring; the kWG consumer
+// warpgroups take 64 query rows each: s_0 and p_0 first, then per key
+// tile t >= 1
 //   issue s = Q K_t^T and acc += p_{t-1} V_{t-1};  wait for s;
 //   p_t = exp(...) -> registers (under PV);  wait for PV, free stage t - 1
 // and last acc += p_{nt-1} V_{nt-1}.  p alternates between two register
-// sets, so p_t forms while PV reads p_{t-1}.
-template <int D>
-__global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
+// sets, so p_t forms while PV reads p_{t-1}.  The key tiles run to nk;
+// the K and V tensor maps hold their own row count, past which TMA reads
+// zeros (nk itself but in B8, whose nk is the padded length).
+template <int D, class Sm, int kBN, int kWG>
+__global__ void __launch_bounds__(FwdHopperCfg<D, kBN, kWG>::kThreads, 1)
     fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const FwdParams p) {
-  using Cfg = FwdHopperCfg<D>;
+  using Cfg = FwdHopperCfg<D, kBN, kWG>;
   constexpr int BM = Cfg::BM, BN = Cfg::BN, S = Cfg::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -345,11 +551,11 @@ __global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
     for (int s = 0; s < S; ++s) {
       mbar_init(full_k + s, 1);
       mbar_init(full_v + s, 1);
-      mbar_init(empty + s, 256);
+      mbar_init(empty + s, 128 * kWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (p.kc) {
+  if (Sm::kFixed && p.kc) {
     const __nv_bfloat16* kcg =
         static_cast<const __nv_bfloat16*>(p.kc) + p.lk.at(b, h);
     const __nv_bfloat16* vcg =
@@ -362,7 +568,8 @@ __global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {  // ---------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (kWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x != 0) return;
     constexpr int W = Cfg::W;
     mbar_expect_tx(q_bar, Cfg::kQ);
@@ -383,7 +590,8 @@ __global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
     return;
   }
   // ------------------------------------------------------------ consumers
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  if constexpr (kWG == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int w = threadIdx.x / 128 - 1;  // query rows 64 w .. 64 w + 63
   const int wq = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
@@ -391,13 +599,13 @@ __global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
   unsigned char* ring = smem + Cfg::oKV;
   // p = 2^(min(s scale log2e, 40 log2e) - 16 log2e)
   //   = 2^min(s scale log2e - 16 log2e, (40 - 16) log2e)
-  const float sl2 = p.scale * kLog2e, shift = kShift * kLog2e;
+  const float scale = p.scale, sl2 = scale * kLog2e, shift = kShift * kLog2e;
   const float top = kClamp * kLog2e - shift;
 
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float l0 = 0.f, l1 = 0.f;  // rows g and g + 8 of this warp, partial
+  Rows r{0.f, 0.f, -INFINITY, -INFINITY, 1.f, 1.f};
   float s[BN / 2];
   uint32_t pa0[BN / 16][4] = {}, pa1[BN / 16][4] = {};  // p of even / odd tiles
 
@@ -406,38 +614,41 @@ __global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
   mbar_wait(q_bar, 0);
   mbar_wait(full_k, 0);
   turn_take<kPP>(w);
-  qk_issue<D>(s, Qw, ring);
+  qk_issue<D, Cfg>(s, Qw, ring);
   turn_give<kPP>(w);
   wgmma_wait<0>();
   reg_fence(s);
-  tile_p<BN, Cfg::kEmuEvery>(s, pa0, l0, l1, 0, nk, sl2, shift, top, t4);
+  tile_p<D, Sm, Cfg>(s, pa0, acc, r, 0, nk, scale, sl2, shift, top, t4);
   for (int t = 1; t < nt; t += 2) {  // the two p sets trade roles
-    fwd_tile<D>(s, acc, pa1, pa0, l0, l1, t, nk, smem, Qw, full_k, full_v,
-                empty, sl2, shift, top, t4, w);
+    fwd_tile<D, Sm, Cfg>(s, acc, pa1, pa0, r, t, nk, smem, Qw, full_k,
+                         full_v, empty, scale, sl2, shift, top, t4, w);
     if (t + 1 < nt)
-      fwd_tile<D>(s, acc, pa0, pa1, l0, l1, t + 1, nk, smem, Qw, full_k,
-                  full_v, empty, sl2, shift, top, t4, w);
+      fwd_tile<D, Sm, Cfg>(s, acc, pa0, pa1, r, t + 1, nk, smem, Qw, full_k,
+                           full_v, empty, scale, sl2, shift, top, t4, w);
   }
   const int sl = (nt - 1) % S;  // the last tile's PV
   mbar_wait(full_v + sl, ((nt - 1) / S) & 1);
   turn_take<kPP>(w);
-  if ((nt - 1) & 1)
-    pv_issue<D>(acc, pa1, ring + sl * 2 * Cfg::kKV + Cfg::kKV);
-  else
-    pv_issue<D>(acc, pa0, ring + sl * 2 * Cfg::kKV + Cfg::kKV);
+  if constexpr (Sm::kPV) {
+    if ((nt - 1) & 1)
+      pv_issue<D, Cfg>(acc, pa1, ring + sl * 2 * Cfg::kKV + Cfg::kKV);
+    else
+      pv_issue<D, Cfg>(acc, pa0, ring + sl * 2 * Cfg::kKV + Cfg::kKV);
+  }
   if (w == 0) turn_give<kPP>(w);  // each turn taken is given once
   wgmma_wait<0>();
   reg_fence(acc);
   reg_fence(pa0);
   reg_fence(pa1);
 
+  float l0 = r.l0, l1 = r.l1;
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 
   const int r0 = 64 * w + 16 * wq + g, r1 = r0 + 8;  // rows of the Q tile
-  if (p.kc) {
+  if (Sm::kFixed && p.kc) {
     // s_c = q . kc from the Q tile
     float sc0 = 0.f, sc1 = 0.f;
     for (int c = t4; c < D; c += 4) {
@@ -464,7 +675,12 @@ __global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
     }
   }
 
-  const float ls0 = l0 <= 0.f ? 1.f : l0, ls1 = l1 <= 0.f ? 1.f : l1;
+  // o = acc / ls: l (<= 0 taken as 1), or B8's max(l, 1), 1 without l
+  float ls0 = l0 <= 0.f ? 1.f : l0, ls1 = l1 <= 0.f ? 1.f : l1;
+  if constexpr (Sm::kAblate) {
+    ls0 = Sm::kSum ? fmaxf(l0, 1.f) : 1.f;
+    ls1 = Sm::kSum ? fmaxf(l1, 1.f) : 1.f;
+  }
   const int row0 = q0 + r0, row1 = q0 + r1;
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + p.lo.at(b, h);
 #pragma unroll
@@ -478,22 +694,32 @@ __global__ void __launch_bounds__(FwdHopperCfg<D>::kThreads, 1)
           pack_bf16(acc[4 * j + 2] / ls1, acc[4 * j + 3] / ls1);
   }
   if (t4 == 0) {
+    // lse: 16 + log l; the exact softmax's shift (the row max's, as p's)
+    // + log l; B8's raw l (0 without it)
+    float e0 = kShift + logf(ls0), e1 = kShift + logf(ls1);
+    if constexpr (Sm::kExact) {
+      e0 = shift_of(r.m0) * kLn2 + logf(ls0);
+      e1 = shift_of(r.m1) * kLn2 + logf(ls1);
+    } else if constexpr (Sm::kAblate) {
+      e0 = Sm::kSum ? l0 : 0.f;
+      e1 = Sm::kSum ? l1 : 0.f;
+    }
     float* lg = p.lse + ((long long)b * p.H + h) * nq;
-    if (row0 < nq) lg[row0] = kShift + logf(ls0);
-    if (row1 < nq) lg[row1] = kShift + logf(ls1);
+    if (row0 < nq) lg[row0] = e0;
+    if (row1 < nq) lg[row1] = e1;
   }
 }
 
-// ------------------------------------------ mma.sync (B6, D = 256), bf16
+// ------------------------------------ mma.sync: bf16 at D = 256 (B1, B3, B5, B6)
 
 template <int D>
 struct Bf16Cfg {
-  // 16 query rows per warp; 8 warps share a K/V tile at D <= 64, 4 above
-  // (registers: the fp32 accumulator is D/2 floats per thread)
-  static constexpr int kWarps = D <= 64 ? 8 : 4;
+  // 16 query rows per warp, 4 warps sharing a K/V tile (registers: the
+  // fp32 accumulator is D/2 floats per thread)
+  static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int BM = 16 * kWarps;
-  static constexpr int BN = D == 256 ? 32 : 64;  // keys per tile
+  static constexpr int BN = 32;  // keys per tile
   static constexpr int LD = D + 8;  // padded row: conflict-free ldmatrix
   static constexpr int kStages = 2;  // K/V tiles in flight
   static constexpr int kSmem = (BM + kStages * 2 * BN) * LD * 2 + 2 * D * 4;
@@ -893,33 +1119,40 @@ __global__ void __launch_bounds__(F32Cfg<D>::kThreads)
 
 // ---------------------------------------------------------------- launch
 
-// the Hopper body: its three tensor maps, then the launch
-template <int D>
-cudaError_t fwd_launch_hopper(const FwdParams& p, cudaStream_t st) {
-  using Cfg = FwdHopperCfg<D>;
+// the Hopper body by the policy Sm: its three tensor maps (K and V over
+// kv_rows rows, past which TMA reads zeros), then the launch
+template <int D, class Sm, int kBN = 128, int kWG = 2>
+cudaError_t fwd_launch_hopper(const FwdParams& p, int kv_rows,
+                              cudaStream_t st) {
+  using Cfg = FwdHopperCfg<D, kBN, kWG>;
   CUtensorMap tq, tk, tv;
   cudaError_t e;
   const CUtensorMapSwizzle sw =
       Cfg::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   if ((e = tile_map(&tq, p.q, D, p.nq, p.B, p.H, p.lq, Cfg::BM, Cfg::W, sw)) !=
           cudaSuccess ||
-      (e = tile_map(&tk, p.k, D, p.nk, p.B, p.H, p.lk, Cfg::BN, Cfg::W, sw)) !=
-          cudaSuccess ||
-      (e = tile_map(&tv, p.v, D, p.nk, p.B, p.H, p.lv, Cfg::BN, Cfg::W, sw)) !=
-          cudaSuccess ||
-      (e = set_smem(fwd_hopper_kernel<D>, Cfg::kSmem)) != cudaSuccess)
+      (e = tile_map(&tk, p.k, D, kv_rows, p.B, p.H, p.lk, Cfg::BN, Cfg::W,
+                    sw)) != cudaSuccess ||
+      (e = tile_map(&tv, p.v, D, kv_rows, p.B, p.H, p.lv, Cfg::BN, Cfg::W,
+                    sw)) != cudaSuccess ||
+      (e = set_smem(fwd_hopper_kernel<D, Sm, kBN, kWG>, Cfg::kSmem)) !=
+          cudaSuccess)
     return e;
-  fwd_hopper_kernel<D><<<dim3((p.nq + Cfg::BM - 1) / Cfg::BM, p.H, p.B),
-                         Cfg::kThreads, Cfg::kSmem, st>>>(tq, tk, tv, p);
+  fwd_hopper_kernel<D, Sm, kBN, kWG>
+      <<<dim3((p.nq + Cfg::BM - 1) / Cfg::BM, p.H, p.B), Cfg::kThreads,
+         Cfg::kSmem, st>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-// bf16: the Hopper body for the fixed shift at D <= 128, the mma.sync body
-// for the exact softmax and D = 256
+// bf16: the Hopper body at D <= 128 (the fixed shift or, kExact, the exact
+// softmax), the mma.sync body at D = 256
 template <int D, bool kExact>
 cudaError_t fwd_launch_bf16(const FwdParams& p, cudaStream_t st) {
-  if constexpr (!kExact && D <= 128) {
-    return fwd_launch_hopper<D>(p, st);
+  if constexpr (D <= 128) {
+    if constexpr (kExact)
+      return fwd_launch_hopper<D, OnlineMax>(p, p.nk, st);
+    else
+      return fwd_launch_hopper<D, FixedShift>(p, p.nk, st);
   } else {
     using Cfg = Bf16Cfg<D>;
     cudaError_t e = set_smem(fwd_bf16_kernel<D, kExact>, Cfg::kSmem);

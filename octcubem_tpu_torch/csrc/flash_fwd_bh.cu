@@ -6,11 +6,12 @@
 // for flash_attention_rect) and _fwd_kernel (B6, the same two launches
 // with no_max=False).  B3 is the fixed-shift forward with the cls
 // key/value folded in, B5 the one without, B6 the exact online softmax
-// (exact = 1, no cls fold); all three are flash_fwd.cuh's kernel body,
-// B6 by its template flag, and the wrapper counts them apart.  Each operand
-// has its own batch, head and row strides with unit stride along D, so the
-// [B, H, N, D] views of a fused Wqkv buffer (row stride 3*H*D, head stride
-// D) launch with no transpose copy.  Queries (nq rows) and keys (nk) may
+// (exact = 1, no cls fold); all three are flash_fwd.cuh's bodies (bf16 at
+// D <= 128 its Hopper body, B6 by its exact-softmax policy), and the
+// wrapper counts them apart.  Each operand has its own batch, head and row
+// strides with unit stride along D, so the [B, H, N, D] views of a fused
+// Wqkv buffer (row stride 3*H*D, head stride D) launch with no transpose
+// copy.  Queries (nq rows) and keys (nk) may
 // differ: the rectangular form attends to the first kv_valid keys only,
 // passed as nk.  D in {32, 64, 80, 128, 256}.
 //
@@ -22,10 +23,12 @@
 //   5.4e9 FLOP -> 0.005 ms, against ~21 MB -> 0.006 ms: bound by bytes,
 //   so the short rows (512 keys, 8 tiles) and the launch are what count.
 // - B6 at the ViT-L MAE decoder's square shape (B=4, H=16, N=5,121, D=32):
-//   4*B*H*N^2*D = 2.15e11 FLOP -> 0.217 ms, against ~8 MB -> 0.003 ms:
-//   bound by tensor-core operations.  Its running max adds a quad
-//   reduction and a rescale of l and the accumulator per key tile to
-//   B5's loop; a simple kernel first, speed is later work.
+//   one exp per score, B*H*N^2 = 1.68e9 at the SFU's 16 per clock per SM
+//   (132 SMs, 1,980 MHz: 4.18e12 per second) -> 0.4014 ms, against
+//   4*B*H*N^2*D = 2.15e11 FLOP -> 0.217 ms and ~8 MB -> 0.003 ms: bound by
+//   the exp.  Hence the Hopper body's exps under the products; its running
+//   max adds a quad max and a rescale of l and the accumulator per key
+//   tile to B5's loop.
 
 #include "flash_fwd.cuh"
 

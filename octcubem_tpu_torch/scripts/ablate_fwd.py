@@ -1,7 +1,8 @@
 """Ablations of the bf16 Hopper forward body (csrc/flash_fwd.cuh,
-fwd_hopper_kernel: B1, B3, B5) on the card: each variant is a copy of the
-package under ``build/ablate/<variant>/`` with edits of flash_fwd.cuh,
-timed by ``time_kernels.py --root`` (device time per call):
+fwd_hopper_kernel: B1, B3, B5 and B6) on the card: each variant is a copy
+of the package under ``build/ablate/<variant>/`` with edits of
+flash_fwd.cuh, timed by ``time_kernels.py --root`` (device time per
+call):
 
 - ``base``: the body as it is;
 - ``noexp``: p = its exponent, no MUFU ex2 (the FFMA, clamp, sums, packing
@@ -15,8 +16,9 @@ timed by ``time_kernels.py --root`` (device time per call):
 
 Each of those computes wrong results on purpose; only its time means
 anything.  The design alternatives after them in VARIANTS (the consumers
-taking turns, a share of the exps on the FMA pipe, the ring's depth, the
-key tile) compute the same function.  Run on a machine with the card:
+taking turns, a share of the exps on the FMA pipe, the exact softmax's
+softmax's forms, the ring's depth, the key tile) compute the same
+function (the exact softmax's forms up to rounding).  Run on a machine with the card:
 
     python octcubem_tpu_torch/scripts/ablate_fwd.py [--variants base,noexp]
         [--rows B1 ViT-L serving,B3] [--iters 50] [--rounds 2]
@@ -45,7 +47,9 @@ _PRODUCER_KV = "      mbar_expect_tx(full_k + s, Cfg::kKV);\n"
 VARIANTS = {
     "base": [],
     "noexp": [("pj[e] = on_fma<kEmu>(j) ? ex2_fma(x) : ex2(x);",
-               "pj[e] = x;")],
+               "pj[e] = x;"),
+              ("pj[e] = on_fma<kEmu>(j) ? ex2_fma(xe) : ex2(xe);",
+               "pj[e] = xe;")],
     "noqk": [("    Wgmma<BN>::template ss<0, 0>(\n",
               "    if (kk < 0) Wgmma<BN>::template ss<0, 0>(\n")],
     "nopv": [("    Wgmma<D>::template rs<1>(acc, pa[i],\n",
@@ -54,15 +58,36 @@ VARIANTS = {
                 "      if (t >= S) {\n        mbar_arrive(full_k + s);\n"
                 "        mbar_arrive(full_v + s);\n        continue;\n      }\n"
                 + _PRODUCER_KV)],
-    "nomask": [("  if (k0 + BN <= nk)\n    fixed_p<false, BN, kEmu>",
-                "  if (true)\n    fixed_p<false, BN, kEmu>")],
-    "nocls": [("  if (p.kc) {\n    // s_c = q . kc", "  if (false) {\n    // s_c = q . kc")],
+    "nomask": [("    if (k0 + BN <= nk)\n      fixed_p<false, BN, kEmu>",
+                "    if (true)\n      fixed_p<false, BN, kEmu>"),
+               ("    if (k0 + BN <= nk)\n      exact_p<false, BN, kEmu>",
+                "    if (true)\n      exact_p<false, BN, kEmu>")],
+    "nocls": [("  if (Sm::kFixed && p.kc) {\n    // s_c = q . kc",
+               "  if (false) {\n    // s_c = q . kc")],
 }
+
+
+_RESCALE = ("  if constexpr (Sm::kExact) acc_rescale<D>(acc, r.a0, r.a1);\n"
+            "  mbar_arrive")
+# the exact softmax's max of the unscaled s, sl2 passed to its exps and
+# to the join, lse from the unscaled max
+_RAW = [("? -INFINITY : x * sl2;", "? -INFINITY : x;"),
+        ("float sh1, int col0, int nk) {",
+         "float sh1, int col0, int nk, float sl2) {"),
+        ("float& l) {", "float& l, float sl2) {"),
+        ("max_join(r.m0, t0, r.a0, r.l0)", "max_join(r.m0, t0, r.a0, r.l0, sl2)"),
+        ("max_join(r.m1, t1, r.a1, r.l1)", "max_join(r.m1, t1, r.a1, r.l1, sl2)"),
+        ("r.l1, sh0, sh1, col0, nk);", "r.l1, sh0, sh1, col0, nk, sl2);"),
+        ("      e0 = shift_of(r.m0) * kLn2 + logf(ls0);\n"
+         "      e1 = shift_of(r.m1) * kLn2 + logf(ls1);",
+         "      e0 = shift_of(r.m0) * sl2 * kLn2 + logf(ls0);\n"
+         "      e1 = shift_of(r.m1) * sl2 * kLn2 + logf(ls1);")]
 
 
 def _pp(expr: str):
     """The consumers take turns where ``expr`` (of D) holds."""
-    return ("kPingPong = D >= 80;", f"kPingPong = {expr};")
+    return ("kPingPong = kWG == 2 && D >= 80;",
+            f"kPingPong = kWG == 2 && ({expr});")
 
 
 def _emu(expr: str):
@@ -85,8 +110,46 @@ VARIANTS.update({
     "pp80_emu32": [_emu("D == 32 ? 8 : 0")],
     "pp80_emu80": [_emu("D == 32 || D == 80 ? 8 : 0")],
     "s3": _PLAIN + [("kStages = kPanels == 2 ? 3 : 4;", "kStages = 3;")],
-    "bn64": _PLAIN + [("static constexpr int BN = 128;  // keys per tile",
-                       "static constexpr int BN = 64;  // keys per tile")],
+    # the exact softmax (B6): FlashAttention-4's conditional rescale (a
+    # row keeps its max until the tile's max passes it by 2^8, and a warp
+    # skips acc's rescale while every row's is 1); acc's rescale just
+    # before the PV that needs it, after the next QK^T is issued ("late";
+    # the body: once the PV before it has retired); every 16th chunk's
+    # exps on the FMA pipe at every D ("exactemu"; the body: at D = 32, by
+    # kEmuEvery as the fixed shift); the row
+    # max of the unscaled s, and p's exponent s sl2 - m sl2 by one FFMA
+    # ("ffma") or rounded product and difference ("rawmax"), where the body
+    # scales the scores first, as the plain version does
+    "lazy8": [("  const float mn = fmaxf(m, t), sh = shift_of(mn);\n",
+               "  const float mn = fmaxf(m, t) - m <= 8.f ? m : fmaxf(m, t);\n"
+               "  const float sh = shift_of(mn);\n"),
+              (_RESCALE, "  if constexpr (Sm::kExact)\n"
+               "    if (__any_sync(0xffffffffu, r.a0 != 1.f || r.a1 != 1.f))\n"
+               "      acc_rescale<D>(acc, r.a0, r.a1);\n  mbar_arrive")],
+    "late": [(_RESCALE, "  mbar_arrive"),
+             ("  if constexpr (Sm::kPV)\n    pv_issue<D, Cfg>(acc, pr,",
+              "  if constexpr (Sm::kExact) acc_rescale<D>(acc, r.a0, r.a1);\n"
+              "  if constexpr (Sm::kPV)\n    pv_issue<D, Cfg>(acc, pr,"),
+             ("  if constexpr (Sm::kPV) {\n    if ((nt - 1) & 1)",
+              "  if constexpr (Sm::kExact) acc_rescale<D>(acc, r.a0, r.a1);\n"
+              "  if constexpr (Sm::kPV) {\n    if ((nt - 1) & 1)")],
+    "exactemu": [("exact_p<false, BN, kEmu>", "exact_p<false, BN, 16>"),
+                 ("exact_p<true, BN, kEmu>", "exact_p<true, BN, 16>")],
+    "ffma": _RAW + [
+        ("const float xe = x[4 * j + e] - (e < 2 ? sh0 : sh1);",
+         "const float xe = fmaf(x[4 * j + e], sl2, e < 2 ? -sh0 : -sh1);"),
+        ("sh = shift_of(mn);\n  a = m == -INFINITY ? 0.f : ex2(m - sh);",
+         "sh = shift_of(mn) * sl2;\n"
+         "  a = m == -INFINITY ? 0.f : ex2(m * sl2 - sh);")],
+    "rawmax": _RAW + [
+        ("const float xe = x[4 * j + e] - (e < 2 ? sh0 : sh1);",
+         "const float xe =\n          __fsub_rn(__fmul_rn(x[4 * j + e], "
+         "sl2), e < 2 ? sh0 : sh1);"),
+        ("sh = shift_of(mn);\n  a = m == -INFINITY ? 0.f : ex2(m - sh);",
+         "sh = __fmul_rn(shift_of(mn), sl2);\n"
+         "  a = m == -INFINITY ? 0.f : ex2(__fmul_rn(m, sl2) - sh);")],
+    "bn64": _PLAIN + [("int kBN = 128, int kWG = 2>\ncudaError_t",
+                       "int kBN = 64, int kWG = 2>\ncudaError_t")],
 })
 
 DEFAULT_ROWS = "B1 ViT-L serving,B1 MAE decoder,B3 ViT-H classifier"

@@ -5,15 +5,20 @@ Each variant strips or alters one part of the forward kernel to locate
 what bounds it (a stripped variant's results are meaningless as
 attention).  B8 (csrc/flash_ablate.cu) replaces the TPU kernel
 ``scripts/kablate.py::fwd_variant``: B5's fixed-shift forward with the
-switches as template flags, on [BH, N, D] bf16 at D = 32.
+switches as template flags, on [BH, N, D] bf16 at D = 32, run by the bf16
+Hopper forward body (csrc/flash_fwd.cuh, fwd_hopper_kernel) with its
+ablation policy.
 
     python -m octcubem_tpu_torch.scripts.kablate VARIANT [VARIANT...]
 
   fwd variants (B8 at the base tile): base, noexp, nosum, qkonly,
     mxonly (no exp, no rowsum), mxbf16 (scores rounded to bf16)
-  fwd tile variants (B8's base flags; query rows x keys): f128x64 (the
-    base's, B5's at D = 32), f64x64, f128x128, f64x128.  These are Hopper
-    tile configurations; the TPU's 512-2048 tiles do not carry over.
+  fwd tile variants (B8's base flags; query rows x keys): f128x128 (the
+    base's, the Hopper body's own: two consumer warpgroups, 128-key
+    tiles), f128x64 (64-key tiles), f64x128 and f64x64 (one consumer
+    warpgroup).  Every variant runs at every tile (``fwd_variant_cuda``).
+    These are the Hopper body's configurations; the TPU's 512-2048 tiles
+    do not carry over, and no tile is left out.
   b* (any name starting with "b"): the port's ``flash_attention`` forward
     and backward at [4, 16, 5121, 32], at the port's own tiles.  5,121 is
     5,120 + cls, so that is B3 + B4 (the launch counts say so); B4 has no
@@ -33,16 +38,18 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _cuda
+from ..ops.flash_attention import _for_tma
 
 BH, N, D = 64, 5121, 32
 ITERS = 20
 SHIFT = 16.0
 CLAMP = 40.0
 
-# tile name -> (the C entry's tile index, query rows, keys)
-TILES = {"f128x64": (0, 128, 64), "f64x64": (1, 64, 64),
-         "f128x128": (2, 128, 128), "f64x128": (3, 64, 128)}
-BASE_TILE = "f128x64"
+# tile name -> (the C entry's tile index, query rows, keys): the Hopper
+# body's configurations, 64 query rows per consumer warpgroup
+TILES = {"f128x128": (0, 128, 128), "f128x64": (1, 128, 64),
+         "f64x128": (2, 64, 128), "f64x64": (3, 64, 64)}
+BASE_TILE = "f128x128"
 # variant -> B8's flags (the defaults: exp, rowsum and pv on, fp32 scores)
 VARIANTS = {"base": {}, "noexp": dict(exp=False), "nosum": dict(rowsum=False),
             "qkonly": dict(pv=False), "mxonly": dict(exp=False, rowsum=False),
@@ -90,9 +97,8 @@ def _flags(exp=True, rowsum=True, pv=True, s_bf16=False) -> int:
 
 
 def fwd_variant_cuda(q, k, v, tile: str = BASE_TILE, **flags):
-    """B8 on the card: q, k, v contiguous [BH, n, 32] bf16 CUDA tensors.
-    Any flags at the base tile; the other tiles take the base flags
-    only."""
+    """B8 on the card: q, k, v contiguous [BH, n, 32] bf16 CUDA tensors,
+    the flags of one of ``VARIANTS`` at any tile of ``TILES``."""
     if q.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, not {q.device}")
     bh, n, d = q.shape
@@ -101,17 +107,18 @@ def fwd_variant_cuda(q, k, v, tile: str = BASE_TILE, **flags):
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"B8 takes contiguous [BH, n, {D}] bf16 q, k, v "
                              "of one shape and device")
-    idx = TILES[tile][0]
-    if idx != 0 and flags:
-        raise ValueError(f"tile {tile} runs the base variant only")
+    if _flags(**flags) not in {_flags(**f) for f in VARIANTS.values()}:
+        raise ValueError(f"B8 runs the flags of {list(VARIANTS)}, not {flags}")
+    q, k, v = (_for_tma(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
     lib = _cuda.library("flash_ablate")
     with torch.cuda.device(q.device):
         err = lib.octcube_flash_ablate(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, n, n_pad_of(n, tile), d, idx, _flags(**flags),
-            float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+            lse.data_ptr(), bh, n, n_pad_of(n, tile), d, TILES[tile][0],
+            _flags(**flags), float(d ** -0.5),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(lib, err, "flash_ablate")
     _cuda.launches["flash_ablate"] += 1
     return o, lse

@@ -12,9 +12,13 @@ lay them out:
   - B3 at the ViT-H/14 classifier's (B 1, 4,096 rows + the cls key, H 16,
     D 80) and B5 at its MAE encoder's (B 4, N 512, H 16, D 80), on the
     [B, H, N, D] views of the fused buffer;
-  - B6 at the ViT-L MAE decoder's square shape (B 4, N 5,121, H 16, D 32),
-    on the same views;
-  - B8's base variant at its harness's shape (BH 64, N 5,121, D 32);
+  - B6 at the ViT-L MAE decoder's square shape (B 4, N 5,121, H 16, D 32)
+    and at three other head_dims, (1, 4,097, 16, 64), (1, 4,097, 16, 80)
+    and (4, 5,121, 4, 128), on the same views, and at the 4-shard shape of
+    the sequence-parallel layer (B 4, H 16, 1,281 query rows against 5,124
+    keys, kv_valid 5,121, D 32) on contiguous tensors;
+  - B8 at its harness's shape (BH 64, N 5,121, D 32): every variant at the
+    harness's base tile, and the base variant at every tile;
 - the backwards: B2 at the ViT-L MAE decoder's, 16 heads of 32 and 4 of
   128, and at its encoder's, on the fused buffer's column views, with
   autograd's [:, 1:] dO after the cls row's concat and the gradient
@@ -36,7 +40,7 @@ dense bf16, its bytes (each input read once, each output written once) at
 16 per clock per SM times the card's SMs times its max SM clock as
 nvidia-smi reports it.  The backwards' bounds leave the exp out (one exp
 against 10 D FLOP per score).  ``waves`` is a forward's blocks over SMs at
-128 query rows per block (the Hopper body's tile).
+128 query rows per block (the Hopper body's tile; B8 at its tile's rows).
 
     python octcubem_tpu_torch/scripts/time_kernels.py [--root DIR] [--iters 100]
         [--rows B1,B3]
@@ -170,12 +174,13 @@ def _bh(qkv, h):
 
 
 def forward_row(torch, fn, sdpa_args, work, blocks, rate, iters) -> dict:
-    """A forward's device split, event time, SDPA's forward device time at
-    the same inputs, bound and waves."""
+    """A forward's device split, event time, digest of (o, lse), SDPA's
+    forward device time at the same inputs, bound and waves."""
     import torch.nn.functional as F
 
     row = device_split(torch, fn, iters)
     row["event_ms"] = event_ms(torch, fn, iters)
+    row["digest"] = digest(torch, fn())
     q, k, v, scale = sdpa_args
     row["sdpa_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, scale=scale), iters)
@@ -215,16 +220,33 @@ def _bh_fwd(torch, fa, gen, b, n, h, d, rate, iters, no_max=True):
                        rate, iters)
 
 
-def _b8_fwd(torch, kablate, gen, rate, iters):
-    """B8's base variant at its harness's shape, SDPA on the same inputs as
-    [4, BH / 4, N, D]."""
+def _rect_fwd(torch, fa, gen, b, h, nq, nk, kv, d, rate, iters):
+    """B6's call at a query shard against padded keys (kv_valid < nk) on
+    contiguous [B, H, N, D] tensors; SDPA on the first kv keys."""
+    q = torch.randn((b, h, nq, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = d ** -0.5
+    sdpa = [q] + [t[:, :, :kv].contiguous() for t in (k, v)] + [scale]
+    return forward_row(torch, lambda: fa.fwd_bh_cuda(q, k, v, None, None,
+                                                     scale, kv, False),
+                       sdpa, fwd_work(b, h, nq, kv, d), -(-nq // 128) * h * b,
+                       rate, iters)
+
+
+def _b8_fwd(torch, kablate, gen, rate, iters, variant="base", tile=None):
+    """B8's ``variant`` at its harness's shape and ``tile`` (default the
+    harness's base tile), SDPA on the same inputs as [4, BH / 4, N, D]."""
     bh, n, d = kablate.BH, kablate.N, kablate.D
+    tile = tile or kablate.BASE_TILE
     q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda",
                            dtype=torch.bfloat16) for _ in range(3))
     sdpa = [t.view(4, bh // 4, n, d) for t in (q, k, v)] + [d ** -0.5]
-    return forward_row(torch, lambda: kablate.fwd_variant_cuda(q, k, v), sdpa,
-                       fwd_work(1, bh, n, n, d), -(-n // 128) * bh, rate,
-                       iters)
+    flags = kablate.VARIANTS[variant]
+    return forward_row(torch, lambda: kablate.fwd_variant_cuda(
+        q, k, v, tile, **flags), sdpa, fwd_work(1, bh, n, n, d),
+        -(-n // kablate.TILES[tile][1]) * bh, rate, iters)
 
 
 def _packed_bwd(torch, fa, gen, b, n, h, d):
@@ -305,10 +327,21 @@ def main(argv=None) -> int:
         torch, fa, g, 1, 4097, 16, 80, r, it))
     rows["B5 ViT-H encoder"] = (fwd, lambda g, r: _bh_fwd(
         torch, fa, g, 4, 512, 16, 80, r, it))
-    rows["B6 decoder square"] = (fwd, lambda g, r: _bh_fwd(
-        torch, fa, g, 4, 5121, 16, 32, r, 20, no_max=False))
-    rows["B8 base"] = (["flash_ablate"], lambda g, r: _b8_fwd(
-        torch, kablate, g, r, 20))
+    for name, shape in (("B6 decoder square", (4, 5121, 16, 32)),
+                        ("B6 D=64 square", (1, 4097, 16, 64)),
+                        ("B6 D=80 square", (1, 4097, 16, 80)),
+                        ("B6 D=128 square", (4, 5121, 4, 128))):
+        rows[name] = (fwd, lambda g, r, s=shape: _bh_fwd(
+            torch, fa, g, *s, r, 20, no_max=False))
+    rows["B6 shard rect"] = (fwd, lambda g, r: _rect_fwd(
+        torch, fa, g, 4, 16, 1281, 5124, 5121, 32, r, 20))
+    for variant in kablate.VARIANTS:
+        rows[f"B8 {variant}"] = (["flash_ablate"], lambda g, r, v=variant:
+                                 _b8_fwd(torch, kablate, g, r, 20, v))
+    for tile in kablate.TILES:
+        rows[f"B8 tile {tile}"] = (["flash_ablate"], lambda g, r, t=tile:
+                                   _b8_fwd(torch, kablate, g, r, 20, "base",
+                                           t))
 
     def backward(make, shape):
         def row(g, _rate):

@@ -20,10 +20,12 @@ order: dq is held within that tolerance on two runs, dk, dv, dkc and dvc
 bit-identical between them.
 
 B6 (the exact softmax) at the same o / lse limits, with logits x 8 far
-above the fixed shift's clamp.  B8 (the ablation variants) within 2^-7
-of the largest plain output in bf16 (a stripped variant's outputs have no
-softmax scale; p is rounded to bf16 on both sides), its raw l within
-1e-4 of the largest.
+above the fixed shift's clamp; on the Hopper body (bf16, D <= 128) also
+at q x 40 and twice, bit-identical, its large-logit o within 2^-8 of
+max|v| (p is rounded against the running max).  B8 (the ablation
+variants, every one at every tile) within 2^-7 of the largest plain
+output in bf16 (a stripped variant's outputs have no softmax scale; p is
+rounded to bf16 on both sides), its raw l within 1e-4 of the largest.
 
 Batch 2 throughout, and the cls-fold dO is the [:, 1:] slice of a
 [B, m + 1, H*D] buffer, as autograd hands it over after the cls row's
@@ -416,15 +418,77 @@ def test_b6_public_path_counts_launches(gen):
     _assert_grad_close(x.grad.cpu(), xc.grad, torch.bfloat16, "dqkv")
 
 
+# B6 in bf16 on the Hopper body (D <= 128): (D, case)
+HOPPER_B6 = [(d, c) for d in (32, 64, 80, 128)
+             for c in ("ragged", "x8", "x40", "rect")]
+
+
+@pytest.mark.parametrize("d,case", HOPPER_B6)
+def test_b6_hopper_matches_plain_and_repeats(gen, d, case):
+    """B6 in bf16 on the Hopper body: 333 query rows and keys (no multiple
+    of the 128-row and 128-key tiles) on the fused buffer's [B, H, N, D]
+    views, with q and k x 8 (logits x 64) and with q x 40, and the rect
+    form (200 query rows, 300 keys, kv_valid 259, NaN in k and v past it
+    for the forward); each call made twice, o and lse bit-identical; B6 +
+    B7 under autograd (finite tails) against the plain versions.  At large
+    logits a few keys carry each row and the kernel rounds p against its
+    running max, so o may differ from the plain version by 2^-8 of
+    max|v| on top of o's own rounding (chip_smoke.py's limit); and there
+    the gradient of a key that carries a row is a difference of nearly
+    equal o and v, so o's last bit moves it by about TOL_GRAD: the plain
+    backward on the two forwards' outputs differs by up to 1.4 TOL_GRAD
+    for either forward body, the mma.sync one or this one (PERF.md).  So
+    at large logits the autograd gradients are held against the plain
+    backward on the kernel's own (o, lse), which holds B7 and the units of
+    B6's lse, while o itself is held to the plain forward above."""
+    dtype, h, scale, kv = torch.bfloat16, 2, d ** -0.5, None
+    qmul, kmul = {"x8": (8.0, 8.0), "x40": (40.0, 1.0)}.get(case, (1.0, 1.0))
+    if case == "rect":
+        q = torch.randn((2, h, 200, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((2, h, 300, d), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        kv = 259
+        kn, vn = k.clone(), v.clone()
+        kn[:, :, kv:], vn[:, :, kv:] = float("nan"), float("nan")
+    else:
+        x = torch.randn((2, 333, 3 * h * d), generator=gen, device="cuda")
+        x[..., :h * d] *= qmul
+        x[..., h * d:2 * h * d] *= kmul
+        q, k, v = _bh_views(x.to(dtype), h, d)
+        kn, vn = k, v
+    first, second = (fa.fwd_bh_cuda(q, kn, vn, None, None, scale, kv, False)
+                     for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    o, lse = first
+    o_ref, lse_ref = fa.fwd_bh_exact_plain(q, k, v, scale, kv)
+    atol, rtol = TOL_O[dtype]
+    if qmul * kmul > 1.0:
+        atol = 2 ** -8 * v.float().abs().max().item()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    # lse at TOL 1e-4, or 8 fp32 ulps of its size at large logits
+    tol_lse = max(1e-4, 8 * 2 ** -23 * lse_ref.abs().max().item())
+    torch.testing.assert_close(lse, lse_ref, atol=tol_lse, rtol=0)
+    g = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_rect(*ts, scale, False, kv)
+    grads = torch.autograd.grad(out, ts, g)
+    if qmul * kmul > 1.0:
+        o_ref, lse_ref = o, lse
+    ref = fa.bwd_bh_plain(q, k, v, None, None, o_ref, lse_ref, g, None, scale,
+                          False, kv)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert torch.isfinite(a.float()).all()
+        _assert_grad_close(a, r, dtype, name)
+
+
 # -------------------------------------------------- B8: ablation variants
 
 @pytest.mark.parametrize("variant,tile", [
-    (v, "f128x64") for v in ("base", "noexp", "nosum", "qkonly", "mxonly",
-                             "mxbf16")] + [
-    ("base", t) for t in ("f64x64", "f128x128", "f64x128")])
+    (v, t) for t in ("f128x128", "f128x64", "f64x128", "f64x64")
+    for v in ("base", "noexp", "nosum", "qkonly", "mxonly", "mxbf16")])
 def test_b8_matches_plain(gen, variant, tile):
-    """Every flag variant at the base tile, the base variant at the other
-    tiles, each at its own padding."""
+    """Every flag variant at every tile of the Hopper body, each at its own
+    padding."""
     flags = kablate.VARIANTS[variant]
     q, k, v = (torch.randn((2, 200, 32), generator=gen, device="cuda",
                            dtype=torch.bfloat16) for _ in range(3))

@@ -49,14 +49,15 @@ def test_an_edit_that_does_not_apply_raises():
         ablate_fwd.edited("noexp", "no such body")
 
 
+_HOPPER = ("void (anonymous namespace)::fwd_hopper_kernel<{}, (anonymous "
+           "namespace)::Softmax<0, 7>, 128, 2>(CUtensorMap_st, CUtensorMap_st, "
+           "CUtensorMap_st, (anonymous namespace)::FwdParams)")
+
+
 @pytest.mark.parametrize("name,group", [
-    ("void (anonymous namespace)::fwd_hopper_kernel<32>(CUtensorMap_st, "
-     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::FwdParams)",
-     "flash forward, other head_dim (B1)"),
-    ("void (anonymous namespace)::fwd_hopper_kernel<80>(CUtensorMap_st, "
-     "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::FwdParams)",
-     "flash forward, head_dim 80 (B3 / B5)"),
-    ("void (anonymous namespace)::fwd_bf16_kernel<32, true>("
+    (_HOPPER.format(32), "flash forward, other head_dim (B1)"),
+    (_HOPPER.format(80), "flash forward, head_dim 80 (B3 / B5)"),
+    ("void (anonymous namespace)::fwd_bf16_kernel<256, false>("
      "(anonymous namespace)::FwdParams)", "flash forward, other head_dim (B1)"),
     ("void (anonymous namespace)::bwd_hopper_kernel<80>(CUtensorMap_st)",
      "flash backward, head_dim 80 (B4 / B7)"),
