@@ -74,17 +74,37 @@ Phases, each fatal on failure (no phase's error is caught):
      D 32), then the harness's timings (scripts/kablate.py);
  14. timings of B6 (the decoder's square shape and the shard shape,
      beside the parent's mma.sync body's) and B8 against their bounds,
-     plain versions and SDPA, then one {"kernels": [...]} line with
-     B1-B8.
+     plain versions and SDPA;
+ 15. the vitl_joint_pretrain step at full width (ViT-L/16 MAE, decoder
+     512 x 8 blocks x 16 heads, bf16): the 3D batch 4 x 60x256x256 at
+     mask 0.90 with the in-step pre-mask, the 2D batch 64 x 3x512x512 at
+     mask 0.75 in accum_2d=4 microbatches; three steps (finite, the LR-0
+     first update, 160 B1 + 160 B2 launches each and no other kernel),
+     saved after steps 1 and 2 (async, keep_last=2), restored into a
+     fresh state bit for bit, step 3 from both (loss equal, gradients
+     within the run-to-run limit of B2's dq), delete_recent_checkpoints
+     leaving step 1;
+     the step's time and peak memory beside its bound; the pre-mask on
+     the card against the plain one on the CPU from the same embeddings
+     of volumes with zeroed bands; remat_2d (the 2D batch whole through a
+     remat model2d: 96 B1 launches against 64, a lower peak; at 2 + 2
+     blocks the same loss and gradients within tolerance); cli/export.py
+     of the checkpoint with its geometry stamp, cli/serve.py serving it
+     (head from init, decoder keys unexpected) against vit_st run
+     directly, a num_heads=8 stamp refused; a seeded ViT-L RETFound 2D
+     checkpoint converted and imported into the MAE, one finite joint
+     step from it.  Then one {"kernels": [...]} line with B1-B8.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -161,18 +181,26 @@ def _kernel_args(qkv, num_heads):
     return q, k, v, None, None
 
 
+# (B, n, H, D, q scale) of the vitl_joint_pretrain step's 2D branch, at the
+# microbatch of accum_2d=4 (64 / 4): the encoder at 256 visible patches of
+# a 512x512 image (mask 0.75) + cls, folded; the decoder at 1,024 + cls
+JOINT_2D_CASES = [(16, 257, 16, 64, 1.0), (16, 1025, 16, 32, 1.0)]
+
+
 def check_flash_fwd(torch, fa):
     """Phase 3: B1 against its plain version.  Returns the max |do| at the
     ViT-L shape in bf16."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(4097, 16, 64, 1.0), (4097, 8, 128, 1.0), (1025, 32, 32, 1.0),
-             (513, 4, 256, 1.0), (4000, 16, 64, 1.0),
-             (512, 16, 64, 1.0),  # the MAE encoder's: 511 + cls, no fold
-             (4097, 16, 64, 40.0)]  # q scaled: most logits above the clamp
+    cases = [(1, 4097, 16, 64, 1.0), (1, 4097, 8, 128, 1.0),
+             (1, 1025, 32, 32, 1.0), (1, 513, 4, 256, 1.0),
+             (1, 4000, 16, 64, 1.0),
+             (1, 512, 16, 64, 1.0),  # the MAE encoder's: 511 + cls, no fold
+             (1, 4097, 16, 64, 40.0),  # q scaled: most logits above the clamp
+             *JOINT_2D_CASES]
     vitl_err = None
-    for n, h, d, qmul in cases:
+    for b, n, h, d, qmul in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            qkv = torch.randn((1, n, 3 * h * d), generator=gen, device="cuda")
+            qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda")
             qkv[..., :h * d] *= qmul
             qkv = qkv.to(dtype)
             args = _kernel_args(qkv, h)
@@ -185,15 +213,16 @@ def check_flash_fwd(torch, fa):
             excess = (do - rtol * o_ref.float().abs()).max().item()
             dlse = (lse - lse_ref).abs().max().item()
             clamped = "" if qmul == 1.0 else " large-logit"
-            print(f"B1 n={n} H={h} D={d} {str(dtype)[6:]}{clamped} "
+            print(f"B1 B={b} n={n} H={h} D={d} {str(dtype)[6:]}{clamped} "
                   f"cls={args[3] is not None}: max|do|={do.max().item():.3e} "
                   f"(tol {atol:.1e}+{rtol:.1e}|o|) max|dlse|={dlse:.3e} "
                   f"(tol {TOL_LSE:.0e})")
             if not (excess <= atol and dlse <= TOL_LSE
                     and torch.isfinite(o.float()).all()):
                 raise AssertionError(f"B1 disagrees with its plain version "
-                                     f"at n={n} H={h} D={d} {dtype}")
-            if (n, h, d, qmul, dtype) == (4097, 16, 64, 1.0, torch.bfloat16):
+                                     f"at B={b} n={n} H={h} D={d} {dtype}")
+            if (b, n, h, d, qmul, dtype) == (1, 4097, 16, 64, 1.0,
+                                             torch.bfloat16):
                 vitl_err = do.max().item()
     return vitl_err
 
@@ -296,18 +325,20 @@ def _grads_twice(torch, what, call, ref, dtype):
 
 def check_flash_bwd(torch, fa):
     """Phase 3, B2: against its plain version at B=1 on B1's own (o, lse),
-    with a random dO and g_lse.  (Phase 8 holds it at B=4, as the training
-    step lays it out.)"""
+    with a random dO and g_lse, and at the joint step's 2D shapes at B=16.
+    (Phase 8 holds it at B=4, as the training step lays it out.)"""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [(5121, 16, 32, 1.0), (5121, 4, 128, 1.0),  # the decoder's
-             (512, 16, 64, 1.0),  # the encoder's: 511 + cls, no fold
-             (4000, 16, 64, 1.0), (1025, 8, 128, 1.0), (513, 4, 256, 1.0),
-             (1025, 8, 128, 40.0),  # q scaled: most logits above the clamp
+    cases = [(1, 5121, 16, 32, 1.0), (1, 5121, 4, 128, 1.0),  # the decoder's
+             (1, 512, 16, 64, 1.0),  # the encoder's: 511 + cls, no fold
+             (1, 4000, 16, 64, 1.0), (1, 1025, 8, 128, 1.0),
+             (1, 513, 4, 256, 1.0),
+             (1, 1025, 8, 128, 40.0),  # q scaled: most logits above the clamp
              # ragged: rows and keys not multiples of the one pass's tiles
-             (700, 8, 32, 1.0), (333, 4, 64, 1.0), (901, 2, 128, 1.0)]
-    for n, h, d, qmul in cases:
+             (1, 700, 8, 32, 1.0), (1, 333, 4, 64, 1.0), (1, 901, 2, 128, 1.0),
+             *JOINT_2D_CASES]
+    for b, n, h, d, qmul in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            qkv = torch.randn((1, n, 3 * h * d), generator=gen, device="cuda")
+            qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda")
             qkv[..., :h * d] *= qmul
             qkv = qkv.to(dtype)
             args = _kernel_args(qkv, h)
@@ -317,8 +348,8 @@ def check_flash_bwd(torch, fa):
             g_lse = 0.1 * torch.randn(lse.shape, generator=gen, device="cuda")
             ref = fa.bwd_packed_plain(*args, o, lse, do, g_lse, h, scale)
             clamped = "" if qmul == 1.0 else " large-logit"
-            _grads_twice(torch, f"B2 n={n} H={h} D={d} {str(dtype)[6:]}"
-                         f"{clamped} cls={args[3] is not None}",
+            _grads_twice(torch, f"B2 B={b} n={n} H={h} D={d} "
+                         f"{str(dtype)[6:]}{clamped} cls={args[3] is not None}",
                          lambda: fa.bwd_packed_cuda(*args, o, lse, do, g_lse,
                                                     h, scale), ref, dtype)
             del qkv, o, lse, do, ref
@@ -1416,6 +1447,417 @@ def time_b8(torch, _cuda, kablate, rate):
     return dict(row, launches=launches)
 
 
+# ----------------------------------- phase 15: the joint step, checkpoints
+
+JOINT_B1_B2 = {"flash_fwd_packed": 160, "flash_bwd_packed": 160}
+# the blank-region pre-mask on the card against its plain version on the
+# CPU: equal per-frame counts, and a patch may differ only in a swap with
+# one of its frame whose score is within this of its own (fp32 sums of
+# 256 cosines in another order: a few ulps of 1)
+PREMASK_EPS = 1e-6
+
+
+def joint_flops(batch=4, batch2d=64) -> float:
+    """Analytic FLOPs of one vitl_joint_pretrain step: the 3D batch at mask
+    0.90 and the 2D batch (one tube of 3 frames at 512: 1,024 tokens) at
+    mask 0.75, each fwd + bwd = 3 x fwd."""
+    return (batch * mae_train_flops()
+            + batch2d * mae_train_flops(frames=3, img=512, mask=0.75))
+
+
+def _leaf_grads(model):
+    return {n: p.grad.clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+# two flash runs of one bf16 model, per leaf max|dg| / max|g|: B2 sums dq
+# in varying order, and its one-ulp differences in bf16 pass through every
+# block below.  Held to B2's own bf16 limit; measured on an H100 at 700 W:
+# 5.4e-3 and 5.2e-3 (full depth, step 3 resumed vs live) and 5.8e-3
+# (2 + 2 blocks, remat vs not), 0.67-0.75 of it.
+TOL_RUN_TO_RUN = TOL_GRAD["bfloat16"]
+
+
+def _grads_agree(what, got, ref):
+    """Per leaf |dg| <= TOL_RUN_TO_RUN * max|g| -> the worst ratio."""
+    tol = TOL_RUN_TO_RUN
+    if set(got) != set(ref):
+        raise AssertionError(f"{what}: different leaves have gradients")
+    worst, leaf = max(((got[n] - ref[n]).abs().max().item()
+                       / max(ref[n].abs().max().item(), 1e-30), n)
+                      for n in ref)
+    print(f"{what}: worst leaf {leaf} rel {worst:.3e} (tol {tol:.1e})")
+    if not worst <= tol:
+        raise AssertionError(f"{what}: gradients disagree")
+    return worst
+
+
+def _joint_step(torch, _cuda, step, state, x, what):
+    """One vitl_joint_pretrain step: finite, 160 B1 + 160 B2 launches and
+    no other kernel."""
+    _cuda.reset_launches()
+    state, m = step(state, x, mask_ratio=0.9)
+    torch.cuda.synchronize()
+    launches = _nonzero(_cuda.launches)
+    loss, gn = m["loss"].item(), m["grad_norm"].item()
+    print(f"{what}: loss {loss:.6f} (3D {m['loss_3d'].item():.6f}, 2D "
+          f"{m['loss_2d'].item():.6f}) grad_norm {gn:.6f} launches "
+          f"{launches}")
+    if not (math.isfinite(loss) and math.isfinite(gn)):
+        raise AssertionError(f"{what}: non-finite loss or grad norm")
+    if launches != JOINT_B1_B2:
+        raise AssertionError(f"{what}: expected {JOINT_B1_B2} and no other "
+                             f"kernel, got {launches}")
+    return state, m
+
+
+def time_joint(torch, step, state, x, smi, what):
+    """The step's time, and its peak: the state held and three steps on
+    it, the peak counter reset just before."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _elapsed_ms(lambda: step(state, x, mask_ratio=0.9), 2, 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = joint_flops()
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    print(f"{what} (3D 4x60x256x256 mask 0.90 + 2D 64x3x512x512 mask 0.75, "
+          f"bf16) on {smi}: {ms:.3f} ms per step; bound {bound:.3f} ms "
+          f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
+          f"max_memory_allocated {peak:.2f} GiB")
+    return ms, peak
+
+
+def run_remat_2d(torch, _cuda, entry_mod, smi):
+    """15.2: the 2D branch whole (accum_2d=1) through a remat model2d, and
+    without; then remat on and off at 2 + 2 blocks."""
+    peaks = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, state, x = entry_mod.train_entry(
+            joint=True, batch=4, batch2d=64, accum_2d=1, use_premask=True,
+            remat_2d=remat)
+        _cuda.reset_launches()
+        state, m = step(state, x, mask_ratio=0.9)
+        torch.cuda.synchronize()
+        launches = _nonzero(_cuda.launches)
+        want = {"flash_fwd_packed": 96 if remat else 64,
+                "flash_bwd_packed": 64}
+        print(f"remat_2d={remat} accum_2d=1: loss {m['loss'].item():.6f} "
+              f"launches {launches}")
+        if launches != want or not math.isfinite(m["loss"].item()):
+            raise AssertionError(f"expected {want} and a finite loss, got "
+                                 f"{launches}, {m['loss'].item()}")
+        _, peaks[remat] = time_joint(torch, step, state, x, smi,
+                                     f"remat_2d={remat} step")
+        del step, state, x, m
+    if not peaks[True] < peaks[False]:
+        raise AssertionError(f"remat peak {peaks[True]:.2f} GiB is not below "
+                             f"{peaks[False]:.2f} GiB")
+    res = {}
+    for remat in (True, False):
+        step, state, x = entry_mod.train_entry(
+            joint=True, batch=4, batch2d=64, accum_2d=1, use_premask=True,
+            remat_2d=remat, depth=2, decoder_depth=2)
+        state, m = step(state, x, mask_ratio=0.9)
+        res[remat] = (m["loss"].item(), _leaf_grads(state.params))
+        del step, state, x
+    print(f"remat_2d 2+2 blocks: loss {res[True][0]!r} vs {res[False][0]!r}")
+    if res[True][0] != res[False][0]:
+        raise AssertionError("remat changed the joint loss")
+    _grads_agree("remat_2d on vs off, 2+2 blocks", res[True][1], res[False][1])
+    torch.cuda.empty_cache()
+    return peaks
+
+
+def check_premask(torch, model, x):
+    """15.3: the pre-mask on the card against the plain function on the
+    CPU, from the same embeddings, on volumes with zeroed bands."""
+    from octcubem_tpu_torch.data.premask import compute_premask, premask_scores
+
+    bias = model.patch_embed.proj.bias.detach()
+    if not bias.abs().max().item() > 0:
+        raise AssertionError("a zero patch bias embeds blank patches as 0")
+    xb = x.clone()
+    xb[:, :, 96:160] = 0.0  # patch rows 6-9 of 16, every frame
+    with torch.no_grad():
+        feat = model.forward_patch_embed(xb)
+    got = compute_premask(feat, model.t_grid, model.grid).cpu()
+    host = feat.cpu()
+    ref = compute_premask(host, model.t_grid, model.grid)
+    score = premask_scores(host, model.t_grid, model.grid)
+    b, t, l = score.shape
+    g, r = got.reshape(b, t, l), ref.reshape(b, t, l)
+    if not torch.equal(g.sum(-1), r.sum(-1)):
+        raise AssertionError("pre-mask per-frame counts differ")
+    ndiff, worst = int((g != r).sum().item()), 0.0
+    for bi, ti in zip(*torch.nonzero((g != r).any(-1), as_tuple=True)):
+        s = score[bi, ti]
+        a = torch.sort(s[g[bi, ti] > r[bi, ti]]).values
+        c = torch.sort(s[r[bi, ti] > g[bi, ti]]).values
+        worst = max(worst, (a - c).abs().max().item())
+    band = g.reshape(b, t, 16, 16)[:, :, 6:10]
+    print(f"pre-mask card vs CPU: {ndiff} patches differ (worst swap "
+          f"{worst:.3e}, eps {PREMASK_EPS:.0e}); masked per frame "
+          f"{int(g[0, 0].sum())} of {l}; zeroed-band patches masked "
+          f"{int(band.sum())} of {band.numel()}")
+    if worst > PREMASK_EPS or not bool(band.all()):
+        raise AssertionError("the card's pre-mask breaks the rule")
+
+
+def _state_equal(torch, a, b):
+    pa, pb = a.params.state_dict(), b.params.state_dict()
+    return (a.step == b.step and a.tx.count == b.tx.count
+            and all(torch.equal(pa[k], pb[k]) for k in pa)
+            and all(u.dtype == v.dtype and torch.equal(u, v) for u, v in
+                    zip(a.tx.mu + a.tx.nu, b.tx.mu + b.tx.nu))
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def run_joint_and_resume(torch, _cuda, entry_mod, optim, ckpt, run_dir,
+                         smi):
+    """15.1 and 15.4: three joint steps at full width, saved after steps 1
+    and 2 (async, keep_last=2), restored into a fresh state, step 3 taken
+    from both; the NaN cleanup; the step's time.  -> (ms, peak, model, x)."""
+    ck_dir = str(Path(run_dir) / "ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    step, state, x = entry_mod.train_entry(joint=True, batch=4, batch2d=64,
+                                           accum_2d=4, use_premask=True)
+    model = state.params
+    names = [n for n, _ in model.named_parameters()]
+    before = [p.detach().clone() for p in model.parameters()]
+    if state.tx.lr(0) != 0.0:
+        raise AssertionError(f"the schedule's first LR is {state.tx.lr(0)}")
+    state, _ = _joint_step(torch, _cuda, step, state, x, "joint step 1")
+    if not all(torch.equal(a, p) for a, p in zip(before, model.parameters())):
+        raise AssertionError("params moved at the first update, whose LR "
+                             "is 0")
+    ckpt.save_checkpoint(ck_dir, state.step, state)
+    state, _ = _joint_step(torch, _cuda, step, state, x, "joint step 2")
+    t0 = time.time()
+    ckpt.save_checkpoint(ck_dir, state.step, state, {"epoch": state.step},
+                         keep_last=2, async_save=True)
+    staged = time.time() - t0
+    ckpt.wait_for_saves(ck_dir)
+    print(f"checkpoint of step {state.step}: staged in {staged:.1f} s, on "
+          f"disk after {time.time() - t0:.1f} s; steps "
+          f"{sorted(os.listdir(ck_dir))}")
+    fstep, fresh, fx = entry_mod.train_entry(joint=True, batch=4, batch2d=64,
+                                             accum_2d=4, use_premask=True)
+    if _state_equal(torch, fresh, state):
+        raise AssertionError("the fresh state already equals the live one")
+    restored, extra, at = ckpt.restore_checkpoint(ck_dir, fresh)
+    if not (at == 2 and extra == {"epoch": 2}
+            and _state_equal(torch, restored, state)):
+        raise AssertionError("the restored state differs from the live one")
+    print(f"restore of step {at}: params, mu, nu, count, step and generator "
+          "bit-identical to the live state")
+    state, m = _joint_step(torch, _cuda, step, state, x, "joint step 3")
+    fresh, fm = _joint_step(torch, _cuda, fstep, fresh, fx,
+                            "joint step 3 from the restored state")
+    if m["loss"].item() != fm["loss"].item():
+        raise AssertionError("the resumed step's loss differs")
+    _grads_agree("step 3 resumed vs live", _leaf_grads(fresh.params),
+                 _leaf_grads(state.params))
+    del fstep, fresh, fx, restored
+    deleted = ckpt.delete_recent_checkpoints(ck_dir, 1)
+    left = ckpt.latest_step(ck_dir)
+    print(f"delete_recent_checkpoints(1): deleted {deleted}, latest {left}")
+    if deleted != [2] or left != 1:
+        raise AssertionError("the NaN cleanup did not leave the older step")
+    decayed = optim.weight_decay_mask(model)
+    free = {n for n, p in model.named_parameters()
+            if p.grad is None and not decayed[n]}
+    still = {n for n, a, p in zip(names, before, model.parameters())
+             if torch.equal(a, p)}
+    print(f"joint: {len(names) - len(still)} of {len(names)} params moved by "
+          f"steps 2-3; unmoved {sorted(still)}")
+    if still - free:
+        raise AssertionError(f"params did not move: {sorted(still - free)}")
+    del before
+    torch.cuda.empty_cache()
+    ms, peak = time_joint(torch, step, state, x, smi,
+                          "vitl_joint_pretrain step (accum_2d=4)")
+    return ms, peak, model, x
+
+
+def run_export_and_serve(torch, _cuda, run_dir):
+    """15.5: cli/export.py writes the checkpoint's MAE with its stamp;
+    cli/serve.py serves it (head from init, decoder keys unexpected) and
+    agrees with vit_st run directly; a num_heads=8 stamp is refused."""
+    import numpy as np
+
+    from octcubem_tpu_torch.cli import export, serve
+    from octcubem_tpu_torch.compat import torch_export, torch_import
+    from octcubem_tpu_torch.data.transforms import Transform3D
+    from octcubem_tpu_torch.models import vit_st
+
+    pth = str(Path(run_dir) / "octcube_export.pth")
+    export.main(["--ckpt", run_dir, "--out", pth])
+    stamp = torch.load(pth, map_location="cpu", weights_only=True,
+                       mmap=True)["octcubem_tpu_geometry"]
+    print(f"export stamp {stamp}")
+    if stamp.get("num_heads") != 16:
+        raise AssertionError("the export carries no head-count stamp")
+    started, box, errors = threading.Event(), [], []
+
+    def run():
+        try:
+            serve.main(["--port", "0", "--seed", "0", "--ckpt", pth],
+                       started, box)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+            started.set()
+
+    _cuda.reset_launches()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    if not started.wait(timeout=600):
+        raise AssertionError("server did not start")
+    if errors:
+        raise errors[0]
+    httpd = box[0]
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rng = np.random.default_rng(15)
+    vols = [rng.random((48, 256, 256), dtype=np.float32) for _ in range(3)]
+    raw = (rng.random((40, 200, 300)) * 255).astype(np.float32)
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read().decode())
+        report = health["import"]
+        print(f"serve /healthz of the export: missing {report['missing']}, "
+              f"{len(report['unexpected'])} unexpected keys")
+        if (report["missing"] != ["head.weight", "head.bias"]
+                or not all(k.startswith(("decoder_", "mask_token",
+                                         "high_res_patch_embed."))
+                           for k in report["unexpected"])
+                or not any(k.startswith("decoder_blocks.")
+                           for k in report["unexpected"])):
+            raise AssertionError(f"unexpected import report {report}")
+        answers = [_post_npy(base + "/predict?raw=0", v) for v in vols]
+        answers.append(_post_npy(base + "/predict", raw))
+    finally:
+        httpd.shutdown()
+        th.join(timeout=60)
+    launches = _nonzero(_cuda.launches)
+    if launches != {"flash_fwd_packed": 24 * 5}:
+        raise AssertionError(f"expected 120 B1 launches, got {launches}")
+    model = vit_st.create_model(
+        vit_st.VisionTransformerST, seed=0, num_frames=48, t_patch_size=3,
+        img_size=256, in_chans=1, num_classes=16, head_type="dropout",
+        global_pool=True, dtype=torch.bfloat16)
+    torch_import.load_reference_weights(
+        model, torch_import.load_torch_checkpoint(pth), strict=False)
+    worst = 0.0
+    inputs = vols + [Transform3D(256, 48)(raw) / 255.0]
+    for (code, out), v in zip(answers, inputs):
+        with torch.inference_mode():
+            logits = model(torch.from_numpy(v[None, ..., None]).to(
+                model.head.weight.device))
+        lg = logits.float().cpu().numpy().reshape(1, -1, 2)
+        e = np.exp(lg - lg.max(-1, keepdims=True))
+        probs = (e / e.sum(-1, keepdims=True))[:, :, 1]
+        got = np.asarray(out.get("probs", [[np.nan]]), np.float64)
+        if code != 200 or got.shape != probs.shape:
+            raise AssertionError(f"bad predict answer {code} {out}")
+        worst = max(worst, float(np.abs(got - probs).max()))
+    print(f"served export vs vit_st run directly: max|dprobs| {worst:.3e} "
+          "(tol 1e-6)")
+    if not worst <= 1e-6:
+        raise AssertionError("the server and the direct model disagree")
+    bad = str(Path(run_dir) / "stamped_8.pth")
+    torch_export.save_torch_checkpoint(
+        bad, {}, extra={"octcubem_tpu_geometry": {"num_heads": 8}})
+    _cuda.reset_launches()
+    try:
+        serve.build_predictor(argparse.Namespace(
+            aot=None, quant="none", ckpt=bad, device=None, seed=0,
+            num_frames=48, input_size=256, nb_classes=16, precision="bf16",
+            embed_dim=None, depth=None, num_heads=None))
+    except SystemExit as e:
+        print(f"num_heads=8 stamp refused: {str(e)[:100]}...")
+    else:
+        raise AssertionError("a num_heads=8 stamp was served at 16 heads")
+    if _nonzero(_cuda.launches):
+        raise AssertionError("the refused file reached a forward")
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_retfound_init(torch, entry_mod, run_dir):
+    """15.6: a seeded RETFound-layout 2D checkpoint of the MAE's encoder
+    (ViT-L: fused attn.qkv, a 14 x 14 flat pos embed with its cls row, a
+    Conv2d patch embed), converted and imported into the MAE; one joint
+    step from it is finite."""
+    from octcubem_tpu_torch.compat import torch_export, torch_import
+
+    step, state, x = entry_mod.train_entry(joint=True, batch=4, batch2d=64,
+                                           accum_2d=4, use_premask=True)
+    model = state.params
+    d, dev = model.embed_dim, model.cls_token.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def r(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).cpu()
+
+    sd = {"cls_token": r(1, 1, d), "pos_embed": r(1, 1 + 14 * 14, d),
+          "patch_embed.proj.weight": r(d, 1, 16, 16),
+          "patch_embed.proj.bias": r(d), "norm.weight": 1 + r(d),
+          "norm.bias": r(d)}
+    for i in range(len(model.blocks)):
+        p = f"blocks.{i}."
+        sd.update({p + "norm1.weight": 1 + r(d), p + "norm1.bias": r(d),
+                   p + "attn.qkv.weight": r(3 * d, d),
+                   p + "attn.qkv.bias": r(3 * d),
+                   p + "attn.proj.weight": r(d, d), p + "attn.proj.bias": r(d),
+                   p + "norm2.weight": 1 + r(d), p + "norm2.bias": r(d),
+                   p + "mlp.fc1.weight": r(4 * d, d),
+                   p + "mlp.fc1.bias": r(4 * d),
+                   p + "mlp.fc2.weight": r(d, 4 * d), p + "mlp.fc2.bias": r(d)})
+    path = str(Path(run_dir) / "RETFound_oct_weights.pth")
+    torch_export.save_torch_checkpoint(path, sd)
+    del sd
+    conv = torch_import.convert_retfound_2d_state_dict(
+        torch_import.load_torch_checkpoint(path), t_patch_size=3,
+        target_grid=model.high_res_grid)
+    report = torch_import.load_reference_weights(model, conv)
+    print(f"RETFound 2D init ({len(model.blocks)} blocks of {d}): "
+          f"{len(conv)} keys imported, {len(report['missing'])} missing "
+          f"(kept from init), {len(report['unexpected'])} unexpected")
+    if not (torch.equal(model.blocks[0].mixer.Wqkv.weight.detach().cpu(),
+                        torch.from_numpy(conv["blocks.0.attn.qkv.weight"]))
+            and "pos_embed_temporal" in report["missing"]):
+        raise AssertionError("the RETFound weights did not land")
+    state, m = step(state, x, mask_ratio=0.9)
+    loss = m["loss"].item()
+    print(f"joint step from the RETFound init: loss {loss:.6f} grad_norm "
+          f"{m['grad_norm'].item():.6f}")
+    if not (math.isfinite(loss) and math.isfinite(m["grad_norm"].item())):
+        raise AssertionError("non-finite joint step from the RETFound init")
+    del step, state, x, model
+    torch.cuda.empty_cache()
+
+
+def run_phase15(torch, _cuda, entry_mod, optim, smi):
+    """Phase 15 -> (the joint step's ms and peak GiB, remat_2d's peaks)."""
+    from octcubem_tpu_torch.core import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        with open(Path(run_dir) / "args.json", "w") as f:
+            json.dump({"model": "mae_vit_large_patch16", "num_heads": 16,
+                       "decoder_num_heads": 16, "num_frames": 60,
+                       "t_patch_size": 3, "input_size": 256}, f)
+        ms, peak, model, x = run_joint_and_resume(
+            torch, _cuda, entry_mod, optim, ckpt, run_dir, smi)
+        check_premask(torch, model, x)
+        del model, x
+        torch.cuda.empty_cache()
+        peaks = run_remat_2d(torch, _cuda, entry_mod, smi)
+        run_export_and_serve(torch, _cuda, run_dir)
+        run_retfound_init(torch, entry_mod, run_dir)
+    return ms, peak, peaks
+
+
 def main() -> int:
     import torch
 
@@ -1524,6 +1966,8 @@ def main() -> int:
     phase_done("13: B8 and the ablation harness")
     timing_b6 = time_b6(torch, fa, rate)
     phase_done("14: B6 timings")
+    run_phase15(torch, _cuda, entry_mod, optim, smi)
+    phase_done("15: the joint step, remat_2d, pre-mask, resume, export")
 
     kernels = [{
         "name": "flash_fwd_packed", "route": "cuda",

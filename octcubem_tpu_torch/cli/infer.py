@@ -20,20 +20,34 @@ DISEASES = ["Normal", "DME", "AMD", "POAG", "EPM", "DR", "VD", "RAO\\RVO", "RNV"
 
 
 def build_model(args, device):
-    from ..compat.torch_import import load_torch_checkpoint
+    """The classifier with seeded weights and, from ``--ckpt``, the JAX
+    CLI's import: the geometry stamp checked first, params the file lacks
+    kept from the init with a warning that names them, keys with no slot
+    an error."""
+    from ..compat.torch_import import (check_geometry_stamp,
+                                       load_reference_weights,
+                                       load_torch_checkpoint)
     from ..core.precision import policy_from_name
     from ..models import vit_st
 
-    sd = load_torch_checkpoint(args.ckpt) if args.ckpt else None
+    if args.ckpt:
+        check_geometry_stamp(args.ckpt, args.num_heads)
     model = vit_st.create_model(
         vit_st.flash_attn_vit_large_patch16, device=device, seed=args.seed,
-        state_dict=sd, num_frames=args.num_frames,
+        num_frames=args.num_frames,
         t_patch_size=args.t_patch_size, img_size=args.input_size,
         in_chans=1, num_classes=args.nb_classes, num_heads=args.num_heads,
         head_type="dropout", global_pool=True, sep_pos_embed=True,
         cls_embed=True, dtype=policy_from_name(args.precision).compute_dtype)
-    print(f"Load checkpoint {args.ckpt}" if args.ckpt
-          else "No checkpoint for loading")
+    if args.ckpt:
+        report = load_reference_weights(
+            model, load_torch_checkpoint(args.ckpt), strict=True)
+        if report["missing"]:
+            print(f"warning: missing params filled from init: "
+                  f"{report['missing']}")
+        print(f"Load checkpoint {args.ckpt}")
+    else:
+        print("No checkpoint for loading")
     return model
 
 
@@ -72,8 +86,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser("OCTCube single-volume inference (PyTorch)")
     parser.add_argument("volume", help=".npy OCT volume [T, H, W]")
     parser.add_argument("--ckpt", default=None,
-                        help="flash-layout .pth; seeded random weights "
-                             "when absent")
+                        help="reference .pth (any layout the importer "
+                             "reads); seeded random weights when absent")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--t_patch_size", type=int, default=3)
     parser.add_argument("--num_frames", type=int, default=48)

@@ -13,10 +13,12 @@ Endpoints:
                    "latency_ms": ...}
 
 Requests run one at a time at batch 1 behind a lock; the model is built
-from ``--ckpt`` (flash layout) or seeded random weights, on the card
-unless ``--device cpu``, and warmed before the port opens.  Frozen
-artifacts (``--aot``) and int8 (``--quant int8``) are not ported yet
-(ROADMAP A10).
+with seeded random weights and, from ``--ckpt``, the JAX server's import
+(the geometry stamp checked first, ``strict=False``: params the file
+lacks keep the init, keys with no slot are dropped; /healthz lists both
+under "import"), on the card unless ``--device cpu``, and warmed before
+the port opens.  Frozen artifacts (``--aot``) and int8 (``--quant
+int8``) are not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -42,7 +44,9 @@ MAX_BODY_BYTES = 512 * 1024 * 1024
 
 def build_predictor(args):
     """Returns (predict(vol_f32[B, T, H, W, 1]) -> logits, meta dict)."""
-    from ..compat.torch_import import load_torch_checkpoint
+    from ..compat.torch_import import (check_geometry_stamp,
+                                       load_reference_weights,
+                                       load_torch_checkpoint)
     from ..core.device import resolve_device
     from ..core.precision import policy_from_name
     from ..models.vit_st import VisionTransformerST, create_model
@@ -53,15 +57,20 @@ def build_predictor(args):
     if args.quant == "int8":
         raise NotImplementedError(
             "--quant int8 is not ported yet (ROADMAP A10)")
+    if args.ckpt:
+        check_geometry_stamp(args.ckpt, args.num_heads or 16)
     device = resolve_device(args.device)
-    sd = load_torch_checkpoint(args.ckpt) if args.ckpt else None
     model = create_model(
-        VisionTransformerST, device=device, seed=args.seed, state_dict=sd,
+        VisionTransformerST, device=device, seed=args.seed,
         num_frames=args.num_frames, t_patch_size=3, img_size=args.input_size,
         in_chans=1, num_classes=args.nb_classes,
         embed_dim=args.embed_dim or 1024, depth=args.depth or 24,
         num_heads=args.num_heads or 16, head_type="dropout", global_pool=True,
         dtype=policy_from_name(args.precision).compute_dtype)
+    report = {"missing": [], "unexpected": []}
+    if args.ckpt:
+        report = load_reference_weights(
+            model, load_torch_checkpoint(args.ckpt), strict=False)
 
     def predict(x: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
@@ -72,7 +81,7 @@ def build_predictor(args):
                      "num_frames": args.num_frames,
                      "input_size": args.input_size,
                      "nb_classes": args.nb_classes, "quant": args.quant,
-                     "device": str(device)}
+                     "device": str(device), "import": report}
 
 
 def make_handler(predict, meta, val_transform, lock):
@@ -159,8 +168,8 @@ def main(argv=None, started_event=None, server_box=None):
     parser.add_argument("--aot", default=None,
                         help="frozen serving artifact (not ported yet)")
     parser.add_argument("--ckpt", default=None,
-                        help="flash-layout .pth; seeded random weights "
-                             "when absent")
+                        help="reference .pth (any layout the importer "
+                             "reads); seeded random weights when absent")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8476)

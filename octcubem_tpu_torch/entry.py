@@ -5,6 +5,8 @@ the registry: ViT-L/16 by default, ViT-H/14 through ``ctor``."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .models import mae3d, vit_st
@@ -40,6 +42,8 @@ def entry(device=None, ctor=vit_st.flash_attn_vit_large_patch16,
 
 def train_entry(device=None, dec_heads: int = 16, batch: int = 4,
                 ctor=mae3d.mae_vit_large_patch16, input_size: int = 256,
+                joint: bool = False, batch2d: int = 64, accum_2d: int = 1,
+                use_premask: bool = False, remat_2d: bool = False,
                 **model_kw):
     """-> (step, state, x): ``step(state, x, mask_ratio=0.9)`` is one MAE
     pretraining step (forward, backward, fused AdamW) of ``ctor``'s 3D MAE
@@ -52,8 +56,16 @@ def train_entry(device=None, dec_heads: int = 16, batch: int = 4,
     0.95), weight decay 0.05, LR warmup_half_cosine(1.6e-3, 0, 1, 50,
     1000).  x is ``batch`` seeded-normal 60 x ``input_size`` x
     ``input_size`` volumes; weights are seeded random.  ``model_kw``
-    overrides model arguments (e.g. depth).  Runs on the card unless
-    ``device="cpu"``."""
+    overrides model arguments (e.g. depth, decoder_depth).
+
+    ``joint=True`` is the ``vitl_joint_pretrain`` step: each step adds the
+    MAE loss of ``batch2d`` seeded-normal 2D images (3 frames, one tube,
+    at twice ``input_size``: 1,024 tokens each at 512 and patch 16) at
+    mask 0.75, bound into the returned step (its ``batch2d`` keyword),
+    laid out [accum_2d, batch2d / accum_2d, ...] when ``accum_2d`` > 1;
+    ``use_premask`` computes the blank-region pre-mask in the step;
+    ``remat_2d`` runs the 2D branch through ``model.with_remat()``.  Runs
+    on the card unless ``device="cpu"``."""
     kw = dict(decoder_embed_dim=512, decoder_depth=8, num_frames=60,
               t_patch_size=3, pred_t_dim=60, input_size=input_size,
               high_res_input_size=2 * input_size, in_chans=1,
@@ -62,10 +74,23 @@ def train_entry(device=None, dec_heads: int = 16, batch: int = 4,
     kw.update(model_kw)
     model = mae3d.create_model(ctor, device=device, seed=1, **kw)
     dev = model.cls_token.device
+    gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((batch, kw["num_frames"], input_size, input_size, 1),
-                    generator=torch.Generator(device=dev).manual_seed(0),
-                    device=dev)
+                    generator=gen, device=dev)
     sched = schedules.warmup_half_cosine(1.6e-3, 0.0, 1, 50, 1000)
     tx = optim.build_adamw(model, sched, weight_decay=0.05)
     state = TrainState.create(model, tx, seed=2)
-    return mae_engine.make_mae_train_step(model, tx), state, x
+    step = mae_engine.make_mae_train_step(
+        model, tx, joint=joint, use_premask=use_premask, accum_2d=accum_2d,
+        model2d=model.with_remat() if remat_2d else None)
+    if joint:
+        if batch2d % accum_2d:
+            raise ValueError(f"batch2d {batch2d} is not a multiple of "
+                             f"accum_2d {accum_2d}")
+        size = kw["high_res_input_size"]
+        shape = (batch2d, kw["t_patch_size"], size, size, 1)
+        if accum_2d > 1:
+            shape = (accum_2d, batch2d // accum_2d) + shape[1:]
+        x2 = torch.randn(shape, generator=gen, device=dev)
+        step = functools.partial(step, batch2d=x2, mask_ratio_2d=0.75)
+    return step, state, x

@@ -18,14 +18,20 @@ Every branch of the JAX module:
 - the flash-attn final feature (no last residual add) on both stacks.
 
 The masking noise is an argument (``noise`` [B, L]), drawn by the caller
-from a ``torch.Generator``.  Parameter names are the reference ones, as
+from a ``torch.Generator``.  ``remat`` / ``remat_norm`` checkpoint each
+stack's blocks / LayerNorms (nn/layers.py); ``with_remat`` gives a second
+module over the same parameter objects whose stacks rematerialise (the
+JAX package's ``model2d``: the same params applied through a remat
+graph).  Parameter names are the reference ones, as
 ``compat.jax_params.state_dict_from_jax`` writes them, so a JAX MAE
-loads with ``load_state_dict(strict=True)``.  Input [B, T, H, W, C]
+loads with ``load_state_dict(strict=True)``; other reference layouts go
+through ``compat.torch_import``.  Input [B, T, H, W, C]
 channel-last, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import math
 
@@ -33,7 +39,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.device import resolve_device
 from ..nn.layers import Dense, LayerNorm, TransformerStack
 from ..nn.patch_embed import PatchEmbed3D
 from ..ops.masking import gather_tokens, random_masking
@@ -67,8 +72,6 @@ class MaskedAutoencoderViT3D(nn.Module):
                  attn_impl: str = "auto", remat: bool = False,
                  remat_norm: bool = False):
         super().__init__()
-        if remat or remat_norm:
-            raise NotImplementedError("remat is not ported yet (ROADMAP A4)")
         if not sep_pos_embed:
             raise ValueError("the joint-res MAE needs sep_pos_embed")
         self.input_size, self.high_res_input_size = input_size, high_res_input_size
@@ -99,13 +102,15 @@ class MaskedAutoencoderViT3D(nn.Module):
 
         self.blocks = TransformerStack(
             depth, d, num_heads, mlp_ratio, qkv_bias, drop_path_rate,
-            dtype=dtype, attn_impl=attn_impl, parity=parity)
+            dtype=dtype, attn_impl=attn_impl, parity=parity, remat=remat,
+            remat_norm=remat_norm)
         self.norm = LayerNorm(d)
         self.decoder_embed = Dense(d, dd, compute_dtype=dtype)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, dd))
         self.decoder_blocks = TransformerStack(
             decoder_depth, dd, decoder_num_heads, mlp_ratio, qkv_bias,
-            drop_path_rate, dtype=dtype, attn_impl=attn_impl, parity=parity)
+            drop_path_rate, dtype=dtype, attn_impl=attn_impl, parity=parity,
+            remat=remat, remat_norm=remat_norm)
         self.decoder_norm = LayerNorm(dd)
         self.decoder_pred = Dense(
             dd, self.t_pred_patch_size * patch_size ** 2 * in_chans,
@@ -131,6 +136,19 @@ class MaskedAutoencoderViT3D(nn.Module):
         """Tube tokens L of an input (the length of its masking noise)."""
         return ((imgs.shape[1] // self.t_patch_size)
                 * (imgs.shape[2] // self.patch_size) ** 2)
+
+    def with_remat(self) -> "MaskedAutoencoderViT3D":
+        """A module over this one's parameter objects (the same blocks,
+        embeds and norms) whose two stacks rematerialise.  Its
+        ``parameters()`` are this module's, in the same order."""
+        twin = copy.copy(self)
+        twin._modules = dict(self._modules)
+        for name in ("blocks", "decoder_blocks"):
+            stack = copy.copy(getattr(self, name))
+            stack._modules = dict(stack._modules)
+            stack.remat = True
+            twin._modules[name] = stack
+        return twin
 
     # -------------------------------------------------------------- helpers
 
@@ -342,16 +360,10 @@ def init_params(model: MaskedAutoencoderViT3D, generator: torch.Generator):
 def create_model(ctor=flash_attn_mae_vit_large_patch16, device=None,
                  seed: int = 0, state_dict=None,
                  **kw) -> MaskedAutoencoderViT3D:
-    """Build ``ctor(**kw)`` on ``device`` (default cuda) in training mode,
-    with ``state_dict`` loaded strictly or, when None, seeded random
-    weights (built on the meta device first, so no throw-away default
-    initialisation runs)."""
-    dev = resolve_device(device)
-    with torch.device("meta"):
-        model = ctor(**kw)
-    model.to_empty(device=dev)
-    if state_dict is None:
-        init_params(model, torch.Generator(device=dev).manual_seed(seed))
-    else:
-        model.load_state_dict(state_dict, strict=True)
-    return model.train()
+    """Build ``ctor(**kw)`` on ``device`` (default cuda) in training mode
+    with seeded random weights, then import ``state_dict`` over them
+    (``compat.torch_import.build_model``)."""
+    from ..compat.torch_import import build_model
+
+    return build_model(ctor, init_params, device, seed, state_dict,
+                       **kw).train()

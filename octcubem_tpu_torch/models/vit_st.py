@@ -20,7 +20,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.device import resolve_device
 from ..nn.layers import Dense, LayerNorm, TransformerStack, dropout
 from ..nn.patch_embed import PatchEmbed3D
 from ..ops.resize import resize_grid_bicubic
@@ -45,7 +44,6 @@ class VisionTransformerST(nn.Module):
         super().__init__()
         for flag, item, what in (
                 (capture_cam, "A10", "capture_cam (saliency)"),
-                (remat, "A4", "remat"),
                 (quant, "A10", "quant (int8 serving)")):
             if flag:
                 raise NotImplementedError(
@@ -86,7 +84,7 @@ class VisionTransformerST(nn.Module):
             self.pos_embed = nn.Parameter(torch.zeros(1, n, embed_dim))
         self.blocks = TransformerStack(
             depth, embed_dim, num_heads, mlp_ratio, qkv_bias, drop_path_rate,
-            dtype=dtype, attn_impl=attn_impl, parity=parity)
+            dtype=dtype, attn_impl=attn_impl, parity=parity, remat=remat)
         self.norm = LayerNorm(embed_dim)
         if head_type == "aggregate":
             self.fc_aggregate_cls = Dense(embed_dim, embed_dim,
@@ -215,16 +213,12 @@ def init_params(model: VisionTransformerST, generator: torch.Generator):
 
 def create_model(ctor=vit_large_patch16, device=None, seed: int = 0,
                  state_dict=None, **kw) -> VisionTransformerST:
-    """Build ``ctor(**kw)`` on ``device`` (default cuda) in eval mode,
-    with ``state_dict`` loaded strictly or, when None, seeded random
-    weights.  The model is built on the meta device first, so no
-    throw-away default initialisation runs."""
-    dev = resolve_device(device)
-    with torch.device("meta"):
-        model = ctor(**kw)
-    model.to_empty(device=dev)
-    if state_dict is None:
-        init_params(model, torch.Generator(device=dev).manual_seed(seed))
-    else:
-        model.load_state_dict(state_dict, strict=True)
-    return model.eval()
+    """Build ``ctor(**kw)`` on ``device`` (default cuda) in eval mode with
+    seeded random weights, then import ``state_dict`` (a reference state
+    dict, any layout ``compat.torch_import`` reads) over them: params it
+    lacks keep the seeded init, with a warning that names them; keys with
+    no slot raise (``compat.torch_import.build_model``)."""
+    from ..compat.torch_import import build_model
+
+    return build_model(ctor, init_params, device, seed, state_dict,
+                       **kw).eval()

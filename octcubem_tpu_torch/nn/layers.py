@@ -11,6 +11,18 @@ residual stream stays in the compute dtype.  ``Block`` returns
 ``(hidden, mlp_branch)``: with ``parity="flash"`` the stack's final
 feature is the last block's MLP branch, without the final residual add
 (the reference flash-attn two-stream block).
+
+Rematerialisation, as in the JAX package: ``TransformerStack(remat=True)``
+runs each block under non-reentrant ``torch.utils.checkpoint`` (its
+activations are recomputed in the backward, the attention kernel's
+forward included); ``remat_norm`` checkpoints only a block's two
+LayerNorms, and only when ``remat`` is off.  Both act only while autograd
+records.  Drop-path masks come from an explicit ``torch.Generator``,
+which checkpoint's RNG preservation does not cover: a checkpointed block
+draws from a copy of the generator set to the state it had before the
+block, in the forward and again in the recompute, and the generator is
+then advanced to where the copy ended, so remat on and off draw the same
+masks.  Parameter names do not change.
 """
 
 from __future__ import annotations
@@ -18,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention_qkv
 
@@ -106,13 +119,17 @@ class MHA(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block; returns (hidden, mlp_branch)."""
+    """Pre-LN transformer block; returns (hidden, mlp_branch).
+    ``remat_norm``: the LayerNorms' fp32 outputs are recomputed in the
+    backward instead of saved."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path: float = 0.0,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 remat_norm: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat_norm = remat_norm
         self.norm1 = LayerNorm(dim)
         self.mixer = MHA(dim, num_heads, qkv_bias, dtype, attn_impl)
         self.drop_path1 = DropPath(drop_path)
@@ -120,35 +137,67 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
         self.drop_path2 = DropPath(drop_path)
 
+    def _norm(self, norm: LayerNorm, x):
+        if self.remat_norm and torch.is_grad_enabled():
+            return checkpoint(norm, x, use_reentrant=False)
+        return norm(x)
+
     def forward(self, x, generator: torch.Generator | None = None):
-        a = self.mixer(self.norm1(x).to(self.dtype))
+        a = self.mixer(self._norm(self.norm1, x).to(self.dtype))
         x = x + self.drop_path1(a, generator)
-        m = self.drop_path2(self.mlp(self.norm2(x).to(self.dtype)), generator)
+        m = self.drop_path2(self.mlp(self._norm(self.norm2, x).to(self.dtype)),
+                            generator)
         return x + m, m
+
+
+def _checkpointed(blk: Block, x, generator: torch.Generator | None):
+    """``blk(x, generator)`` under non-reentrant checkpoint, its drop-path
+    draws replayed in the recompute (see the module docstring)."""
+    if generator is None:
+        return checkpoint(blk, x, None, use_reentrant=False)
+    start = generator.get_state()
+    copies = []
+
+    def run(x):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        copies.append(g)
+        return blk(x, g)
+
+    out = checkpoint(run, x, use_reentrant=False)
+    generator.set_state(copies[0].get_state())
+    return out
 
 
 class TransformerStack(nn.ModuleList):
     """Blocks with linearly increasing drop-path and the final-feature
     selection: parity='flash' -> the last block's MLP branch (released
     flash-attn checkpoints), parity='standard' -> the full hidden state.
-    Children are named 0..depth-1, so keys read blocks.{i}.*."""
+    Children are named 0..depth-1, so keys read blocks.{i}.*.  ``remat``:
+    each block is checkpointed; ``remat_norm`` (without ``remat``): each
+    block's LayerNorms."""
 
     def __init__(self, depth: int, dim: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  drop_path_rate: float = 0.0,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
-                 parity: str = "flash"):
+                 parity: str = "flash", remat: bool = False,
+                 remat_norm: bool = False):
         if parity not in ("flash", "standard"):
             raise ValueError(f"unknown parity {parity!r}")
         dpr = ([drop_path_rate * i / (depth - 1) for i in range(depth)]
                if depth > 1 else [0.0])
         super().__init__([
             Block(dim, num_heads, mlp_ratio, qkv_bias, dpr[i], dtype,
-                  attn_impl) for i in range(depth)])
+                  attn_impl, remat_norm=remat_norm and not remat)
+            for i in range(depth)])
         self.parity = parity
+        self.remat = remat
 
     def forward(self, x, generator: torch.Generator | None = None):
         m = x
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self:
-            x, m = blk(x, generator)
+            x, m = (_checkpointed(blk, x, generator) if remat
+                    else blk(x, generator))
         return m if self.parity == "flash" else x

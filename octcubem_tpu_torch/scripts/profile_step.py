@@ -1,9 +1,13 @@
 """Where the training step's time goes: train_entry()'s 3D MAE step
 (mask 0.90, batch 4, bf16, fused AdamW) under torch.profiler, on one card:
-ViT-L/16 at 60x256x256, or ViT-H/14 at 60x224x224 with ``--model vit-h``.
+ViT-L/16 at 60x256x256, or ViT-H/14 at 60x224x224 with ``--model vit-h``;
+with ``--joint``, the vitl_joint_pretrain step (the in-step pre-mask and
+the 2D batch of 64 at 3x512x512, in ``--accum-2d`` microbatches, through
+a remat model2d with ``--remat-2d``).
 
     python -m octcubem_tpu_torch.scripts.profile_step [--model vit-l]
-        [--dec-heads 16] [--iters 3] [--top 20]
+        [--dec-heads 16] [--joint [--accum-2d 4] [--remat-2d]]
+        [--iters 3] [--top 20]
 
 Prints the card's name and power limit, the wall time per step (host
 clock around steps that end in a synchronize), the device-busy time per
@@ -60,6 +64,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=MODELS, default="vit-l")
     parser.add_argument("--dec-heads", type=int, default=16)
+    parser.add_argument("--joint", action="store_true")
+    parser.add_argument("--accum-2d", type=int, default=4)
+    parser.add_argument("--remat-2d", action="store_true")
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--top", type=int, default=20)
     args = parser.parse_args(argv)
@@ -75,6 +82,9 @@ def main(argv=None) -> int:
         return 2
     kw = (dict(ctor=mae3d.mae_vit_huge_patch14, input_size=224)
           if args.model == "vit-h" else {})
+    if args.joint:
+        kw.update(joint=True, batch2d=64, accum_2d=args.accum_2d,
+                  use_premask=True, remat_2d=args.remat_2d)
     step, state, x = train_entry(dec_heads=args.dec_heads, **kw)
     for _ in range(2):
         state, _ = step(state, x, mask_ratio=0.9)
@@ -102,7 +112,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip())
     print(json.dumps({"model": args.model, "dec_heads": args.dec_heads,
-                      "batch": x.shape[0],
+                      "batch": x.shape[0], "joint": args.joint,
+                      "accum_2d": args.accum_2d if args.joint else None,
+                      "remat_2d": args.remat_2d,
                       "wall_ms_per_step": wall_ms,
                       "device_busy_ms_per_step": busy_ms,
                       "idle_share": 1.0 - busy_ms / wall_ms}))

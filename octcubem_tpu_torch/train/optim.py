@@ -98,6 +98,29 @@ class AdamW:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
+    def state_dict(self) -> dict:
+        """{"count", "mu", "nu"}: the moments keyed by parameter name, as
+        references to the live tensors (mu in its storage type)."""
+        return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping) -> None:
+        """Copy a ``state_dict()`` into this optimizer's tensors in place;
+        names, shapes and dtypes must match."""
+        for key in ("mu", "nu"):
+            got = state[key]
+            if set(got) != set(self.names):
+                raise ValueError(f"{key}: names differ from the params'")
+            for name, t in zip(self.names, getattr(self, key)):
+                src = got[name]
+                if src.shape != t.shape or src.dtype != t.dtype:
+                    raise ValueError(
+                        f"{key}[{name}]: {tuple(src.shape)} {src.dtype} != "
+                        f"{tuple(t.shape)} {t.dtype}")
+                t.copy_(src)
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None

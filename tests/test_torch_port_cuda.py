@@ -27,6 +27,11 @@ variants, every one at every tile) within 2^-7 of the largest plain
 output in bf16 (a stripped variant's outputs have no softmax scale; p is
 rounded to bf16 on both sides), its raw l within 1e-4 of the largest.
 
+The MAE's remat twin launches B1 twice per block and B2 once, with the
+plain graph's loss and its gradients within chip_smoke.py's run-to-run
+limit; a
+TrainState on the card survives an async checkpoint bit for bit.
+
 Batch 2 throughout, and the cls-fold dO is the [:, 1:] slice of a
 [B, m + 1, H*D] buffer, as autograd hands it over after the cls row's
 concat: the kernels' batch strides are exercised.  B3-B5 and B7 take
@@ -501,3 +506,79 @@ def test_b8_matches_plain(gen, variant, tile):
     assert err <= 2 ** -7 * o_ref.float().abs().max().item(), err
     lerr = (lse - lse_ref).abs().max().item()
     assert lerr <= 1e-4 * max(lse_ref.abs().max().item(), 1e-30), lerr
+
+
+# ------------------------------- remat and checkpoints of the MAE step
+
+def _tiny_mae(**kw):
+    """A small bf16 MAE on the card: 2 + 1 blocks, head_dim 64 / 32, the
+    encoder at 13 tokens and the decoder at 129 (B1 + B2 throughout)."""
+    from octcubem_tpu_torch.models import mae3d
+
+    return mae3d.create_model(
+        mae3d.MaskedAutoencoderViT3D, device="cuda", seed=1, input_size=64,
+        high_res_input_size=128, patch_size=16, in_chans=1, embed_dim=128,
+        depth=2, num_heads=2, decoder_embed_dim=128, decoder_depth=1,
+        decoder_num_heads=4, num_frames=24, t_patch_size=3, pred_t_dim=24,
+        dtype=torch.bfloat16, **kw)
+
+
+def test_remat_recomputes_b1(gen):
+    """A remat twin launches B1 twice per block (forward and recompute)
+    and B2 once; its loss equals the plain graph's and its gradients agree
+    within B2's bf16 limit, 2^-7 of each leaf's largest (B2's dq, summed
+    in varying order, differs in bf16 ulps that pass through the blocks
+    below)."""
+    model = _tiny_mae(drop_path_rate=0.2)
+    twin = model.with_remat()
+    x = torch.randn((2, 24, 64, 64, 1), generator=gen, device="cuda")
+    noise = torch.rand((2, 128), generator=gen, device="cuda")
+    out = []
+    for m in (model, twin):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        _cuda.reset_launches()
+        loss = m(x, 0.9, noise, generator=g)[0]
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        out.append((loss.item(), grads, dict(_cuda.launches)))
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert n0["flash_fwd_packed"] == 3 and n0["flash_bwd_packed"] == 3
+    assert n1["flash_fwd_packed"] == 6 and n1["flash_bwd_packed"] == 3
+    assert l0 == l1
+    for a, b in zip(g0, g1):
+        assert (a is None) == (b is None)
+        if a is not None:
+            top = max(a.abs().max().item(), 1e-30)
+            assert (a - b).abs().max().item() <= TOL_GRAD[torch.bfloat16] * top
+
+
+def test_train_state_round_trip_on_card(gen, tmp_path):
+    """A TrainState on the card (bf16 mu, a CUDA generator) saved async
+    after a pre-masked step and restored into a fresh state: bit-identical;
+    the next step's loss equal from both."""
+    from octcubem_tpu_torch.core import checkpoint
+    from octcubem_tpu_torch.train import mae_engine, optim
+    from octcubem_tpu_torch.train.train_state import TrainState
+
+    x = torch.randn((2, 24, 64, 64, 1), generator=gen, device="cuda")
+
+    def build():
+        model = _tiny_mae()
+        tx = optim.build_fused_adamw(model, 1e-3, mu_dtype=torch.bfloat16)
+        return (TrainState.create(model, tx, seed=2),
+                mae_engine.make_mae_train_step(model, tx, use_premask=True))
+
+    live, step = build()
+    live, _ = step(live, x, 0.9)
+    checkpoint.save_checkpoint(str(tmp_path), live.step, live, async_save=True)
+    fresh, fstep = build()
+    checkpoint.restore_checkpoint(str(tmp_path), fresh)
+    assert fresh.step == live.step == 1 and fresh.tx.count == 1
+    assert torch.equal(fresh.generator.get_state(), live.generator.get_state())
+    pa, pb = live.params.state_dict(), fresh.params.state_dict()
+    assert all(torch.equal(pa[k], pb[k]) for k in pa)
+    assert all(u.dtype == v.dtype and torch.equal(u, v) for u, v in
+               zip(live.tx.mu + live.tx.nu, fresh.tx.mu + fresh.tx.nu))
+    assert step(live, x, 0.9)[1]["loss"].item() == \
+        fstep(fresh, x, 0.9)[1]["loss"].item()

@@ -311,5 +311,8 @@ def test_state_dict_from_jax_loads_mae_strict():
     tm = tmae.MaskedAutoencoderViT3D(**kw)
     assert set(sd) == set(tm.state_dict())
     assert "high_res_patch_embed.proj.weight" in sd and "mask_token" in sd
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmae.MaskedAutoencoderViT3D(**kw, remat=True)
+    # remat and remat_norm keep the parameter names (their gradients:
+    # test_torch_port_remat.py)
+    for flags in (dict(remat=True), dict(remat_norm=True)):
+        assert set(tmae.MaskedAutoencoderViT3D(**kw, **flags).state_dict()
+                   ) == set(sd)

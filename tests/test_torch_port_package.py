@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from octcubem_tpu.compat.torch_export import (export_state_dict,
                                               save_torch_checkpoint,
                                               to_retfound_layout)
+from octcubem_tpu.compat.torch_import import load_torch_checkpoint as jax_load
 from octcubem_tpu.models import vit_st as jvit
 from octcubem_tpu_torch import entry as tentry
 from octcubem_tpu_torch.compat.jax_params import state_dict_from_jax
@@ -96,14 +97,22 @@ def test_load_torch_checkpoint(jax_params, tmp_path):
     for k, v in model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), flash[k], err_msg=k)
 
+    # the RETFound layout reads as the file holds it, as JAX's loader reads
+    # it, and converts on import (more layouts: test_torch_port_import.py)
     other = str(tmp_path / "retfound.pth")
-    save_torch_checkpoint(other, to_retfound_layout(flash))
-    with pytest.raises(ValueError, match="A9"):
-        load_torch_checkpoint(other)
+    retfound = to_retfound_layout(flash)
+    save_torch_checkpoint(other, retfound)
+    sd = load_torch_checkpoint(other)
+    assert set(sd) == set(retfound) == set(jax_load(other))
+    model = tvit.create_model(tvit.VisionTransformerST, device="cpu",
+                              state_dict=sd, head_type=head_type, **KW)
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), flash[k], err_msg=k)
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(capture_cam=True), "A10"), (dict(remat=True), "A4"),
+    (dict(capture_cam=True), "A10"),
+    (dict(remat=True, capture_cam=True), "A10"),
     (dict(quant=True), "A10")])
 def test_unported_model_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

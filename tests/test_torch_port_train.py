@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from octcubem_tpu.models import mae3d as jmae
 from octcubem_tpu.train import mae_engine as jeng
 from octcubem_tpu.train import optim as jopt
 from octcubem_tpu.train import schedules as jsched
@@ -175,10 +176,14 @@ TOL_METRIC = dict(rtol=1e-5, atol=1e-6)
 TOL_PARAM = dict(rtol=1e-5, atol=2e-6)
 
 
-def _replay_noise(jm, params, rng, b3, b2, accum_iter, joint):
+def _replay_noise(jm, params, rng, b3, b2, accum_iter, joint, accum_2d=1):
     """JAX's masking noise for one step, from the state's rng as its step
     splits it, in the order the port's step draws it."""
     rng, _ = jax.random.split(rng)
+    if accum_2d > 1:  # accum2d_step: the 3D batch, then each 2D microbatch
+        r3, r2 = jax.random.split(rng)
+        return [torch.from_numpy(jax_noise(jm, params, x, key)) for x, key in
+                [(b3, r3)] + list(zip(b2, jax.random.split(r2, accum_2d)))]
     keys = [rng] if accum_iter == 1 else list(jax.random.split(rng, accum_iter))
     noise = []
     for i, key in enumerate(keys):
@@ -191,30 +196,57 @@ def _replay_noise(jm, params, rng, b3, b2, accum_iter, joint):
     return noise
 
 
-@pytest.mark.parametrize("joint,accum_iter", [(False, 1), (False, 2),
-                                              (True, 1)])
-def test_two_train_steps_match_jax(joint, accum_iter):
+# (joint, accum_iter, accum_2d, use_premask, a remat model2d); the first
+# three keep the ids they had before the options were ported
+STEP_CASES = [
+    pytest.param(False, 1, 1, False, False, id="False-1"),
+    pytest.param(False, 2, 1, False, False, id="False-2"),
+    pytest.param(True, 1, 1, False, False, id="True-1"),
+    pytest.param(False, 1, 1, True, False, id="premask"),
+    pytest.param(False, 2, 1, True, False, id="premask-accum_iter2"),
+    pytest.param(True, 1, 2, False, False, id="accum_2d2"),
+    pytest.param(True, 1, 2, True, True, id="accum_2d2-remat2d-premask"),
+]
+
+
+@pytest.mark.parametrize("joint,accum_iter,accum_2d,premask,remat2d",
+                         STEP_CASES)
+def test_two_train_steps_match_jax(joint, accum_iter, accum_2d, premask,
+                                   remat2d):
+    """The in-step pre-mask is computed by both packages from their own
+    patch embeddings (geometry (a): 4x4 patches a frame, every patch row
+    a border row, so each frame tops up to L/2 by score).  With
+    ``accum_2d`` the 2D batch is [accum_2d, 1, ...]; a remat model2d is
+    JAX's remat=True module on the same params and the port's
+    ``with_remat()`` twin."""
     kw = model_kw("a")
     b3 = volume("a", b=2, seed=21)
     b2 = volume("a", b=2, frames=3, seed=22, high_res=True) if joint else None
     if accum_iter > 1:
         b3 = b3.reshape(accum_iter, 1, *b3.shape[1:])
+    if accum_2d > 1:
+        b2 = b2.reshape(accum_2d, 1, *b2.shape[1:])
     jm, params = jax_init(kw, volume("a"), 0.9)
+    jm2d = (jmae.MaskedAutoencoderViT3D(**kw, attn_impl="flash", remat=True)
+            if remat2d else None)
     tx_j = jopt.build_fused_adamw(params, 1e-3, weight_decay=0.05, eps=EPS)
     s_j = JState.create(params, tx_j, jax.random.key(2))
     step_j = jeng.make_mae_train_step(jm, tx_j, joint=joint,
-                                      accum_iter=accum_iter, donate=False)
+                                      use_premask=premask,
+                                      accum_iter=accum_iter, donate=False,
+                                      model2d=jm2d, accum_2d=accum_2d)
 
     tm = torch_model(kw, params)
     tx_t = topt.build_fused_adamw(tm, 1e-3, weight_decay=0.05, eps=EPS)
     s_t = TState.create(tm, tx_t, seed=0)
-    step_t = teng.make_mae_train_step(tm, tx_t, joint=joint,
-                                      accum_iter=accum_iter)
+    step_t = teng.make_mae_train_step(
+        tm, tx_t, joint=joint, use_premask=premask, accum_iter=accum_iter,
+        model2d=tm.with_remat() if remat2d else None, accum_2d=accum_2d)
     x3 = torch.from_numpy(b3)
     x2 = torch.from_numpy(b2) if joint else None
     for i in range(2):
         noise = _replay_noise(jm, s_j.params, s_j.rng, b3, b2, accum_iter,
-                              joint)
+                              joint, accum_2d)
         s_j, m_j = step_j(s_j, jnp.asarray(b3), mask_ratio=0.9,
                           batch2d=jnp.asarray(b2) if joint else None,
                           mask_ratio_2d=0.75)
@@ -234,6 +266,58 @@ def test_two_train_steps_match_jax(joint, accum_iter):
         assert not torch.equal(tm.high_res_patch_embed.proj.weight.detach(), w0)
 
 
+def test_explicit_pre_mask_matches_jax():
+    """A pre_mask passed to the step is used as given, as in JAX."""
+    kw = model_kw("a")
+    b3 = volume("a", b=2, seed=24)
+    pm = (np.random.default_rng(3).random((2, 128)) > 0.5).astype(np.float32)
+    jm, params = jax_init(kw, volume("a"), 0.9)
+    tx_j = jopt.build_fused_adamw(params, 1e-3, weight_decay=0.05, eps=EPS)
+    s_j = JState.create(params, tx_j, jax.random.key(2))
+    noise = _replay_noise(jm, s_j.params, s_j.rng, b3, None, 1, False)
+    step_j = jeng.make_mae_train_step(jm, tx_j, donate=False)
+    s_j, m_j = step_j(s_j, jnp.asarray(b3), 0.9, None, 0.75, jnp.asarray(pm))
+    tm = torch_model(kw, params)
+    tx_t = topt.build_fused_adamw(tm, 1e-3, weight_decay=0.05, eps=EPS)
+    step_t = teng.make_mae_train_step(tm, tx_t)
+    _, m_t = step_t(TState.create(tm, tx_t, seed=0), torch.from_numpy(b3),
+                    0.9, pre_mask=torch.from_numpy(pm), noise=noise)
+    np.testing.assert_allclose(m_t["loss"].numpy(), np.asarray(m_j["loss"]),
+                               **TOL_METRIC)
+    with pytest.raises(ValueError, match="use_premask=True"):
+        teng.make_mae_train_step(tm, tx_t, accum_iter=2)(
+            TState.create(tm, tx_t, seed=0), torch.from_numpy(b3)[None],
+            pre_mask=torch.from_numpy(pm))
+
+
+@pytest.mark.parametrize("kw", [dict(accum_iter=2, accum_2d=2, joint=True),
+                                dict(accum_2d=2)])
+def test_option_exclusivity_matches_jax(kw):
+    """The same options are refused by both steps, with JAX's message."""
+    mkw = model_kw("a")
+    jm, params = jax_init(mkw, volume("a"), 0.9)
+    with pytest.raises(ValueError) as jerr:
+        jeng.make_mae_train_step(jm, jopt.build_fused_adamw(params, 1e-3),
+                                 donate=False, **kw)
+    tm = torch_model(mkw, params)
+    with pytest.raises(ValueError) as terr:
+        teng.make_mae_train_step(tm, topt.build_fused_adamw(tm, 1e-3), **kw)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_model2d_must_share_params():
+    """A model2d with parameters of its own would train nothing: refused."""
+    kw = model_kw("a")
+    _, params = jax_init(kw, volume("a"), 0.9)
+    tm = torch_model(kw, params)
+    tx = topt.build_fused_adamw(tm, 1e-3)
+    with pytest.raises(ValueError, match="parameter objects"):
+        teng.make_mae_train_step(tm, tx, joint=True,
+                                 model2d=torch_model(dict(kw, remat=True),
+                                                     params))
+    teng.make_mae_train_step(tm, tx, joint=True, model2d=tm.with_remat())
+
+
 def test_train_step_draws_noise_from_the_state_generator():
     """Without given noise, two states seeded alike take the same step,
     and the eval step runs in eval mode without gradients."""
@@ -251,7 +335,8 @@ def test_train_step_draws_noise_from_the_state_generator():
     out = teng.make_mae_eval_step(tm)(x, generator=torch.Generator().manual_seed(0))
     assert not tm.training and not out["loss"].requires_grad
     assert out["pred"].shape == (2, 128, 3 * 16 * 16)
-    with pytest.raises(NotImplementedError, match="A6"):
-        teng.make_mae_train_step(tm, tx, use_premask=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        teng.make_mae_train_step(tm, tx, joint=True, accum_2d=2)
+    # the options once refused are built now (their parity: above)
+    teng.make_mae_train_step(tm, tx, use_premask=True)
+    teng.make_mae_train_step(tm, tx, joint=True, accum_2d=2)
+    with pytest.raises(ValueError, match="exclusive"):
+        teng.make_mae_train_step(tm, tx, joint=True, accum_2d=2, accum_iter=2)
