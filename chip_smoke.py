@@ -93,7 +93,28 @@ Phases, each fatal on failure (no phase's error is caught):
      (head from init, decoder keys unexpected) against vit_st run
      directly, a num_heads=8 stamp refused; a seeded ViT-L RETFound 2D
      checkpoint converted and imported into the MAE, one finite joint
-     step from it.  Then one {"kernels": [...]} line with B1-B8.
+     step from it;
+ 16. the serving options on the ViT-L/16 classifier at 48x256x256, batch
+     1: the int8 model (block projections quantized from the bf16 one):
+     24 B1 launches and int8 GEMMs in a profile, logits within the JAX
+     test's int8 bound of the bf16 model, every disease's argmax equal,
+     both forwards timed, cli/serve.py --quant int8 answering; the AOT
+     artifact exported on the card (24 B1 op calls in its graph, 24 B1
+     launches, the live logits to 1e-6), one exported on the CPU for
+     ("cuda", "cpu") run on the card through B1, a cpu-only one refused
+     there, cli/serve.py --aot answering, export and load seconds;
+     Grad-CAM at full depth, bf16 and fp32, at layer -1 and 0 (B1 per
+     block, B2 per block after the chosen one), a finite map in [0, 1]
+     and its time, and flash against impl="naive" at 4 blocks; cli/infer.py
+     on a .dcm equal to the same volume as .npy;
+ 17. the 2D MAE (mae_vit_large_patch16, 224, in_chans 1, bf16, fp32
+     params), batch 16, mask 0.75: three forward-backward + AdamW updates
+     (finite, the LR-0 first update, 32 B1 + 32 B2 launches each and no
+     other kernel), the step's time and peak beside its bound; at 2 + 2
+     blocks, batch 2, flash against impl="naive" in loss and per-leaf
+     gradients, fp32 and bf16.  Phase 3 holds B1 and B2 at its shapes
+     (n 50 and 197) and B2 at the serving shape.  Then one
+     {"kernels": [...]} line with B1-B8.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -101,6 +122,7 @@ result when there is no CUDA device or no port package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import math
@@ -185,6 +207,10 @@ def _kernel_args(qkv, num_heads):
 # microbatch of accum_2d=4 (64 / 4): the encoder at 256 visible patches of
 # a 512x512 image (mask 0.75) + cls, folded; the decoder at 1,024 + cls
 JOINT_2D_CASES = [(16, 257, 16, 64, 1.0), (16, 1025, 16, 32, 1.0)]
+# (B, n, H, D, q scale) of the 2D MAE (mae_vit_large_patch16 at 224, batch
+# 16, mask 0.75): the encoder at 49 kept patches + cls, the decoder at
+# 196 + cls, neither folded (n % 128 != 1)
+MAE2D_CASES = [(16, 50, 16, 64, 1.0), (16, 197, 16, 32, 1.0)]
 
 
 def check_flash_fwd(torch, fa):
@@ -196,7 +222,7 @@ def check_flash_fwd(torch, fa):
              (1, 4000, 16, 64, 1.0),
              (1, 512, 16, 64, 1.0),  # the MAE encoder's: 511 + cls, no fold
              (1, 4097, 16, 64, 40.0),  # q scaled: most logits above the clamp
-             *JOINT_2D_CASES]
+             *JOINT_2D_CASES, *MAE2D_CASES]
     vitl_err = None
     for b, n, h, d, qmul in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -325,17 +351,19 @@ def _grads_twice(torch, what, call, ref, dtype):
 
 def check_flash_bwd(torch, fa):
     """Phase 3, B2: against its plain version at B=1 on B1's own (o, lse),
-    with a random dO and g_lse, and at the joint step's 2D shapes at B=16.
-    (Phase 8 holds it at B=4, as the training step lays it out.)"""
+    with a random dO and g_lse: at the serving shape (Grad-CAM's backward),
+    and at the joint step's and the 2D MAE's shapes at B=16.  (Phase 8
+    holds it at B=4, as the training step lays it out.)"""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [(1, 5121, 16, 32, 1.0), (1, 5121, 4, 128, 1.0),  # the decoder's
+    cases = [(1, 4097, 16, 64, 1.0),  # the serving classifier's: Grad-CAM
+             (1, 5121, 16, 32, 1.0), (1, 5121, 4, 128, 1.0),  # the decoder's
              (1, 512, 16, 64, 1.0),  # the encoder's: 511 + cls, no fold
              (1, 4000, 16, 64, 1.0), (1, 1025, 8, 128, 1.0),
              (1, 513, 4, 256, 1.0),
              (1, 1025, 8, 128, 40.0),  # q scaled: most logits above the clamp
              # ragged: rows and keys not multiples of the one pass's tiles
              (1, 700, 8, 32, 1.0), (1, 333, 4, 64, 1.0), (1, 901, 2, 128, 1.0),
-             *JOINT_2D_CASES]
+             *JOINT_2D_CASES, *MAE2D_CASES]
     for b, n, h, d, qmul in cases:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda")
@@ -401,20 +429,18 @@ def _post_npy(url, arr):
         return r.status, json.loads(r.read().decode())
 
 
-def run_serve(torch, _cuda, serve):
-    """Phase 5: the server answers healthz and four predicts."""
-    import numpy as np
-
+@contextlib.contextmanager
+def _serving(serve, argv):
+    """cli/serve.py's server in a thread -> its base URL; shut down after."""
     started, box, errors = threading.Event(), [], []
 
     def run():
         try:
-            serve.main(["--port", "0", "--seed", "0"], started, box)
+            serve.main(argv, started, box)
         except BaseException as e:  # reported by the main thread
             errors.append(e)
             started.set()
 
-    _cuda.reset_launches()
     th = threading.Thread(target=run, daemon=True)
     th.start()
     if not started.wait(timeout=600):
@@ -422,8 +448,29 @@ def run_serve(torch, _cuda, serve):
     if errors:
         raise errors[0]
     httpd = box[0]
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        th.join(timeout=60)
+
+
+def _disease_probs(logits):
+    """[1, 16] logits -> [1, 8] probabilities, as the server computes
+    them."""
+    import numpy as np
+
+    lg = logits.float().cpu().numpy().reshape(1, -1, 2)
+    e = np.exp(lg - lg.max(-1, keepdims=True))
+    return (e / e.sum(-1, keepdims=True))[:, :, 1]
+
+
+def run_serve(torch, _cuda, serve):
+    """Phase 5: the server answers healthz and four predicts."""
+    import numpy as np
+
+    _cuda.reset_launches()
+    with _serving(serve, ["--port", "0", "--seed", "0"]) as base:
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             health = json.loads(r.read().decode())
         print(f"serve /healthz: {r.status} {health}")
@@ -438,9 +485,6 @@ def run_serve(torch, _cuda, serve):
                   f"probs {probs.shape} latency_ms {out.get('latency_ms')}")
             if code != 200 or probs.shape != (1, 8) or not np.isfinite(probs).all():
                 raise AssertionError(f"bad predict answer {code} {out}")
-    finally:
-        httpd.shutdown()
-        th.join(timeout=60)
     launches = dict(_cuda.launches)
     print(f"serve launches (warm-up + 4 predicts): {launches}")
     if launches["flash_fwd_packed"] != 24 * 5:
@@ -561,6 +605,13 @@ def run_train(torch, _cuda, entry_mod, optim, name, geometries, expect,
 # bf16 5.1e-6 and 9.0e-3 (limits ~2.5x).  At batch 2, as run here: fp32
 # 0 and 1.70e-6, bf16 4.7e-6 and 7.2e-3, all inside the same limits.
 TOL_NAIVE = {"float32": (1e-6, 3e-6), "bfloat16": (1.3e-5, 2.2e-2)}
+# the 2D MAE (ViT-L/16 at 224) cut to 2 + 2 blocks at batch 2 (50 / 197
+# tokens), the same comparison: measured on an H100 at 700 W, fp32 0 and
+# 5.1e-7, bf16 1.62e-5 and 7.2e-3.  Its loss is the mean squared error of
+# a bf16 prediction over 147 masked patches a sample, so it moves with
+# each pred element one bf16 step apart; the limits are ~2.5x, the
+# gradients' the 3D MAE's.
+TOL_NAIVE_2D = {"float32": (1e-6, 3e-6), "bfloat16": (4e-5, 2.2e-2)}
 # the ViT-H/14 classifier cut to 2 blocks (4,097 tokens), flash (B3 + B4)
 # against impl="naive" under a cross-entropy.  Its loss is taken from the
 # model's bf16 logits, so flash and naive logits one bf16 step apart move
@@ -1699,29 +1750,11 @@ def run_export_and_serve(torch, _cuda, run_dir):
     print(f"export stamp {stamp}")
     if stamp.get("num_heads") != 16:
         raise AssertionError("the export carries no head-count stamp")
-    started, box, errors = threading.Event(), [], []
-
-    def run():
-        try:
-            serve.main(["--port", "0", "--seed", "0", "--ckpt", pth],
-                       started, box)
-        except BaseException as e:  # reported by the main thread
-            errors.append(e)
-            started.set()
-
-    _cuda.reset_launches()
-    th = threading.Thread(target=run, daemon=True)
-    th.start()
-    if not started.wait(timeout=600):
-        raise AssertionError("server did not start")
-    if errors:
-        raise errors[0]
-    httpd = box[0]
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
     rng = np.random.default_rng(15)
     vols = [rng.random((48, 256, 256), dtype=np.float32) for _ in range(3)]
     raw = (rng.random((40, 200, 300)) * 255).astype(np.float32)
-    try:
+    _cuda.reset_launches()
+    with _serving(serve, ["--port", "0", "--seed", "0", "--ckpt", pth]) as base:
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             health = json.loads(r.read().decode())
         report = health["import"]
@@ -1736,9 +1769,6 @@ def run_export_and_serve(torch, _cuda, run_dir):
             raise AssertionError(f"unexpected import report {report}")
         answers = [_post_npy(base + "/predict?raw=0", v) for v in vols]
         answers.append(_post_npy(base + "/predict", raw))
-    finally:
-        httpd.shutdown()
-        th.join(timeout=60)
     launches = _nonzero(_cuda.launches)
     if launches != {"flash_fwd_packed": 24 * 5}:
         raise AssertionError(f"expected 120 B1 launches, got {launches}")
@@ -1752,11 +1782,8 @@ def run_export_and_serve(torch, _cuda, run_dir):
     inputs = vols + [Transform3D(256, 48)(raw) / 255.0]
     for (code, out), v in zip(answers, inputs):
         with torch.inference_mode():
-            logits = model(torch.from_numpy(v[None, ..., None]).to(
-                model.head.weight.device))
-        lg = logits.float().cpu().numpy().reshape(1, -1, 2)
-        e = np.exp(lg - lg.max(-1, keepdims=True))
-        probs = (e / e.sum(-1, keepdims=True))[:, :, 1]
+            probs = _disease_probs(model(torch.from_numpy(v[None, ..., None])
+                                         .to(model.head.weight.device)))
         got = np.asarray(out.get("probs", [[np.nan]]), np.float64)
         if code != 200 or got.shape != probs.shape:
             raise AssertionError(f"bad predict answer {code} {out}")
@@ -1858,6 +1885,439 @@ def run_phase15(torch, _cuda, entry_mod, optim, smi):
     return ms, peak, peaks
 
 
+# ------------------------------------- phase 16: the serving options
+
+# int8 against bf16 logits: the JAX package's own bound for its int8
+# classifier (tests/test_quant.py:95), and every disease's argmax equal
+TOL_INT8 = dict(rtol=0.15, atol=0.05)
+# an AOT program runs the live model's kernels in the same order
+TOL_AOT = 1e-6
+# int8 GEMMs in a profile of the int8 forward, by kernel name (cuBLASLt's
+# int8 kernels name their operand type)
+INT8_GEMM = ("s8", "i8", "int8", "imma", "igemm")
+CAM_GRID = (16, 16, 16)
+# Grad-CAM flash against impl="naive" (4 blocks, layer 0, bf16), |dmap| on
+# maps each over its max: the map is a 1,024-channel dot of the activation
+# (one bf16 step apart, 2^-8) with the token mean of dScore/dA (B2's bf16
+# limit, 2^-7 of its largest entry); their sum is 0.0117, and 2^-5 allows
+# ~2.5x that.  With the seeded weights the attention branch is small next
+# to the residual stream, whose bf16 step absorbs the two paths'
+# differences, so the check also runs with the q projection x 8, where
+# attention is sharp and carries the signal.
+TOL_CAM_NAIVE = 2 ** -5
+
+
+def _serve_and_hold(torch, _cuda, serve, argv, what, model, vols,
+                    expect_b1, tol):
+    """Start the server with ``argv``; /healthz, then one /predict?raw=0
+    per volume, each held against ``model`` run directly on it within
+    ``tol``; ``expect_b1`` B1 launches over the warm-up and the
+    requests."""
+    import numpy as np
+
+    _cuda.reset_launches()
+    with _serving(serve, argv) as base:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read().decode())
+        print(f"{what} /healthz: {r.status} quant={health.get('quant')} "
+              f"source={health.get('source')}")
+        answers = [_post_npy(base + "/predict?raw=0", v) for v in vols]
+    launches = _nonzero(_cuda.launches)
+    worst = 0.0
+    for (code, out), v in zip(answers, vols):
+        got = np.asarray(out.get("probs", [[np.nan]]), np.float64)
+        with torch.inference_mode():
+            ref = _disease_probs(model(torch.from_numpy(v[None, ..., None])
+                                       .to("cuda")))
+        if code != 200 or got.shape != ref.shape:
+            raise AssertionError(f"{what}: bad predict answer {code} {out}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+        print(f"{what} /predict?raw=0: {code} latency_ms "
+              f"{out.get('latency_ms')}")
+    print(f"{what}: max|dprobs| vs the model run directly {worst:.3e} (tol "
+          f"{tol:.0e}); launches {launches}")
+    if not worst <= tol:
+        raise AssertionError(f"{what}: the server and the model disagree")
+    if launches != {"flash_fwd_packed": expect_b1}:
+        raise AssertionError(f"{what}: expected {expect_b1} B1 launches, got "
+                             f"{launches}")
+
+
+def run_int8(torch, _cuda, entry_mod, serve, model, fn, x):
+    """16.1: the int8 model (block projections quantized from ``model``):
+    24 B1 launches and int8 GEMMs in a profile, logits within TOL_INT8 of
+    the bf16 model and every disease's argmax equal, both timed; then
+    cli/serve.py --quant int8."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from octcubem_tpu_torch.ops.quant import quantize_state_dict
+    from octcubem_tpu_torch.scripts.profile_forward import kernel_rows
+
+    _, (qmodel, _) = entry_mod.entry(quant=True)
+    qmodel.load_state_dict(quantize_state_dict(model.state_dict()),
+                           strict=True)
+    _cuda.reset_launches()
+    q = fn(qmodel, x)
+    torch.cuda.synchronize()
+    launches = _nonzero(_cuda.launches)
+    ref = fn(model, x)
+    d = (q.float() - ref.float()).abs()
+    excess = (d - TOL_INT8["rtol"] * ref.float().abs()).max().item()
+    agree = torch.equal(q.float().reshape(-1, 2).argmax(-1),
+                        ref.float().reshape(-1, 2).argmax(-1))
+    print(f"int8 ViT-L forward: launches {launches}; max|dlogits| vs bf16 "
+          f"{d.max().item():.3e} (tol {TOL_INT8['atol']} + "
+          f"{TOL_INT8['rtol']}|ref|, max|logits| "
+          f"{ref.float().abs().max().item():.3e}); disease argmax equal: "
+          f"{agree}")
+    if launches != {"flash_fwd_packed": 24}:
+        raise AssertionError(f"int8: expected 24 B1 launches, got {launches}")
+    if not (excess <= TOL_INT8["atol"] and agree
+            and torch.isfinite(q.float()).all()):
+        raise AssertionError("the int8 logits leave the bf16 model's bound")
+    for _ in range(3):  # a first profile may record no device kernel
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(qmodel, x)
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof)
+        if rows:
+            break
+    int8 = [r for r in rows if any(t in r[0].lower() for t in INT8_GEMM)]
+    for name, count, us in rows[:12]:
+        print(f"int8 forward kernel {count:4d} x {us / 1e3:8.3f} ms "
+              f"{name[:110]}")
+    n_int8 = sum(c for _, c, _ in int8)
+    print(f"int8 forward: {n_int8} int8 GEMM launches "
+          f"({sum(u for _, _, u in int8) / 1e3:.3f} ms) of "
+          f"{sum(c for _, c, _ in rows)} kernels")
+    if n_int8 < 4 * 24:
+        raise AssertionError("the int8 forward ran no int8 GEMM per "
+                             "projection")
+    ms_bf16 = _elapsed_ms(lambda: fn(model, x), 20)
+    ms_int8 = _elapsed_ms(lambda: fn(qmodel, x), 20)
+    print(f"ViT-L 48x256x256 batch 1 forward, CUDA events over 20: bf16 "
+          f"{ms_bf16:.3f} ms, int8 {ms_int8:.3f} ms")
+    rng = np.random.default_rng(16)
+    vols = [rng.random((48, 256, 256), dtype=np.float32) for _ in range(2)]
+    # the server builds the same seeded init and quantizes it the same way
+    _serve_and_hold(torch, _cuda, serve,
+                    ["--port", "0", "--seed", "0", "--quant", "int8"],
+                    "serve --quant int8", qmodel, vols, 24 * 3, 1e-6)
+    del qmodel, q, ref
+    torch.cuda.empty_cache()
+    return ms_bf16, ms_int8
+
+
+def run_aot(torch, _cuda, entry_mod, serve, model, fn, x, run_dir):
+    """16.2: the bf16 ViT-L exported on the card, written, loaded back:
+    24 B1 op calls in its graph, 24 B1 launches, the live logits within
+    TOL_AOT; a ("cuda", "cpu") artifact exported on the CPU runs on the
+    card through B1; a cpu-only one is refused there; cli/serve.py --aot.
+    Returns the export and load seconds."""
+    import numpy as np
+
+    from octcubem_tpu_torch.compat import aot
+
+    live = fn(model, x)
+    path = str(Path(run_dir) / "vitl.octaot")
+    t0 = time.time()
+    aot.export_serving_artifact(model, (x,), path,
+                                meta={"nb_classes": 16, "quant": "none"})
+    export_s = time.time() - t0
+    t0 = time.time()
+    afn, meta = aot.load_serving_artifact(path)
+    load_s = time.time() - t0
+    calls = aot.flash_op_calls(afn.program)
+    _cuda.reset_launches()
+    out = afn(x)
+    torch.cuda.synchronize()
+    launches = _nonzero(_cuda.launches)
+    err = (out.float() - live.float()).abs().max().item()
+    print(f"AOT export on the card {export_s:.2f} s, load {load_s:.2f} s, "
+          f"{os.path.getsize(path) / 2 ** 30:.2f} GiB; header "
+          f"{ {k: meta[k] for k in ('platforms', 'exported_on', 'in_shapes')} }; "
+          f"flash op calls in the graph {calls}; launches {launches}; "
+          f"max|dlogits| vs the live model {err:.3e} (tol {TOL_AOT:.0e})")
+    if calls != 24 or launches != {"flash_fwd_packed": 24}:
+        raise AssertionError("the artifact's graph or run misses B1")
+    if not err <= TOL_AOT:
+        raise AssertionError("the artifact and the live model disagree")
+    del afn
+
+    _, (cpu_model, cpu_x) = entry_mod.entry(device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    both = str(Path(run_dir) / "vitl_both.octaot")
+    t0 = time.time()
+    aot.export_serving_artifact(cpu_model, (cpu_x,), both,
+                                platforms=("cuda", "cpu"))
+    cpu_export_s = time.time() - t0
+    del cpu_model
+    t0 = time.time()
+    bfn, bmeta = aot.load_serving_artifact(both)
+    move_s = time.time() - t0
+    _cuda.reset_launches()
+    out = bfn(x)
+    torch.cuda.synchronize()
+    launches = _nonzero(_cuda.launches)
+    err2 = (out.float() - live.float()).abs().max().item()
+    print(f"AOT exported on the CPU for {bmeta['platforms']} in "
+          f"{cpu_export_s:.2f} s, loaded onto the card (moved) in "
+          f"{move_s:.2f} s: launches {launches}; max|dlogits| vs the live "
+          f"model {err2:.3e}")
+    if launches != {"flash_fwd_packed": 24} or not err2 <= TOL_AOT:
+        raise AssertionError("the CPU-exported artifact did not run B1 on "
+                             "the card to the live logits")
+    ms_aot = _elapsed_ms(lambda: bfn(x), 10)
+    del bfn
+    os.remove(both)
+
+    _, (small, small_x) = entry_mod.entry(device="cpu", depth=1)
+    cpu_only = str(Path(run_dir) / "cpu_only.octaot")
+    aot.export_serving_artifact(small, (small_x,), cpu_only)
+    try:
+        aot.load_serving_artifact(cpu_only)
+    except ValueError as e:
+        print(f"cpu-only artifact refused on the card: {e}")
+    else:
+        raise AssertionError("a cpu-only artifact was loaded on the card")
+    del small
+
+    rng = np.random.default_rng(17)
+    vols = [rng.random((48, 256, 256), dtype=np.float32)]
+    _serve_and_hold(torch, _cuda, serve, ["--port", "0", "--aot", path],
+                    "serve --aot", model, vols, 24 * 2, 1e-6)
+    os.remove(path)
+    print(f"AOT artifact forward (the CPU export on the card), CUDA events "
+          f"over 10: {ms_aot:.3f} ms")
+    return export_s, load_s
+
+
+def run_gradcam(torch, _cuda, entry_mod, x):
+    """16.3: Grad-CAM on the ViT-L classifier at full depth, bf16 and fp32
+    (infer's default), at layer -1 (infer's) and layer 0: B1 per block and
+    B2 per block after the chosen one; a finite map in [0, 1]; its time.
+    Then flash against impl="naive" at 4 blocks, full width."""
+    import numpy as np
+
+    from octcubem_tpu_torch.utils.saliency import gradcam
+
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        _, (model, _) = entry_mod.entry(capture_cam=True, dtype=dtype)
+        for layer in (-1, 0):
+            _cuda.reset_launches()
+            cam = gradcam(model, x, layer=layer, grid=CAM_GRID)
+            torch.cuda.synchronize()
+            launches = _nonzero(_cuda.launches)
+            expect = {"flash_fwd_packed": 24}
+            if layer == 0:
+                expect["flash_bwd_packed"] = 23
+            ms = _elapsed_ms(lambda: gradcam(model, x, layer=layer,
+                                             grid=CAM_GRID), 3, 1)
+            times[(str(dtype)[6:], layer)] = ms
+            print(f"Grad-CAM ViT-L {str(dtype)[6:]} layer {layer}: map "
+                  f"{cam.shape} in [{cam.min():.3f}, {cam.max():.3f}], "
+                  f"launches {launches}, {ms:.3f} ms per map (CUDA events "
+                  f"over 3)")
+            if (cam.shape != (1,) + CAM_GRID or not np.isfinite(cam).all()
+                    or cam.min() < 0 or cam.max() > 1):
+                raise AssertionError("bad Grad-CAM map")
+            if launches != expect:
+                raise AssertionError(f"Grad-CAM: expected {expect}, got "
+                                     f"{launches}")
+        del model
+        torch.cuda.empty_cache()
+
+    _, (model, _) = entry_mod.entry(capture_cam=True, depth=4)
+    mhas = [m for m in model.modules() if hasattr(m, "attn_impl")]
+    errs = []
+    for q_mul in (1.0, 8.0):
+        with torch.no_grad():
+            for m in mhas:
+                m.Wqkv.weight[:m.Wqkv.weight.shape[1]] *= q_mul
+        cams = {}
+        for impl in ("auto", "naive"):
+            for m in mhas:
+                m.attn_impl = impl
+            cams[impl] = gradcam(model, x, layer=0, grid=CAM_GRID)
+        errs.append(float(np.abs(cams["auto"] - cams["naive"]).max()))
+        print(f"Grad-CAM flash vs naive (ViT-L 4 blocks, 4,097 tokens, bf16, "
+              f"layer 0, q x {q_mul:g}): max|dmap| {errs[-1]:.3e} (tol "
+              f"{TOL_CAM_NAIVE:.3e})")
+    if not max(errs) <= TOL_CAM_NAIVE:
+        raise AssertionError("flash and naive Grad-CAM maps disagree")
+    del model
+    torch.cuda.empty_cache()
+    return times, errs
+
+
+def run_dicom(torch, infer, run_dir):
+    """16.4: cli/infer.py on a .dcm written by write_dicom against the same
+    volume as .npy (no --saliency_dir: the card's machine has no
+    matplotlib)."""
+    import numpy as np
+
+    from octcubem_tpu_torch.data.dicom import write_dicom
+
+    vol = (np.random.default_rng(18).random((40, 200, 300)) * 255).astype(
+        np.uint8)
+    dcm, npy = (str(Path(run_dir) / n) for n in ("vol.dcm", "vol.npy"))
+    write_dicom(dcm, vol)
+    np.save(npy, vol)
+    t0 = time.time()
+    p_dcm = infer.main([dcm])
+    dcm_s = time.time() - t0
+    p_npy = infer.main([npy])
+    print(f"infer on a .dcm ({dcm_s:.2f} s with the model build, fp32): "
+          f"probs {p_dcm.shape}, equal to the .npy's: "
+          f"{np.array_equal(p_dcm, p_npy)}")
+    if (p_dcm.shape != (8, 2) or not np.isfinite(p_dcm).all()
+            or not np.array_equal(p_dcm, p_npy)):
+        raise AssertionError("infer on the .dcm and the .npy disagree")
+
+
+def run_phase16(torch, _cuda, entry_mod, serve, infer):
+    """Phase 16 -> its timings."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.rand((1, 48, 256, 256, 1), generator=gen, device="cuda")
+    fn, (model, _) = entry_mod.entry()
+    out = {}
+    out["bf16_ms"], out["int8_ms"] = run_int8(torch, _cuda, entry_mod, serve,
+                                              model, fn, x)
+    with tempfile.TemporaryDirectory() as run_dir:
+        out["export_s"], out["load_s"] = run_aot(
+            torch, _cuda, entry_mod, serve, model, fn, x, run_dir)
+        del model
+        torch.cuda.empty_cache()
+        out["cam_ms"], out["cam_naive_err"] = run_gradcam(
+            torch, _cuda, entry_mod, x)
+        run_dicom(torch, infer, run_dir)
+    return out
+
+
+# ------------------------------------------------- phase 17: the 2D MAE
+
+MAE2D_B1_B2 = {"flash_fwd_packed": 32, "flash_bwd_packed": 32}
+
+
+def mae2d_train_flops(d=1024, layers=24, dd=512, dlayers=8, img=224,
+                      patch=16, chans=1, mask=0.75) -> float:
+    """Analytic FLOPs of one 2D MAE train step per image (fwd + bwd = 3 x
+    fwd), as mae_train_flops counts the 3D one: the encoder on the kept
+    patches + cls, the decoder on every patch + cls; the patch embed runs
+    on every patch (the 2D module embeds, then gathers)."""
+    l_full = (img // patch) ** 2                          # 196
+    l_vis = int(l_full * (1 - mask)) + 1                  # 49 + cls
+    l_dec = l_full + 1
+    pix = patch * patch * chans
+    dense = (layers * 2 * l_vis * 12 * d * d + dlayers * 2 * l_dec * 12 * dd * dd
+             + 2 * l_full * pix * d + 2 * l_dec * dd * pix
+             + 2 * l_vis * d * dd)
+    attn = layers * 4 * l_vis * l_vis * d + dlayers * 4 * l_dec * l_dec * dd
+    return 3.0 * (dense + attn)
+
+
+def run_mae2d(torch, _cuda, optim, schedules, smi):
+    """17.1: mae_vit_large_patch16 (img 224, in_chans 1) in bf16 with fp32
+    params, batch 16, mask 0.75: three forward-backward + AdamW updates
+    (finite; the first at LR 0 leaves every param as it was; 32 B1 + 32
+    B2 launches each and no other kernel), then its time and peak beside
+    its bound."""
+    from octcubem_tpu_torch.models import mae2d
+
+    torch.cuda.empty_cache()
+    model = mae2d.create_model(mae2d.mae_vit_large_patch16, seed=3,
+                               img_size=224, in_chans=1, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((16, 224, 224, 1), generator=gen, device="cuda")
+    tx = optim.build_adamw(model, schedules.warmup_half_cosine(
+        1.6e-3, 0.0, 1, 50, 1000), weight_decay=0.05)
+    if tx.lr(0) != 0.0:
+        raise AssertionError(f"the schedule's first LR is {tx.lr(0)}")
+    l_full = (224 // 16) ** 2
+
+    def step():
+        noise = torch.rand((16, l_full), generator=gen, device="cuda")
+        tx.zero_grad()
+        loss = model(x, 0.75, noise)[0]
+        loss.backward()
+        tx.step()
+        return loss
+
+    names = [n for n, _ in model.named_parameters()]
+    before = [p.detach().clone() for p in model.parameters()]
+    for i in range(3):
+        _cuda.reset_launches()
+        loss = step().item()
+        torch.cuda.synchronize()
+        launches = _nonzero(_cuda.launches)
+        print(f"MAE 2D ViT-L/16 224 batch 16 step {i + 1}: loss {loss:.6f} "
+              f"lr {tx.lr(i):.4e} launches {launches}")
+        if not math.isfinite(loss):
+            raise AssertionError("non-finite 2D MAE loss")
+        if launches != MAE2D_B1_B2:
+            raise AssertionError(f"expected {MAE2D_B1_B2} per step and no "
+                                 f"other kernel, got {launches}")
+        if i == 0 and not all(torch.equal(a, p) for a, p in
+                              zip(before, model.parameters())):
+            raise AssertionError("params moved at the first update, whose "
+                                 "LR is 0")
+    still = sorted(n for n, a, p in zip(names, before, model.parameters())
+                   if torch.equal(a, p))
+    print(f"MAE 2D: {len(names) - len(still)} of {len(names)} params moved "
+          f"by steps 2-3; unmoved {still}")
+    if still:
+        raise AssertionError(f"params did not move: {still}")
+    del before
+    # the peak of the state held and the steps on it (no copy of the params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _elapsed_ms(step, 5, 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = 16 * mae2d_train_flops()
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    print(f"MAE 2D step (ViT-L/16 224, in_chans 1, batch 16, mask 0.75, "
+          f"bf16) on {smi}: {ms:.3f} ms per step (CUDA events over 5), "
+          f"{16 / ms * 1e3:.1f} images/s; bound {bound:.3f} ms ({flops:.3e} "
+          f"FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); max_memory_allocated "
+          f"{peak:.2f} GiB")
+    del model, tx, x
+    torch.cuda.empty_cache()
+    return ms, peak, bound
+
+
+def check_mae2d_vs_naive(torch):
+    """17.2: the 2D MAE cut to 2 + 2 blocks at batch 2, flash (B1 + B2)
+    against impl="naive": loss and per-leaf gradients, fp32 and bf16,
+    within TOL_NAIVE_2D."""
+    from octcubem_tpu_torch.models import mae2d
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((2, 224, 224, 1), generator=gen, device="cuda")
+    noise = torch.rand((2, 196), generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        model = mae2d.create_model(mae2d.mae_vit_large_patch16, seed=3,
+                                   img_size=224, in_chans=1, dtype=dtype,
+                                   depth=2, decoder_depth=2)
+        mhas = [m for m in model.modules() if hasattr(m, "attn_impl")]
+        res = {}
+        for impl in ("auto", "naive"):
+            for m in mhas:
+                m.attn_impl = impl
+            model.zero_grad(set_to_none=True)
+            loss = model(x, 0.75, noise)[0]
+            loss.backward()
+            res[impl] = (loss.item(), {n: p.grad.clone() for n, p in
+                                       model.named_parameters()
+                                       if p.grad is not None})
+        _compare_to_naive(f"MAE 2D ViT-L/16 {str(dtype)[6:]} (2+2 blocks, "
+                          f"50 / 197 tokens)", res, dtype, TOL_NAIVE_2D)
+        del model, res
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1870,7 +2330,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from octcubem_tpu_torch import entry as entry_mod
-    from octcubem_tpu_torch.cli import serve
+    from octcubem_tpu_torch.cli import infer, serve
     from octcubem_tpu_torch.nn import layers
     from octcubem_tpu_torch.ops import _cuda
     from octcubem_tpu_torch.ops import flash_attention as fa
@@ -1878,7 +2338,7 @@ def main() -> int:
     from octcubem_tpu_torch.parallel import sequence as sp
     from octcubem_tpu_torch.scripts import kablate
     from octcubem_tpu_torch.scripts.time_kernels import exp_rate
-    from octcubem_tpu_torch.train import optim
+    from octcubem_tpu_torch.train import optim, schedules
 
     # full-fp32 matmuls and convolutions for the fp32 comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1968,6 +2428,11 @@ def main() -> int:
     phase_done("14: B6 timings")
     run_phase15(torch, _cuda, entry_mod, optim, smi)
     phase_done("15: the joint step, remat_2d, pre-mask, resume, export")
+    run_phase16(torch, _cuda, entry_mod, serve, infer)
+    phase_done("16: int8, AOT, Grad-CAM, DICOM")
+    run_mae2d(torch, _cuda, optim, schedules, smi)
+    check_mae2d_vs_naive(torch)
+    phase_done("17: the 2D MAE")
 
     kernels = [{
         "name": "flash_fwd_packed", "route": "cuda",

@@ -3,10 +3,14 @@ octcubem_tpu/cli/infer.py): val-transform a volume to (48, 256, 256),
 run the ViT-L spatiotemporal classifier (dropout head, global pool),
 reshape the logits to (8, 2), softmax, print per-disease probabilities.
 
-    python -m octcubem_tpu_torch.cli.infer volume.npy --ckpt model.pth
+    python -m octcubem_tpu_torch.cli.infer volume.dcm --ckpt model.pth
+    python -m octcubem_tpu_torch.cli.infer volume.npy --saliency_dir out/
 
-Volumes are .npy [T, H, W]; DICOM input waits for data/dicom.py
-(ROADMAP A10).  Runs on the card unless ``--device cpu``.
+Volumes are .npy [T, H, W] or uncompressed little-endian DICOM
+(data/dicom.py).  ``--saliency_dir`` writes a Grad-CAM overlay PNG for
+the top-probability disease (utils/saliency.py, rendered by
+utils/visualization.py, which needs matplotlib).  Runs on the card
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ def build_model(args, device):
         t_patch_size=args.t_patch_size, img_size=args.input_size,
         in_chans=1, num_classes=args.nb_classes, num_heads=args.num_heads,
         head_type="dropout", global_pool=True, sep_pos_embed=True,
-        cls_embed=True, dtype=policy_from_name(args.precision).compute_dtype)
+        cls_embed=True, dtype=policy_from_name(args.precision).compute_dtype,
+        capture_cam=bool(getattr(args, "saliency_dir", None)))
     if args.ckpt:
         report = load_reference_weights(
             model, load_torch_checkpoint(args.ckpt), strict=True)
@@ -52,14 +57,16 @@ def build_model(args, device):
 
 
 def process_volume(path: str, num_frames: int, input_size: int) -> np.ndarray:
-    """.npy -> [1, T, H, W, 1] val-transformed volume (resize, /255)."""
+    """DICOM / .npy -> [1, T, H, W, 1] val-transformed volume (resize,
+    /255)."""
     from ..data.transforms import Transform3D
 
-    if not path.endswith(".npy"):
-        raise NotImplementedError(
-            "only .npy volumes are read; DICOM input is not ported yet "
-            "(ROADMAP A10)")
-    vol = np.load(path).astype(np.float32)
+    if path.endswith(".npy"):
+        vol = np.load(path).astype(np.float32)
+    else:
+        from ..data.dicom import read_dicom
+
+        vol = read_dicom(path).pixel_array.astype(np.float32)
     vol = Transform3D(input_size, num_frames)(vol) / 255.0
     return vol[None, ..., None]
 
@@ -84,7 +91,7 @@ def main(argv=None):
     from ..core.device import resolve_device
 
     parser = argparse.ArgumentParser("OCTCube single-volume inference (PyTorch)")
-    parser.add_argument("volume", help=".npy OCT volume [T, H, W]")
+    parser.add_argument("volume", help=".dcm or .npy OCT volume [T, H, W]")
     parser.add_argument("--ckpt", default=None,
                         help="reference .pth (any layout the importer "
                              "reads); seeded random weights when absent")
@@ -100,6 +107,10 @@ def main(argv=None):
                         default="fp32")
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs the plain path")
+    parser.add_argument("--saliency_dir", default=None,
+                        help="write a Grad-CAM overlay PNG for the "
+                             "top-probability disease into this directory "
+                             "(needs matplotlib)")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -110,12 +121,29 @@ def main(argv=None):
     # inputs fail fast
     vol = process_volume(args.volume, args.num_frames, args.input_size)
     model = build_model(args, device)
+    x = torch.from_numpy(vol).to(device)
     with torch.inference_mode():
-        logits = model(torch.from_numpy(vol).to(device))
+        logits = model(x)
     logits = logits.float().cpu().numpy().reshape(-1, 2)
     e = np.exp(logits - logits.max(axis=1, keepdims=True))
     probs = e / e.sum(axis=1, keepdims=True)
     print(parse_all_output(probs))
+
+    if args.saliency_dir:
+        # Grad-CAM of the top-probability disease's 'disease' logit (the
+        # (i, 1) column of the reshaped head), as heatmap overlays
+        from ..utils.saliency import gradcam
+        from ..utils.visualization import save_cam_overlays
+
+        top = int(np.argmax(probs[:, 1]))
+        t_grid = args.num_frames // args.t_patch_size
+        s_grid = args.input_size // model.patch_size
+        cam = gradcam(model, x, class_idx=2 * top + 1,
+                      grid=(t_grid, s_grid, s_grid))
+        name = DISEASES[1:][top] if top + 1 < len(DISEASES) else str(top)
+        path = save_cam_overlays(vol[0, ..., 0], cam[0], args.saliency_dir,
+                                 tag=f"cam_{name.replace(chr(92), '-')}")
+        print(f"saliency overlay: {path}")
     return probs
 
 

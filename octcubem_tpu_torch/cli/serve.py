@@ -2,6 +2,8 @@
 octcubem_tpu/cli/serve.py), stdlib HTTP only.
 
     python -m octcubem_tpu_torch.cli.serve --ckpt model.pth --port 8476
+    python -m octcubem_tpu_torch.cli.serve --ckpt model.pth --quant int8
+    python -m octcubem_tpu_torch.cli.serve --aot model.octaot
 
 Endpoints:
   GET  /healthz   -> {"status": "ok", ...model meta}
@@ -17,8 +19,10 @@ with seeded random weights and, from ``--ckpt``, the JAX server's import
 (the geometry stamp checked first, ``strict=False``: params the file
 lacks keep the init, keys with no slot are dropped; /healthz lists both
 under "import"), on the card unless ``--device cpu``, and warmed before
-the port opens.  Frozen artifacts (``--aot``) and int8 (``--quant
-int8``) are not ported yet (ROADMAP A10).
+the port opens.  ``--quant int8`` builds the float model, imports the
+checkpoint, quantizes the block projections (ops/quant.py) and loads
+them into a ``quant=True`` model.  ``--aot`` serves a frozen artifact
+(compat/aot.py: no model code, shapes from its header) instead.
 """
 
 from __future__ import annotations
@@ -42,6 +46,16 @@ DISEASES = ["DME", "AMD", "POAG", "EPM", "DR", "VD", "RAO_RVO", "RNV"]
 MAX_BODY_BYTES = 512 * 1024 * 1024
 
 
+def _predictor(fn, device):
+    def predict(x: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            out = fn(torch.from_numpy(x).to(device))
+        out = out[0] if isinstance(out, tuple) else out
+        return out.float().cpu().numpy()
+
+    return predict
+
+
 def build_predictor(args):
     """Returns (predict(vol_f32[B, T, H, W, 1]) -> logits, meta dict)."""
     from ..compat.torch_import import (check_geometry_stamp,
@@ -50,38 +64,47 @@ def build_predictor(args):
     from ..core.device import resolve_device
     from ..core.precision import policy_from_name
     from ..models.vit_st import VisionTransformerST, create_model
+    from ..ops.quant import quantize_state_dict
 
     if args.aot:
-        raise NotImplementedError(
-            "--aot serving artifacts are not ported yet (ROADMAP A10)")
-    if args.quant == "int8":
-        raise NotImplementedError(
-            "--quant int8 is not ported yet (ROADMAP A10)")
+        from ..compat.aot import load_serving_artifact
+
+        device = resolve_device(args.device)
+        fn, meta = load_serving_artifact(args.aot, device)
+        b, t, s = meta["in_shapes"][0][:3]
+        return _predictor(fn, device), {
+            "source": args.aot, "batch": b, "num_frames": t, "input_size": s,
+            "nb_classes": meta.get("nb_classes", 16),
+            "quant": meta.get("quant", "none"), "device": str(device)}
+
     if args.ckpt:
         check_geometry_stamp(args.ckpt, args.num_heads or 16)
     device = resolve_device(args.device)
-    model = create_model(
-        VisionTransformerST, device=device, seed=args.seed,
+    model_kw = dict(
         num_frames=args.num_frames, t_patch_size=3, img_size=args.input_size,
         in_chans=1, num_classes=args.nb_classes,
         embed_dim=args.embed_dim or 1024, depth=args.depth or 24,
         num_heads=args.num_heads or 16, head_type="dropout", global_pool=True,
         dtype=policy_from_name(args.precision).compute_dtype)
+    model = create_model(VisionTransformerST, device=device, seed=args.seed,
+                         **model_kw)
     report = {"missing": [], "unexpected": []}
     if args.ckpt:
         report = load_reference_weights(
             model, load_torch_checkpoint(args.ckpt), strict=False)
+    if args.quant == "int8":
+        float_model = model
+        model = create_model(VisionTransformerST, device=device,
+                             seed=args.seed, quant=True, **model_kw)
+        model.load_state_dict(quantize_state_dict(float_model.state_dict()),
+                              strict=True)
+        del float_model
 
-    def predict(x: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            out = model(torch.from_numpy(x).to(device))
-        return out.float().cpu().numpy()
-
-    return predict, {"source": args.ckpt or "random-init", "batch": 1,
-                     "num_frames": args.num_frames,
-                     "input_size": args.input_size,
-                     "nb_classes": args.nb_classes, "quant": args.quant,
-                     "device": str(device), "import": report}
+    return _predictor(model, device), {
+        "source": args.ckpt or "random-init", "batch": 1,
+        "num_frames": args.num_frames, "input_size": args.input_size,
+        "nb_classes": args.nb_classes, "quant": args.quant,
+        "device": str(device), "import": report}
 
 
 def make_handler(predict, meta, val_transform, lock):
@@ -166,7 +189,8 @@ def make_handler(predict, meta, val_transform, lock):
 def main(argv=None, started_event=None, server_box=None):
     parser = argparse.ArgumentParser("OCTCube inference server (PyTorch)")
     parser.add_argument("--aot", default=None,
-                        help="frozen serving artifact (not ported yet)")
+                        help="frozen serving artifact (compat/aot.py); "
+                             "its header gives the input shape")
     parser.add_argument("--ckpt", default=None,
                         help="reference .pth (any layout the importer "
                              "reads); seeded random weights when absent")

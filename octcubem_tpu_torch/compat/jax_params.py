@@ -4,8 +4,11 @@ The port's own copy of the key and layout rules of the JAX package's
 flash-layout exporter (``compat/torch_export.py``): blocks_i -> i,
 Dense ``kernel`` [in, out] -> ``weight`` [out, in], LayerNorm ``scale``
 -> ``weight``, the patch-embed ``kernel`` [t, p, p, C, D] -> Conv3d
-``proj.weight`` [D, C, t, p, p].  Input leaves are numpy arrays (or
-anything ``np.asarray`` reads); no JAX is needed.
+``proj.weight`` [D, C, t, p, p].  A quantized tree (the JAX package's
+``ops.quant.quantize_tree``) maps too: a ``QuantDense``'s ``kernel_q``
+int8 [in, out] -> ``weight_q`` int8 [out, in], its ``scale`` -> ``scale``
+(ops/quant.py's layout).  Input leaves are numpy arrays (or anything
+``np.asarray`` reads); no JAX is needed.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ..ops.quant import QUANT_MODULES
 
 
 def _flatten(tree: Any, prefix=()) -> dict[tuple, Any]:
@@ -27,7 +32,8 @@ def _flatten(tree: Any, prefix=()) -> dict[tuple, Any]:
 
 def _to_torch_key(path: tuple[str, ...]) -> tuple[str, str]:
     """Flax param path -> (state-dict key, kind), kind in 'linear_w' |
-    'conv_patch' | 'direct': the layout transform the value needs."""
+    'linear_q' | 'conv_patch' | 'direct': the layout transform the value
+    needs."""
     parts: list[str] = []
     kind = "direct"
     for p in path:
@@ -43,8 +49,14 @@ def _to_torch_key(path: tuple[str, ...]) -> tuple[str, str]:
                 parts.append("weight")
                 kind = "linear_w"
             continue
+        if p == "kernel_q":
+            parts.append("weight_q")
+            kind = "linear_q"
+            continue
         if p == "scale":
-            parts.append("weight")
+            # a LayerNorm's scale is its weight; a QuantDense's stays scale
+            quant = len(path) >= 2 and path[-2] in QUANT_MODULES
+            parts.append("scale" if quant else "weight")
             continue
         if p == "bias" and len(path) >= 2 and path[-2].endswith("patch_embed"):
             parts.extend(("proj", "bias"))
@@ -55,13 +67,14 @@ def _to_torch_key(path: tuple[str, ...]) -> tuple[str, str]:
 
 def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """Flax params (with or without the 'params' root) -> {key: fp32
-    torch.Tensor} in the port's (reference flash) layout."""
+    torch.Tensor (int8 for ``weight_q``)} in the port's (reference flash)
+    layout."""
     tree = params["params"] if "params" in params else params
     out: dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(dict(tree)).items():
         key, kind = _to_torch_key(path)
-        arr = np.asarray(leaf, np.float32)
-        if kind == "linear_w":
+        arr = np.asarray(leaf, np.int8 if kind == "linear_q" else np.float32)
+        if kind in ("linear_w", "linear_q"):
             arr = arr.T                          # [in, out] -> [out, in]
         elif kind == "conv_patch":
             if arr.ndim == 5:                    # [t,p,p,C,D] -> [D,C,t,p,p]

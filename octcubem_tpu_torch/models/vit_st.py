@@ -8,6 +8,11 @@ checkpoint-output parity needs:
   to the head; ``norm``'s parameters are still kept, so reference
   state dicts load strictly.
 
+``quant=True`` is the int8 serving model: the block projections are
+``QuantDense`` (load ``ops.quant.quantize_state_dict`` of a float
+model's state dict); ``capture_cam=True`` records the activations
+``utils.saliency.gradcam`` reads (nn/layers.py).
+
 Parameter names are the reference PyTorch ones (``patch_embed.proj.weight``
 [D, C, t, p, p], ``blocks.{i}.mixer.Wqkv.weight`` [out, in], ...).
 """
@@ -42,12 +47,6 @@ class VisionTransformerST(nn.Module):
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
                  remat: bool = False, quant: bool = False):
         super().__init__()
-        for flag, item, what in (
-                (capture_cam, "A10", "capture_cam (saliency)"),
-                (quant, "A10", "quant (int8 serving)")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})")
         if head_type not in ("aggregate", "dropout"):
             raise ValueError(f"unknown head_type {head_type!r}")
         self.num_frames, self.t_patch_size = num_frames, t_patch_size
@@ -84,7 +83,8 @@ class VisionTransformerST(nn.Module):
             self.pos_embed = nn.Parameter(torch.zeros(1, n, embed_dim))
         self.blocks = TransformerStack(
             depth, embed_dim, num_heads, mlp_ratio, qkv_bias, drop_path_rate,
-            dtype=dtype, attn_impl=attn_impl, parity=parity, remat=remat)
+            dtype=dtype, attn_impl=attn_impl, parity=parity, remat=remat,
+            quant=quant, capture_cam=capture_cam)
         self.norm = LayerNorm(embed_dim)
         if head_type == "aggregate":
             self.fc_aggregate_cls = Dense(embed_dim, embed_dim,
@@ -192,7 +192,13 @@ def init_params(model: VisionTransformerST, generator: torch.Generator):
     """Seeded random weights with flax's default distributions: lecun
     truncated-normal Dense kernels, xavier-uniform patch kernel,
     N(0, 0.02) head, truncated N(0, 0.02) pos embeds, zero cls token and
-    biases, unit LayerNorm scales."""
+    biases, unit LayerNorm scales; a quant model's int8 weights 0 and
+    scales 1, as the JAX QuantDense initialises them."""
+    for name, b in model.named_buffers():
+        if name.endswith("weight_q"):
+            b.zero_()
+        elif name.endswith(".scale"):
+            b.fill_(1.0)
     for name, p in model.named_parameters():
         if name.endswith("bias") or name == "cls_token":
             p.zero_()

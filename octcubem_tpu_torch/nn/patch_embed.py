@@ -1,8 +1,10 @@
-"""Tube patch embedding module (counterpart of octcubem_tpu/nn/patch_embed.py).
+"""Patch embedding modules (counterpart of octcubem_tpu/nn/patch_embed.py).
 
-Parameters keep the reference Conv3d layout, ``proj.weight``
-[D, C, t, p, p] and ``proj.bias`` [D], so reference checkpoints load
-with ``load_state_dict(strict=True)``.
+Parameters keep the reference layouts, Conv3d ``proj.weight``
+[D, C, t, p, p] (tube patches) and Conv2d ``proj.weight`` [D, C, p, p]
+(2D patches), with ``proj.bias`` [D], so reference checkpoints load with
+``load_state_dict(strict=True)``.  The forwards are a block reshape and
+one matmul (ops/patchify.py says why).
 """
 
 from __future__ import annotations
@@ -14,13 +16,15 @@ from ..ops.patchify import tube_embed
 
 
 class _Proj(nn.Module):
-    """Holds the Conv3d-layout parameters; the forward is a matmul."""
+    """Holds the Conv3d-layout parameters (Conv2d's with ``t_patch``
+    None); the forward is a matmul."""
 
-    def __init__(self, embed_dim: int, in_chans: int, t_patch: int,
+    def __init__(self, embed_dim: int, in_chans: int, t_patch: int | None,
                  patch: int):
         super().__init__()
+        tube = () if t_patch is None else (t_patch,)
         self.weight = nn.Parameter(
-            torch.empty(embed_dim, in_chans, t_patch, patch, patch))
+            torch.empty(embed_dim, in_chans, *tube, patch, patch))
         self.bias = nn.Parameter(torch.zeros(embed_dim))
 
 
@@ -46,3 +50,31 @@ class PatchEmbed3D(nn.Module):
                              f"{self.img_size}")
         return tube_embed(x.to(self.dtype), self.proj.weight, self.proj.bias,
                           self.t_patch_size, self.patch_size)
+
+
+class PatchEmbed2D(nn.Module):
+    """[B, H, W, C] channel-last -> [B, h*w, D] patch embedding in
+    ``dtype`` (a Conv2d with kernel == stride); tokens in (h, w) order,
+    within-patch order (p, q, c)."""
+
+    def __init__(self, img_size: int, patch_size: int, in_chans: int,
+                 embed_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.img_size = img_size
+        self.patch_size = patch_size
+        self.grid_size = img_size // patch_size
+        self.num_patches = self.grid_size ** 2
+        self.dtype = dtype
+        self.proj = _Proj(embed_dim, in_chans, None, patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        p = self.patch_size
+        hh, ww = h // p, w // p
+        d = self.proj.weight.shape[0]
+        x = x.to(self.dtype).reshape(b, hh, p, ww, p, c)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(b * hh * ww, p * p * c)
+        # [D, C, p, q] -> [p, q, C, D]
+        kernel = self.proj.weight.permute(2, 3, 1, 0).reshape(-1, d)
+        out = torch.matmul(x, kernel.to(x.dtype)).reshape(b, hh * ww, d)
+        return out + self.proj.bias.to(x.dtype)

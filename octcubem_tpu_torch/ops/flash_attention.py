@@ -46,6 +46,18 @@ whose cotangent folds into delta.  The backward takes delta precomputed
 as well (the JAX ``_bwd_rect_prepare`` / ``_bwd_rect_core`` split), so
 ring attention forms it once and not once per ring step.
 
+B1 on the fused buffer is a ``torch.library`` custom op,
+``octcubem_tpu_torch::flash_fwd_packed_qkv`` (``flash_fwd_packed_qkv_op``):
+its CUDA implementation launches the kernel, its CPU one is the plain
+version, and a fake gives the output shapes.  A forward that records no
+gradient (serving) calls it, so ``torch.export`` keeps it in its graph
+as one node per block (compat/aot.py): an exported program launches B1
+on the card and runs the plain version on the CPU.  A forward under
+autograd runs ``FlashPackedQKV``, which calls the kernels directly: the
+op's dispatch adds host time to every call, and two of the host-bound
+training steps read slower with it in every run of an A/B on the card
+(PERF.md §6).
+
 The JAX kernels pad the sequence to their tile and remove the known
 e^-SHIFT mass of the zero pad keys (and of the zero "phantom" cls used
 when n % 128 != 1, and of the zero tail keys past ``kv_valid``); the CUDA
@@ -721,6 +733,30 @@ def _split_qkv(qkv, cls: bool):
     return q, k, v, None, None
 
 
+@torch.library.custom_op("octcubem_tpu_torch::flash_fwd_packed_qkv",
+                         mutates_args=(), device_types="cpu")
+def flash_fwd_packed_qkv_op(qkv: torch.Tensor, num_heads: int, scale: float,
+                            cls: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 over the fused [B, N, 3*H*D] buffer -> (o [B, m, H*D], lse
+    [B, H, m] fp32), m = N - cls, on the fused buffer's column views
+    (``_split_qkv``).  This is the CPU implementation, the plain
+    version."""
+    return fwd_packed_plain(*_split_qkv(qkv, cls), num_heads, scale)
+
+
+@flash_fwd_packed_qkv_op.register_kernel("cuda")
+def _flash_fwd_packed_qkv_cuda(qkv, num_heads, scale, cls):
+    return fwd_packed_cuda(*_split_qkv(qkv, cls), num_heads, scale)
+
+
+@flash_fwd_packed_qkv_op.register_fake
+def _flash_fwd_packed_qkv_fake(qkv, num_heads, scale, cls):
+    b, n, hd3 = qkv.shape
+    m = n - int(cls)
+    return (qkv.new_empty((b, m, hd3 // 3)),
+            qkv.new_empty((b, num_heads, m), dtype=torch.float32))
+
+
 class FlashPackedQKV(torch.autograd.Function):
     """B1 forward, B2 backward over the fused [B, N, 3*H*D] buffer (the
     JAX ``_flash_packed_fused``): ``apply(qkv, num_heads, scale, cls)`` ->
@@ -884,7 +920,9 @@ def flash_attention_packed_qkv(qkv, num_heads: int,
     A head_dim outside ``HEAD_DIMS``, or ``no_max=False``, goes to
     ``flash_attention`` on the [B, H, N, D] views of the buffer (batch
     stride N*3*H*D, head stride D, row stride 3*H*D), which B3-B7 read
-    with no transpose copy."""
+    with no transpose copy.  With no gradient to record, B1 runs as the
+    custom op ``flash_fwd_packed_qkv_op`` (the module docstring says
+    why)."""
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
     d = _split_heads(hd, num_heads)
@@ -894,7 +932,10 @@ def flash_attention_packed_qkv(qkv, num_heads: int,
         return flash_attention_packed(q, k, v, num_heads, scale=scale,
                                       no_max=no_max)
     cls = _cls_split(n)
-    out, _ = FlashPackedQKV.apply(qkv, num_heads, scale, cls)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        out, _ = FlashPackedQKV.apply(qkv, num_heads, scale, cls)
+    else:
+        out, _ = flash_fwd_packed_qkv_op(qkv, num_heads, scale, cls)
     if not cls:
         return out
     q, k, v, _, _ = _split_qkv(qkv, False)

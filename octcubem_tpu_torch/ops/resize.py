@@ -95,3 +95,18 @@ def resize_seq_linear(x: torch.Tensor, out_len: int) -> torch.Tensor:
     if t == out_len:
         return x
     return torch.einsum("Tt,...td->...Td", _matrix(t, out_len, "linear", x), x)
+
+
+def resize_volume_trilinear(x: torch.Tensor,
+                            out_thw: tuple[int, int, int]) -> torch.Tensor:
+    """Trilinear-resize a volume: [..., T, H, W] -> [..., T', H', W']
+    (torch ``interpolate(mode='trilinear', align_corners=False)``, the
+    reference's val-transform resize), as three matrix products along T,
+    then H, then W."""
+    t, h, w = x.shape[-3], x.shape[-2], x.shape[-1]
+    ot, oh, ow = out_thw
+    if (t, h, w) == (ot, oh, ow):
+        return x
+    x = torch.einsum("Tt,...thw->...Thw", _matrix(t, ot, "linear", x), x)
+    x = torch.einsum("Hh,...thw->...tHw", _matrix(h, oh, "linear", x), x)
+    return torch.einsum("Ww,...thw->...thW", _matrix(w, ow, "linear", x), x)

@@ -32,6 +32,12 @@ plain graph's loss and its gradients within chip_smoke.py's run-to-run
 limit; a
 TrainState on the card survives an async checkpoint bit for bit.
 
+B1's custom op (the serving forward) launches B1 on the card and equals
+its CPU implementation, the plain version, to the B1 tolerances; the
+card's int8 GEMM refuses the shapes it cannot take and equals the CPU's
+int32 product; an AOT artifact round trip on the card equals the live
+model and launches one B1 per block.
+
 Batch 2 throughout, and the cls-fold dO is the [:, 1:] slice of a
 [B, m + 1, H*D] buffer, as autograd hands it over after the cls row's
 concat: the kernels' batch strides are exercised.  B3-B5 and B7 take
@@ -582,3 +588,90 @@ def test_train_state_round_trip_on_card(gen, tmp_path):
                zip(live.tx.mu + live.tx.nu, fresh.tx.mu + fresh.tx.nu))
     assert step(live, x, 0.9)[1]["loss"].item() == \
         fstep(fresh, x, 0.9)[1]["loss"].item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [129, 200])
+def test_flash_op_cuda_matches_its_cpu_implementation(gen, dtype, n):
+    """octcubem_tpu_torch::flash_fwd_packed_qkv: its CUDA implementation
+    (one B1 launch) against its CPU one (the plain version) on the same
+    inputs, with (n = 129) and without (n = 200) the cls fold."""
+    h, d = 4, 64
+    qkv = torch.randn((2, n, 3 * h * d), generator=gen,
+                      device="cuda").to(dtype)
+    cls = fa._cls_split(n)
+    _cuda.reset_launches()
+    o, lse = fa.flash_fwd_packed_qkv_op(qkv, h, d ** -0.5, cls)
+    torch.cuda.synchronize()
+    assert _cuda.launches["flash_fwd_packed"] == 1
+    o_ref, lse_ref = fa.flash_fwd_packed_qkv_op(qkv.cpu(), h, d ** -0.5, cls)
+    assert o.shape == (2, n - cls, h * d) and lse.shape == (2, h, n - cls)
+    atol, rtol = TOL_O[dtype]
+    torch.testing.assert_close(o.float().cpu(), o_ref.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse.cpu(), lse_ref, atol=1e-4, rtol=0)
+    with torch.no_grad():  # the serving path goes through the op
+        _cuda.reset_launches()
+        fa.flash_attention_packed_qkv(qkv, h)
+        assert _cuda.launches["flash_fwd_packed"] == 1
+
+
+def test_int_mm_shape_guard(gen):
+    """torch._int_mm on the card takes M > 16 and K, N multiples of 8: the
+    wrapper refuses the rest by name; what it takes equals the CPU's
+    int32 product, and int8_matmul equals the CPU's to an fp32 ulp."""
+    from octcubem_tpu_torch.ops import quant
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    for m, k, n in ((16, 64, 64), (64, 60, 64), (64, 64, 60)):
+        with pytest.raises(ValueError, match="M > 16 rows and K, N"):
+            quant.int8_mm(i8(m, k), i8(n, k))
+    for m, k, n in ((17, 64, 64), (4097, 1024, 3072), (300, 4096, 1024)):
+        a, w = i8(m, k), i8(n, k)
+        got = quant.int8_mm(a, w)
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.cpu(), quant.int8_mm(a.cpu(), w.cpu()))
+    x = torch.randn((2, 33, 256), generator=gen, device="cuda")
+    wq, ws = quant.quantize_weight(torch.randn((512, 256), generator=gen,
+                                               device="cuda"))
+    torch.testing.assert_close(quant.int8_matmul(x, wq, ws).cpu(),
+                               quant.int8_matmul(x.cpu(), wq.cpu(),
+                                                 ws.cpu()),
+                               rtol=1e-6, atol=0)
+
+
+def test_aot_round_trip_on_card(gen, tmp_path):
+    """A narrow classifier exported on the card, written, loaded: one B1 op
+    call and one B1 launch per block, the live logits; exported on the CPU
+    for both platforms, it runs on the card the same way."""
+    from octcubem_tpu_torch.compat import aot
+    from octcubem_tpu_torch.models import vit_st
+
+    kw = dict(num_frames=6, t_patch_size=3, img_size=64, in_chans=1,
+              num_classes=4, embed_dim=128, depth=2, num_heads=2,
+              head_type="dropout", dtype=torch.bfloat16)
+    model = vit_st.create_model(vit_st.VisionTransformerST, seed=1, **kw)
+    x = torch.rand((1, 6, 64, 64, 1), generator=gen, device="cuda")
+    with torch.inference_mode():
+        live = model(x)
+    path = aot.export_serving_artifact(model, (x,), str(tmp_path / "a"))
+    cpu_model = vit_st.create_model(vit_st.VisionTransformerST, seed=1,
+                                    device="cpu", **kw)
+    cpu_model.load_state_dict(model.state_dict())
+    both = aot.export_serving_artifact(cpu_model, (x.cpu(),),
+                                       str(tmp_path / "b"),
+                                       platforms=("cuda", "cpu"))
+    for p in (path, both):
+        fn, meta = aot.load_serving_artifact(p)
+        assert aot.flash_op_calls(fn.program) == 2
+        _cuda.reset_launches()
+        out = fn(x)
+        torch.cuda.synchronize()
+        assert _cuda.launches["flash_fwd_packed"] == 2
+        assert out.is_cuda and torch.equal(out, live), meta["exported_on"]
+    with pytest.raises(ValueError, match="exported for"):
+        aot.load_serving_artifact(aot.export_serving_artifact(
+            cpu_model, (x.cpu(),), str(tmp_path / "c")))

@@ -17,6 +17,7 @@ from octcubem_tpu.cli import infer as jinfer
 from octcubem_tpu.data.transforms import create_3d_transforms
 from octcubem_tpu_torch.cli import infer as tinfer
 from octcubem_tpu_torch.cli import serve
+from octcubem_tpu_torch.data.dicom import write_dicom
 from octcubem_tpu_torch.data.transforms import Transform3D
 from octcubem_tpu_torch.models.vit_st import VisionTransformerST, create_model
 
@@ -115,10 +116,21 @@ def test_predict_rejects_oversized_body(server):
         conn.close()
 
 
-def test_unported_serving_options_raise():
-    for extra in (["--aot", "m.octaot"], ["--quant", "int8"]):
-        with pytest.raises(NotImplementedError, match="A10"):
-            serve.main(ARGS + extra)
+def test_unported_serving_options_raise(tmp_path):
+    """A10 ported both options: --quant int8 serves (its parity test is
+    test_torch_port_quant.py), --aot loads an artifact (a file that is
+    none is refused; test_torch_port_aot.py serves one)."""
+    bad = tmp_path / "m.octaot"
+    bad.write_bytes(b"not an artifact")
+    with pytest.raises(ValueError, match="not an OCTPU-AOT1 artifact"):
+        serve.main(ARGS + ["--aot", str(bad)])
+    predict, meta = serve.build_predictor(serve.argparse.Namespace(
+        aot=None, ckpt=None, device="cpu", seed=3, num_frames=6,
+        input_size=32, nb_classes=4, precision="fp32", quant="int8",
+        embed_dim=64, depth=2, num_heads=2))
+    assert meta["quant"] == "int8"
+    logits = predict(np.zeros((1, 6, 32, 32, 1), np.float32))
+    assert logits.shape == (1, 4) and np.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("shape,normalize", [((7, 50, 60), False),
@@ -143,7 +155,9 @@ def test_infer_helpers_match_jax(tmp_path):
     np.testing.assert_allclose(tinfer.process_volume(path, 6, 32),
                                jinfer.process_volume(path, 6, 32),
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tinfer.process_volume(str(tmp_path / "vol.dcm"), 6, 32)
+    dcm = str(tmp_path / "vol.dcm")  # DICOM (A10): test_torch_port_dicom.py
+    write_dicom(dcm, vol.astype(np.uint8))
+    np.testing.assert_allclose(tinfer.process_volume(dcm, 6, 32),
+                               jinfer.process_volume(dcm, 6, 32), atol=1e-6)
     probs = np.random.default_rng(1).dirichlet([1, 1], size=8)
     assert tinfer.parse_all_output(probs) == jinfer.parse_all_output(probs)
