@@ -113,8 +113,24 @@ Phases, each fatal on failure (no phase's error is caught):
      other kernel), the step's time and peak beside its bound; at 2 + 2
      blocks, batch 2, flash against impl="naive" in loss and per-leaf
      gradients, fp32 and bf16.  Phase 3 holds B1 and B2 at its shapes
-     (n 50 and 197) and B2 at the serving shape.  Then one
-     {"kernels": [...]} line with B1-B8.
+     (n 50 and 197) and B2 at the serving shape;
+ 18. cli/pretrain.py in process on the card (octcubem_tpu_torch.cli.
+     pretrain.main): the vitl_joint_pretrain preset at full width on 56
+     synthetic volumes (batch 4, the 2D batch 64 in 4 microbatches), two
+     epochs of two steps with a torch.profiler trace (args.json, log.txt,
+     the SPL pickles, ckpt/{0,1}, the trace naming B1's and B2's kernels,
+     its idle share); --resume latest into a third epoch (the state bit
+     for bit before its first step, the 2D mask 0.80: B1 / B2 at n 205,
+     which phase 3 also holds, the SPL dict reloaded);
+     training_continue_reset_optim (the saved params, a fresh optimizer,
+     epoch 0); the preset's first logged loss against one
+     make_mae_train_step step on the CLI loaders' first batches at the
+     CLI's seeds (TOL_CLI_LOSS); --mode 2d (the ViT-L/16 2D MAE at 224,
+     batch 16); 160 B1 + 160 B2 launches in every joint step and 32 + 32
+     in every 2D update; the CLI's step time (host wall and CUDA events),
+     peak, model build and checkpoint staging seconds beside
+     time_joint's direct step.  Then one {"kernels": [...]} line with
+     B1-B8.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -205,8 +221,13 @@ def _kernel_args(qkv, num_heads):
 
 # (B, n, H, D, q scale) of the vitl_joint_pretrain step's 2D branch, at the
 # microbatch of accum_2d=4 (64 / 4): the encoder at 256 visible patches of
-# a 512x512 image (mask 0.75) + cls, folded; the decoder at 1,024 + cls
-JOINT_2D_CASES = [(16, 257, 16, 64, 1.0), (16, 1025, 16, 32, 1.0)]
+# a 512x512 image (mask 0.75) + cls, folded; the decoder at 1,024 + cls;
+# and the encoder at the 2D mask ratio cli/pretrain.py's schedule gives a
+# third epoch after one warmup epoch (0.80: int(1024 * 0.19999...) = 204
+# visible + cls = 205, 205 % 128 = 77, no fold), which phase 18's resumed
+# run reaches
+JOINT_2D_CASES = [(16, 257, 16, 64, 1.0), (16, 1025, 16, 32, 1.0),
+                  (16, 205, 16, 64, 1.0)]
 # (B, n, H, D, q scale) of the 2D MAE (mae_vit_large_patch16 at 224, batch
 # 16, mask 0.75): the encoder at 49 kept patches + cls, the decoder at
 # 196 + cls, neither folded (n % 128 != 1)
@@ -1779,7 +1800,7 @@ def run_export_and_serve(torch, _cuda, run_dir):
     torch_import.load_reference_weights(
         model, torch_import.load_torch_checkpoint(pth), strict=False)
     worst = 0.0
-    inputs = vols + [Transform3D(256, 48)(raw) / 255.0]
+    inputs = vols + [Transform3D(256, 48, train=False)(raw) / 255.0]
     for (code, out), v in zip(answers, inputs):
         with torch.inference_mode():
             probs = _disease_probs(model(torch.from_numpy(v[None, ..., None])
@@ -2318,6 +2339,389 @@ def check_mae2d_vs_naive(torch):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------- phase 18: the pretraining CLI
+
+# the full-width flags of the vitl_joint_pretrain runs: 56 volumes make a
+# 2D dataset of 224 images, whose smallest SPL subset (K 0.3) holds 67, so
+# the 2D batch stays 64 (4 microbatches of 16)
+CLI_JOINT = ["--preset", "vitl_joint_pretrain", "--synthetic",
+             "--synthetic_n", "56", "--batch_size", "4"]
+# the CLI's first-step loss against the engine's step on the same batch:
+# the same kernels on the same inputs in the same order, so bit-equal is
+# expected; relative
+TOL_CLI_LOSS = 1e-6
+
+
+class CliProbe:
+    """What phase 18 reads from inside a CLI run without changing what the
+    run does: for each step, its launches (the counters set to 0 just
+    before it), the host clock when it was issued, CUDA events around it,
+    its keyword arguments and its metrics; the seconds to build each model
+    and to stage each checkpoint; the seconds the main thread waited on
+    each loader for each batch (the loader stall), by dataset; and a check
+    of the state the run's first step sees.  ``patch(pretrain)`` wraps the
+    functions the CLI calls."""
+
+    def __init__(self, torch, _cuda):
+        self.torch, self._cuda = torch, _cuda
+        self.steps, self.build_s, self.stage_s = [], [], []
+        self.waits = []
+        self.on_first = None
+
+    def _wrap_step(self, step):
+        torch, _cuda = self.torch, self._cuda
+
+        def wrapped(state, *args, **kw):
+            if self.on_first is not None:
+                self.on_first(state)
+                self.on_first = None
+            _cuda.reset_launches()
+            # the allocator counts on the host as the step is issued, so
+            # the peak is read without waiting for the card
+            torch.cuda.reset_peak_memory_stats()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            t = time.perf_counter()
+            ev[0].record()
+            out = step(state, *args, **kw)
+            ev[1].record()
+            self.steps.append({
+                "t": t, "ev": ev, "kw": kw, "out": out[1:],
+                "launches": _nonzero(_cuda.launches),
+                "peak": torch.cuda.max_memory_allocated() / 2 ** 30})
+            return out
+
+        return wrapped
+
+    @contextlib.contextmanager
+    def patch(self, pretrain):
+        from octcubem_tpu_torch.core import checkpoint
+        from octcubem_tpu_torch.data.loader import Loader
+        from octcubem_tpu_torch.models import mae2d, mae3d
+        from octcubem_tpu_torch.train import mae_engine
+
+        def timed(fn, into):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                into.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        def waited(iterate):
+            def gen(loader):
+                it = iterate(loader)
+                kind = type(loader.dataset).__name__
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    self.waits.append((kind, time.perf_counter() - t0))
+                    yield batch
+            return gen
+
+        saved = [(mae_engine, "make_mae_train_step"),
+                 (pretrain, "make_2d_step"), (mae3d, "create_model"),
+                 (mae2d, "create_model"), (checkpoint, "save_checkpoint"),
+                 (Loader, "__iter__")]
+        saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+        make3, make2 = saved[0][2], saved[1][2]
+        mae_engine.make_mae_train_step = (
+            lambda *a, **k: self._wrap_step(make3(*a, **k)))
+        pretrain.make_2d_step = lambda *a, **k: self._wrap_step(make2(*a, **k))
+        mae3d.create_model = timed(saved[2][2], self.build_s)
+        mae2d.create_model = timed(saved[3][2], self.build_s)
+        checkpoint.save_checkpoint = timed(saved[4][2], self.stage_s)
+        Loader.__iter__ = waited(saved[5][2])
+        try:
+            yield self
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    def take(self):
+        """-> (steps, build seconds, staging seconds) since the last take;
+        prints the loader stalls."""
+        self.torch.cuda.synchronize()
+        out = list(self.steps), list(self.build_s), list(self.stage_s)
+        stalls = {}
+        for kind, sec in self.waits:
+            stalls.setdefault(kind, []).append(round(sec * 1e3, 3))
+        if stalls:
+            print(f"loader stall (ms the main thread waited for each batch, "
+                  f"in order) {stalls}")
+        for acc in (self.steps, self.build_s, self.stage_s, self.waits):
+            acc.clear()
+        return out
+
+
+def _cli_steps(what, steps, want):
+    """Every step: ``want`` launches and no other kernel, a finite loss
+    (and grad norm).  -> the losses."""
+    losses = []
+    for i, s in enumerate(steps):
+        loss = s["out"][0]["loss"] if isinstance(s["out"][0], dict) \
+            else s["out"][0]
+        loss = loss.item()
+        gn = (s["out"][0]["grad_norm"].item()
+              if isinstance(s["out"][0], dict) else 0.0)
+        losses.append(loss)
+        if s["launches"] != want:
+            raise AssertionError(f"{what} step {i + 1}: expected {want} and "
+                                 f"no other kernel, got {s['launches']}")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"{what} step {i + 1}: loss {loss}, "
+                                 f"grad norm {gn}")
+    print(f"{what}: {len(steps)} steps, launches {steps[0]['launches']} "
+          f"each, losses {[round(v, 6) for v in losses]}")
+    return losses
+
+
+def _cli_times(what, steps, smi, per_epoch):
+    """The CLI's step time: the host wall between issuing consecutive
+    steps of one epoch, and CUDA events around each step after the
+    first -> (host ms list, event ms list)."""
+    host = [(steps[i + 1]["t"] - steps[i]["t"]) * 1e3
+            for i in range(len(steps) - 1) if (i + 1) % per_epoch]
+    events = [s["ev"][0].elapsed_time(s["ev"][1]) for s in steps[1:]]
+    print(f"{what} on {smi}: host wall per step (issue to next issue, "
+          f"within an epoch) {[round(v, 3) for v in host]} ms; CUDA events "
+          f"per step after the first {[round(v, 3) for v in events]} ms; "
+          f"peak per step (max_memory_allocated, reset before each) "
+          f"{[round(s['peak'], 2) for s in steps]} GiB")
+    return host, events
+
+
+def trace_idle_share(path):
+    """(idle share, busy ms, window ms, kernel names) of a Chrome trace:
+    the window from its first to its last event, busy the union of its
+    device kernels' intervals."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel")
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for lo, hi, _ in kernels:
+        if cur_hi is None or lo > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    window = end - start
+    return 1.0 - busy / window, busy / 1e3, window / 1e3, {
+        k[2] for k in kernels}
+
+
+def _cli_engine_loss(torch, pretrain):
+    """One make_mae_train_step step at the CLI's seeds (model 0, generator
+    1) on the CLI loaders' first batches -> its loss."""
+    from octcubem_tpu_torch.data import loader as loader_lib, spl as spl_lib
+    from octcubem_tpu_torch.models import mae3d
+    from octcubem_tpu_torch.train import mae_engine, optim
+    from octcubem_tpu_torch.train.train_state import TrainState
+
+    model = mae3d.create_model(
+        mae3d.flash_attn_mae_vit_large_patch16, seed=0, dtype=torch.bfloat16,
+        attn_impl="auto", input_size=256, high_res_input_size=512,
+        num_frames=60, t_patch_size=3, pred_t_dim=60, norm_pix_loss=False,
+        num_heads=16, decoder_num_heads=16, remat=False)
+    tx = optim.build_adamw(model, 0.0, 0.05)
+    state = TrainState.create(model, tx, seed=1)
+    ds2d = pretrain.SyntheticOCT2D(224, 3, 512)
+    ds3d = pretrain.SyntheticOCT3D(56, 60, 256, n_names=224)
+    ld3 = loader_lib.Loader(ds3d, 4, num_workers=4)
+    ld3.set_epoch(0)
+    vols = next(iter(ld3))[0]
+    ld2 = loader_lib.Loader(spl_lib.SPLState(ds2d.names).subset(ds2d), 64,
+                            num_workers=2)
+    imgs = next(loader_lib.cycle(ld2))[0]
+    step = mae_engine.make_mae_train_step(model, tx, joint=True,
+                                          use_premask=True, accum_2d=4)
+    x2 = torch.from_numpy(imgs).cuda().reshape(4, 16, 3, 512, 512, 1)
+    _, m = step(state, torch.from_numpy(vols).cuda(), mask_ratio=0.9,
+                batch2d=x2, mask_ratio_2d=0.75)
+    loss = m["loss"].item()
+    del model, tx, state, step, m, x2
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _log_records(run):
+    with open(Path(run) / "log.txt") as f:
+        return [json.loads(line) for line in f]
+
+
+def run_phase18(torch, _cuda, entry_mod, smi):
+    """Phase 18: cli/pretrain.py in process on the card, four runs (the
+    preset at full width with a profile; --resume latest into a third
+    epoch at 2D mask 0.80; training_continue_reset_optim; --mode 2d), then
+    the preset again for one step against the engine's step, and
+    time_joint's direct step beside the CLI's."""
+    import shutil
+
+    from octcubem_tpu_torch.cli import pretrain
+
+    probe = CliProbe(torch, _cuda)
+    with tempfile.TemporaryDirectory() as tmp, probe.patch(pretrain):
+        free = shutil.disk_usage(tmp).free / 2 ** 30
+        print(f"phase 18 scratch {tmp}: {free:.1f} GiB free")
+        run1, run3 = str(Path(tmp) / "run1"), str(Path(tmp) / "run3")
+        # 18.1 the preset at full width, with a profile
+        torch.cuda.empty_cache()
+        held_before = torch.cuda.memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        state1 = pretrain.main(CLI_JOINT + [
+            "--epochs", "2", "--steps_per_epoch", "2", "--profile_steps",
+            "1", "--output_dir", run1])
+        wall = time.perf_counter() - t0
+        steps, build_s, stage_s = probe.take()
+        peak = max(s["peak"] for s in steps)
+        _cli_steps("cli/pretrain.py vitl_joint_pretrain run 1", steps,
+                   JOINT_B1_B2)
+        host1, ev1 = _cli_times("cli/pretrain.py run 1 (2 epochs x 2 steps)",
+                                steps, smi, 2)
+        recs = _log_records(run1)
+        files = sorted(os.listdir(run1))
+        print(f"run 1: {wall:.1f} s in main; model built in "
+              f"{build_s[0]:.2f} s; checkpoints staged in "
+              f"{[round(v, 2) for v in stage_s]} s; step peak "
+              f"(max_memory_allocated) {peak:.2f} GiB, of which "
+              f"{held_before:.2f} GiB was held before the run, on {smi}; "
+              f"files {files}; log.txt {recs}")
+        want = {"args.json", "log.txt", "all_image_dict-0.pkl",
+                "all_image_dict-1.pkl", "ckpt", "profile"}
+        if not (want <= set(files) and [r["epoch"] for r in recs] == [0, 1]
+                and all(math.isfinite(r["train_loss"]) for r in recs)
+                and sorted(os.listdir(Path(run1) / "ckpt")) == ["0", "1"]):
+            raise AssertionError("run 1 did not write what it should")
+        idle, busy, window, names = trace_idle_share(
+            Path(run1) / "profile" / "trace.json")
+        print(f"run 1 profile (step 2 of epoch 0): idle share {idle:.4f} "
+              f"(device busy {busy:.3f} ms in a {window:.3f} ms window) on "
+              f"{smi}")
+        for body in ("fwd_hopper_kernel", "bwd_hopper_kernel"):
+            if not any(body in n for n in names):
+                raise AssertionError(f"the CLI's trace names no {body}")
+        # 18.2 --resume latest: the saved state bit for bit before the
+        # first step, epoch 2 at 2D mask 0.80, the SPL dict reloaded
+        restored = []
+
+        def held(state):
+            restored.append(_state_equal(torch, state, state1))
+
+        probe.on_first = held
+        state2 = pretrain.main(CLI_JOINT + [
+            "--epochs", "3", "--steps_per_epoch", "2", "--resume", "latest",
+            "--output_dir", run1])
+        steps, build_s, stage_s = probe.take()
+        _cli_steps("cli/pretrain.py run 2 (resumed, epoch 2)", steps,
+                   JOINT_B1_B2)
+        host2, ev2 = _cli_times("cli/pretrain.py run 2", steps, smi, 2)
+        log = (Path(run1) / "out.log").read_text()
+        recs = _log_records(run1)
+        masks = {s["kw"]["mask_ratio_2d"] for s in steps}
+        print(f"run 2: restored state bit-identical {restored}; 2D mask "
+              f"{masks}; log.txt epochs {[r['epoch'] for r in recs]}; model "
+              f"built in {build_s[0]:.2f} s; checkpoint staged in "
+              f"{[round(v, 2) for v in stage_s]} s on {smi}")
+        if not (restored == [True] and masks == {0.8}
+                and [r["epoch"] for r in recs] == [0, 1, 2]
+                and "all_image_dict-1.pkl (K=" in log):
+            raise AssertionError("the resume did not restore the state, "
+                                 "reach epoch 2 at mask 0.80 or reload SPL")
+        del state1
+        # 18.3 training_continue_reset_optim: the saved params, a fresh
+        # optimizer, epoch 0
+        fresh = []
+        live = {k: v for k, v in state2.params.state_dict().items()}
+
+        def reset(state):
+            p = state.params.state_dict()
+            fresh.append(state.step == 0 and state.tx.count == 0
+                         and all(torch.equal(p[k], live[k]) for k in live)
+                         and not any(bool(m.any()) for m in
+                                     state.tx.mu + state.tx.nu))
+
+        probe.on_first = reset
+        state3 = pretrain.main(CLI_JOINT + [
+            "--epochs", "1", "--steps_per_epoch", "1", "--resume", run1,
+            "--resume_type", "training_continue_reset_optim",
+            "--output_dir", run3])
+        steps, _, _ = probe.take()
+        _cli_steps("cli/pretrain.py run 3 (reset_optim)", steps, JOINT_B1_B2)
+        p3 = state3.params.state_dict()
+        same = all(torch.equal(p3[k], live[k]) for k in live)
+        recs = _log_records(run3)
+        print(f"run 3: params equal to the saved ones, fresh optimizer, step "
+              f"0 before its step {fresh}; params unmoved by its LR-0 update "
+              f"{same}; AdamW count {state3.tx.count}; log.txt epochs "
+              f"{[r['epoch'] for r in recs]}")
+        if not (fresh == [True] and same and state3.tx.count == 1
+                and [r["epoch"] for r in recs] == [0]):
+            raise AssertionError("training_continue_reset_optim did not "
+                                 "continue the params with a fresh optimizer")
+        del state2, state3, live, p3
+        shutil.rmtree(run1)
+        shutil.rmtree(run3)
+        torch.cuda.empty_cache()
+        # 18.5 the CLI's first step against the engine's step
+        run5 = str(Path(tmp) / "run5")
+        pretrain.main(CLI_JOINT + ["--epochs", "1", "--steps_per_epoch", "1",
+                                   "--output_dir", run5])
+        probe.take()
+        [rec] = _log_records(run5)
+        shutil.rmtree(run5)
+        torch.cuda.empty_cache()
+        ref = _cli_engine_loss(torch, pretrain)
+        probe.take()
+        rel = abs(rec["train_loss"] - ref) / abs(ref)
+        print(f"CLI first-step loss {rec['train_loss']!r} vs "
+              f"make_mae_train_step {ref!r}: rel {rel:.3e} "
+              f"(tol {TOL_CLI_LOSS:.0e})")
+        if not rel <= TOL_CLI_LOSS:
+            raise AssertionError("the CLI's step computes another loss")
+        # 18.4 --mode 2d: the ViT-L/16 2D MAE at 224, batch 16
+        run4 = str(Path(tmp) / "run4")
+        pretrain.main(["--mode", "2d", "--synthetic", "--synthetic_n", "8",
+                       "--epochs", "1", "--output_dir", run4])
+        steps, build_s, stage_s = probe.take()
+        _cli_steps("cli/pretrain.py --mode 2d", steps, MAE2D_B1_B2)
+        ev4 = [s["ev"][0].elapsed_time(s["ev"][1]) for s in steps[1:]]
+        print(f"--mode 2d on {smi}: CUDA events per update after the first "
+              f"{[round(v, 3) for v in ev4]} ms; model built in "
+              f"{build_s[0]:.2f} s; checkpoint staged in "
+              f"{[round(v, 2) for v in stage_s]} s; log.txt "
+              f"{_log_records(run4)}")
+        shutil.rmtree(run4)
+    torch.cuda.empty_cache()
+    print(f"held before the direct step: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    # the direct step on phase 15's inputs, in the same run
+    step, state, x = entry_mod.train_entry(joint=True, batch=4, batch2d=64,
+                                           accum_2d=4, use_premask=True)
+    direct_ms, direct_peak = time_joint(
+        torch, step, state, x, smi, "time_joint's direct step (phase 15's "
+        "inputs)")
+    del step, state, x
+    torch.cuda.empty_cache()
+    # run 1 traces its second step: the profiler's start and the traced
+    # step are left out of the summary
+    print(f"phase 18 summary on {smi}: CLI joint step (unprofiled steps "
+          f"after each run's first), CUDA events "
+          f"{[round(v, 3) for v in ev1[1:] + ev2]} ms, host wall "
+          f"{[round(v, 3) for v in host1[1:] + host2]} ms; direct step "
+          f"{direct_ms:.3f} ms (peak {direct_peak:.2f} GiB); CLI run 1 step "
+          f"peak {peak:.2f} GiB; idle share {idle:.4f}")
+
+
 def main() -> int:
     import torch
 
@@ -2433,6 +2837,8 @@ def main() -> int:
     run_mae2d(torch, _cuda, optim, schedules, smi)
     check_mae2d_vs_naive(torch)
     phase_done("17: the 2D MAE")
+    run_phase18(torch, _cuda, entry_mod, smi)
+    phase_done("18: cli/pretrain.py")
 
     kernels = [{
         "name": "flash_fwd_packed", "route": "cuda",

@@ -59,7 +59,7 @@ def build_model(args, device):
 def process_volume(path: str, num_frames: int, input_size: int) -> np.ndarray:
     """DICOM / .npy -> [1, T, H, W, 1] val-transformed volume (resize,
     /255)."""
-    from ..data.transforms import Transform3D
+    from ..data.transforms import create_3d_transforms
 
     if path.endswith(".npy"):
         vol = np.load(path).astype(np.float32)
@@ -67,7 +67,9 @@ def process_volume(path: str, num_frames: int, input_size: int) -> np.ndarray:
         from ..data.dicom import read_dicom
 
         vol = read_dicom(path).pixel_array.astype(np.float32)
-    vol = Transform3D(input_size, num_frames)(vol) / 255.0
+    _, val_t = create_3d_transforms(input_size=input_size,
+                                    num_frames=num_frames, RandFlipd_prob=0)
+    vol = val_t(vol) / 255.0
     return vol[None, ..., None]
 
 

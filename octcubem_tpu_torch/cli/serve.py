@@ -210,11 +210,12 @@ def main(argv=None, started_event=None, server_box=None):
                         help="default cuda; 'cpu' runs the plain path")
     args = parser.parse_args(argv)
 
-    from ..data.transforms import Transform3D
+    from ..data.transforms import create_3d_transforms
 
     log = logging.getLogger("octcubem_tpu_torch.serve")
     predict, meta = build_predictor(args)
-    val_t = Transform3D(meta["input_size"], meta["num_frames"])
+    _, val_t = create_3d_transforms(meta["input_size"], meta["num_frames"],
+                                    RandFlipd_prob=0)
     t0 = time.time()
     predict(np.zeros((meta["batch"], meta["num_frames"], meta["input_size"],
                       meta["input_size"], 1), np.float32))

@@ -146,7 +146,7 @@ def test_serve_aot_answers(tmp_path):
                ).astype(np.float32)
         code, out = _post_npy(base + "/predict", vol)
         assert code == 200, out
-        v = Transform3D(32, 6)(vol) / 255.0
+        v = Transform3D(32, 6, train=False)(vol) / 255.0
         with torch.inference_mode():
             lg = model(torch.from_numpy(v[None, ..., None])).numpy()
         lg = lg.reshape(1, -1, 2)

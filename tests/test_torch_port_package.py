@@ -55,7 +55,26 @@ def test_port_imports_no_jax():
             "octcubem_tpu_torch/utils/visualization.py",
             "octcubem_tpu_torch/models/mae2d.py",
             "octcubem_tpu_torch/models/registry.py",
-            "octcubem_tpu_torch/cli/parity_check.py"} <= scanned
+            "octcubem_tpu_torch/cli/parity_check.py",
+            "octcubem_tpu_torch/core/config.py",
+            "octcubem_tpu_torch/core/runtime.py",
+            "octcubem_tpu_torch/core/multihost.py",
+            "octcubem_tpu_torch/utils/logging.py",
+            "octcubem_tpu_torch/utils/profiling.py",
+            "octcubem_tpu_torch/native/__init__.py",
+            "octcubem_tpu_torch/data/ingest.py",
+            "octcubem_tpu_torch/data/randaug.py",
+            "octcubem_tpu_torch/data/transforms.py",
+            "octcubem_tpu_torch/data/patients.py",
+            "octcubem_tpu_torch/data/loader.py",
+            "octcubem_tpu_torch/data/spl.py",
+            "octcubem_tpu_torch/cli/pretrain.py"} <= scanned
+    # the native directory holds its C++ source beside the binding, and
+    # no file of the JAX package's (nor its prebuilt library)
+    native = sorted(p.name for p in
+                    (ROOT / "octcubem_tpu_torch" / "native").iterdir()
+                    if p.name != "__pycache__")
+    assert native == ["__init__.py", "volume_loader.cpp"]
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []

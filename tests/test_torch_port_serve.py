@@ -81,7 +81,7 @@ def test_predict_raw_and_preprocessed(server):
     vol = (rng.random((7, 40, 44)) * 255).astype(np.float32)
     code, out = _post(server + "/predict", _npy(vol))
     assert code == 200, out
-    v = Transform3D(32, 6)(vol) / 255.0
+    v = Transform3D(32, 6, train=False)(vol) / 255.0
     np.testing.assert_allclose(out["probs"][0], _reference_probs(v),
                                atol=1e-5)
 
@@ -143,7 +143,7 @@ def test_val_transform_matches_jax(shape, normalize):
                                    RandFlipd_prob=0,
                                    normalize_dataset=normalize)
     ref = jval(vol)
-    out = Transform3D(32, 6, normalize=normalize)(vol)
+    out = Transform3D(32, 6, train=False, normalize=normalize)(vol)
     assert out.shape == ref.shape == (6, 32, 32) and out.dtype == np.float32
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
 
