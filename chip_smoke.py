@@ -20,7 +20,11 @@ Phases, each fatal on failure (no phase's error is caught):
      Hopper forward body (B1, B3, B5 at D in {32, 64, 80, 128}) on both
      routes: ragged rows and keys, with and without the cls fold, the
      rect form with kv_valid < Nk and NaN in the tail rows, q x 40, each
-     call made twice with o and lse bit-identical;
+     call made twice with o and lse bit-identical; also at the
+     fine-tuning family's 2D trunks (48, 197, 16, 64; no fold) and,
+     head by head, at the variable_joint high-res stream's (1, 16,385,
+     16, 64; folded), whose plain scores over all heads would take 17.2
+     GB a tensor;
   4. the serving path: entry()'s ViT-L 48x256x256 bf16 forward, its
      launch counts, finite [1, 16] logits that agree with the same model
      run with impl="naive";
@@ -129,8 +133,26 @@ Phases, each fatal on failure (no phase's error is caught):
      batch 16); 160 B1 + 160 B2 launches in every joint step and 32 + 32
      in every 2D update; the CLI's step time (host wall and CUDA events),
      peak, model build and checkpoint staging seconds beside
-     time_joint's direct step.  Then one {"kernels": [...]} line with
-     B1-B8.
+     time_joint's direct step;
+ 19. the fine-tuning family (train/finetune_engine.py, the layer-decay
+     AdamW gated on the device): the octcube_multitask step at full width
+     (ViT-L/16 48x256x256, batch 1, drop path 0.2, layer decay 0.65):
+     three steps (finite, the LR-0 first update, 24 B1 + 24 B2 each and
+     no other kernel), a NaN volume's step reverted on the device and the
+     next step against a run without it, the step's time, peak and trace
+     (idle share, no device-to-host copy); that model cut to 2 blocks,
+     flash against impl="naive" in loss and gradients, fp32 and bf16; the
+     variable_joint model on its 256 and 512 streams (4,097 and 16,385
+     tokens); vit2d (batch 48) and vit_3dhead (48 slices) at 224 (197
+     tokens, no fold); the slivit_ct3d model (4 x 60 slices at 256^2,
+     no hand-written kernel in its profile) and the ViT-L trunk with a
+     SLIViT head; cli/predict.py in process (the CSV equal to the direct
+     forward, --quant int8, --export_aot / --aot) and cli/finetune.py in
+     process (the octcube_multitask preset on 10 synthetic volumes, the
+     slivit_ct3d preset on a MedMNIST-layout .npz).  Then one
+     {"kernels": [...]} line with B1-B8; B1's and B2's entries carry
+     ``launches_per_step_on``: for each phase-19 path, the launches
+     counted in each of its checked steps of this run.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -232,6 +254,13 @@ JOINT_2D_CASES = [(16, 257, 16, 64, 1.0), (16, 1025, 16, 32, 1.0),
 # 16, mask 0.75): the encoder at 49 kept patches + cls, the decoder at
 # 196 + cls, neither folded (n % 128 != 1)
 MAE2D_CASES = [(16, 50, 16, 64, 1.0), (16, 197, 16, 32, 1.0)]
+# (B, n, H, D, q scale) of the fine-tuning family's 2D trunks: vit2d at
+# 224 (batch 48) and vit_3dhead's trunk over 48 slices, 196 patches + cls,
+# not folded (197 % 128 = 69)
+FT_2D_CASES = [(48, 197, 16, 64, 1.0)]
+# (B, n, H, D) of the variable_joint model's high-res stream: 48x512x512
+# -> 16 x 32 x 32 tubes + cls, folded
+HIGH_RES_CASE = (1, 16385, 16, 64)
 
 
 def check_flash_fwd(torch, fa):
@@ -243,7 +272,7 @@ def check_flash_fwd(torch, fa):
              (1, 4000, 16, 64, 1.0),
              (1, 512, 16, 64, 1.0),  # the MAE encoder's: 511 + cls, no fold
              (1, 4097, 16, 64, 40.0),  # q scaled: most logits above the clamp
-             *JOINT_2D_CASES, *MAE2D_CASES]
+             *JOINT_2D_CASES, *MAE2D_CASES, *FT_2D_CASES]
     vitl_err = None
     for b, n, h, d, qmul in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -384,7 +413,7 @@ def check_flash_bwd(torch, fa):
              (1, 1025, 8, 128, 40.0),  # q scaled: most logits above the clamp
              # ragged: rows and keys not multiples of the one pass's tiles
              (1, 700, 8, 32, 1.0), (1, 333, 4, 64, 1.0), (1, 901, 2, 128, 1.0),
-             *JOINT_2D_CASES, *MAE2D_CASES]
+             *JOINT_2D_CASES, *MAE2D_CASES, *FT_2D_CASES]
     for b, n, h, d, qmul in cases:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda")
@@ -402,6 +431,73 @@ def check_flash_bwd(torch, fa):
                          lambda: fa.bwd_packed_cuda(*args, o, lse, do, g_lse,
                                                     h, scale), ref, dtype)
             del qkv, o, lse, do, ref
+
+
+def check_head_by_head(torch, fa):
+    """Phase 3, B1 and B2 at the variable_joint high-res stream's
+    (1, 16,385, 16, 64) with the cls fold, bf16 and fp32, against their
+    plain versions head by head: the plain versions materialize the
+    [n, n] scores (16 x 16,385^2 x 4 B = 17.2 GB a tensor over all heads),
+    so each head's columns of the fused buffer go through them at H = 1
+    and are held against that head's columns of the kernels' outputs (B1's
+    o and lse, B2's dq, dk, dv, dkc, dvc from two runs), at phase 3's
+    limits over each whole output (TOL_O, TOL_LSE; TOL_GRAD x max|plain|;
+    dk, dv, dkc, dvc bit-identical between the runs)."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    b, n, h, d = HIGH_RES_CASE
+    scale = d ** -0.5
+    names = ("dq", "dk", "dv", "dkc", "dvc")
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).split(".")[1]
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen,
+                          device="cuda").to(dtype)
+        args = _kernel_args(qkv, h)
+        o, lse = fa.fwd_packed_cuda(*args, h, scale)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+        g_lse = 0.1 * torch.randn(lse.shape, generator=gen, device="cuda")
+        runs = [fa.bwd_packed_cuda(*args, o, lse, do, g_lse, h, scale)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        atol, rtol = TOL_O[key]
+        excess = dlse = 0.0
+        top = dict.fromkeys(names, 0.0)
+        err = {k: [0.0, 0.0] for k in names}
+        finite = bool(torch.isfinite(o.float()).all())
+        for j in range(h):
+            sl = slice(j * d, (j + 1) * d)
+            hargs = tuple(None if t is None else t[..., sl] for t in args)
+            o_ref, lse_ref = fa.fwd_packed_plain(*hargs, 1, scale)
+            d_o = (o[..., sl].float() - o_ref.float()).abs()
+            excess = max(excess, (d_o - rtol * o_ref.float().abs()).max()
+                         .item())
+            dlse = max(dlse, (lse[:, j:j + 1] - lse_ref).abs().max().item())
+            ref = fa.bwd_packed_plain(*hargs, o[..., sl], lse[:, j:j + 1],
+                                      do[..., sl], g_lse[:, j:j + 1], 1,
+                                      scale)
+            for name, r, g0, g1 in zip(names, ref, *runs):
+                top[name] = max(top[name], r.float().abs().max().item())
+                for i, g in enumerate((g0, g1)):
+                    err[name][i] = max(err[name][i], (
+                        g[..., sl].float() - r.float()).abs().max().item())
+            del o_ref, lse_ref, d_o, ref
+            torch.cuda.empty_cache()
+        finite &= all(bool(torch.isfinite(g.float()).all())
+                      for r in runs for g in r)
+        same = all(torch.equal(runs[0][i], runs[1][i]) for i in range(1, 5))
+        tol = TOL_GRAD[key]
+        grads_ok = all(max(err[k]) <= tol * top[k] for k in names)
+        print(f"B1 / B2 head by head B={b} n={n} H={h} D={d} {key} cls=True: "
+              f"max|do|-{rtol:.1e}|o| = {excess:.3e} (tol {atol:.1e}) "
+              f"max|dlse|={dlse:.3e} (tol {TOL_LSE:.0e}); B2 max|d| "
+              + " ".join(f"{k}={max(err[k]):.3e}/{top[k]:.3e}" for k in names)
+              + f" (tol {tol:.1e} x max|plain|); dk dv dkc dvc identical "
+              f"between runs {same}")
+        if not (excess <= atol and dlse <= TOL_LSE and grads_ok and same
+                and finite):
+            raise AssertionError(f"B1 / B2 disagree with their plain versions "
+                                 f"head by head at n={n} {key}")
+        del qkv, args, o, lse, do, g_lse, runs
+        torch.cuda.empty_cache()
 
 
 def _nonzero(launches):
@@ -2722,6 +2818,677 @@ def run_phase18(torch, _cuda, entry_mod, smi):
           f"peak {peak:.2f} GiB; idle share {idle:.4f}")
 
 
+# ------------------------------------- phase 19: the fine-tuning family
+
+FT_B1_B2 = {"flash_fwd_packed": 24, "flash_bwd_packed": 24}
+# the multi-task target of every classifier step: normal column 0, then 8
+# diseases (16 logits, the octcube_multitask head)
+FT_TARGET = [[0.0, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0]]
+# the CLI runs: the preset at full width on 10 seeded volumes (6 train, 2
+# val, 2 test at batch 1), and the SLIViT ct3d preset on 8 / 4 / 4 items
+CLI_FT = ["--preset", "octcube_multitask", "--synthetic", "--synthetic_n",
+          "10", "--epochs", "1"]
+
+
+def finetune_flops(d=1024, layers=24, frames=48, img=256, patch=16,
+                   tpatch=3, chans=1, batch=1, classes=16) -> float:
+    """Analytic FLOPs of one ViT fine-tuning step (fwd + bwd = 3 x fwd)
+    over every token + cls; ``frames=None`` for a 2D ViT (vit2d, and
+    vit_3dhead's trunk over ``batch`` slices)."""
+    grid = (img // patch) ** 2
+    l = grid * (frames // tpatch if frames else 1)
+    n = l + 1
+    pix = (tpatch if frames else 1) * patch * patch * chans
+    dense = (layers * 2 * n * 12 * d * d + 2 * l * pix * d + 2 * d * d
+             + 2 * d * classes)
+    attn = layers * 4 * n * n * d
+    return 3.0 * batch * (dense + attn)
+
+
+def _profiled(torch, fn, tmp, tag):
+    """One call of ``fn`` under torch.profiler -> (idle share, busy ms,
+    window ms, kernel names, device-to-host copies)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(tmp, f"trace_{tag}.json")
+    prof.export_chrome_trace(path)
+    idle, busy, window, names = trace_idle_share(path)
+    os.remove(path)
+    dtoh = sorted({e.name for e in prof.events()
+                   if "DtoH" in e.name or "Device -> Host" in e.name})
+    return idle, busy, window, names, dtoh
+
+
+def _ft_state(torch, model, cfg, steps_per_epoch, seed):
+    """cli/finetune.py's optimizer for ``model`` under preset ``cfg`` (its
+    schedule at blr scaled to batch 1, its layer decay over the rooted
+    names) and a TrainState on it."""
+    from octcubem_tpu_torch.train import optim, schedules
+    from octcubem_tpu_torch.train.train_state import TrainState
+
+    sched = schedules.warmup_half_cosine(
+        schedules.scale_base_lr(cfg.blr, 1), cfg.min_lr, cfg.warmup_epochs,
+        cfg.epochs, steps_per_epoch)
+    tx = optim.build_adamw(
+        model, sched, cfg.weight_decay,
+        layer_decay=cfg.layer_decay, num_blocks=getattr(model, "depth", 24),
+        name_prefix="params.")
+    return TrainState.create(model, tx, seed), tx
+
+
+def convnext_flops(slices=60, img=256, depths=(3, 3, 9, 3),
+                   dims=(96, 192, 384, 768), batch=4, head_dim=256) -> float:
+    """Analytic FLOPs of one slivit_baseline step (fwd + bwd = 3 x fwd):
+    ConvNeXt-tiny on every slice (stem 4x4/4, per block a 7x7 depthwise
+    conv and the 4x pointwise MLP, 2x2/2 downsamples) and the head's
+    patch projection; the compact ViT's own products are left out (under
+    0.1 %)."""
+    r = img // 4
+    f = 2 * r * r * dims[0] * 4 * 4 * 3
+    for stage, (depth, c) in enumerate(zip(depths, dims)):
+        if stage:
+            r //= 2
+            f += 2 * r * r * c * 2 * 2 * dims[stage - 1]
+        f += depth * r * r * c * (2 * 49 + 2 * 2 * 4 * c)
+    proj = 2 * dims[-1] * r * r * head_dim
+    return 3.0 * batch * slices * (f + proj)
+
+
+def _ft_step(torch, _cuda, step, state, x, y, what, seen, want=FT_B1_B2):
+    """One fine-tune step: finite, ``want`` launches and no other kernel;
+    the launches read (counters set to 0 just before the step) are
+    appended to ``seen``."""
+    _cuda.reset_launches()
+    state, m = step(state, x, y)
+    torch.cuda.synchronize()
+    launches = _nonzero(_cuda.launches)
+    seen.append(launches)
+    loss, gn = m["loss"].item(), m["grad_norm"].item()
+    print(f"{what}: loss {loss:.6f} grad_norm {gn:.6f} finite "
+          f"{bool(m['finite'])} launches {launches}")
+    if not (math.isfinite(loss) and math.isfinite(gn) and bool(m["finite"])):
+        raise AssertionError(f"{what}: non-finite loss or grad norm")
+    if launches != want:
+        raise AssertionError(f"{what}: expected {want} and no other kernel, "
+                             f"got {launches}")
+    return state, m
+
+
+def _time_ft(torch, step, state, x, y, smi, what, flops, iters=5):
+    """CUDA events over ``iters`` steps after one, and the peak of the
+    state held and those steps (counter reset just before)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _elapsed_ms(lambda: step(state, x, y), iters, 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    print(f"{what} on {smi}: {ms:.3f} ms per step (CUDA events over "
+          f"{iters} after 1); bound {bound:.3f} ms ({flops:.3e} FLOP at "
+          f"{PEAK_BF16_FLOPS:.3e} FLOP/s); max_memory_allocated "
+          f"{peak:.2f} GiB")
+    return ms, peak, bound
+
+
+def _spacing(torch, p):
+    """The fp32 spacing above a tensor's largest magnitude."""
+    m = p.detach().abs().max()
+    return (torch.nextafter(m, m * 2 + 1) - m).item()
+
+
+def run_ft_multitask(torch, _cuda, smi, tmp):
+    """19a: the octcube_multitask step at full width (vit_st aggregate
+    head, ViT-L/16 48x256x256, batch 1, bf16 with fp32 params, drop path
+    0.2, layer decay 0.65, blr 5e-3 scaled to batch 1, the multi-task
+    loss over 16 outputs): three steps (finite; the LR-0 first update
+    moves nothing; the next two move every param whose scaled LR can move
+    it at all in fp32; 24 B1 + 24 B2 each and no other kernel); one step
+    on a NaN volume (params, both moments, the count and the step kept;
+    the generator moves on) and the next finite step against a run that
+    never took the NaN step (the same loss bit for bit, gradients within
+    B2's run-to-run limit); the step's time, peak and trace (idle share,
+    no device-to-host copy)."""
+    from octcubem_tpu_torch.core.config import PRESETS
+    from octcubem_tpu_torch.models import vit_st
+    from octcubem_tpu_torch.train import finetune_engine, losses
+
+    cfg = PRESETS["octcube_multitask"]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    model = vit_st.create_model(
+        vit_st.vit_large_patch16, seed=19, num_frames=cfg.num_frames,
+        t_patch_size=cfg.t_patch_size, img_size=cfg.input_size,
+        in_chans=cfg.in_chans, num_classes=cfg.num_classes,
+        num_heads=cfg.num_heads, drop_path_rate=cfg.drop_path,
+        dtype=torch.bfloat16)
+    state, tx = _ft_state(torch, model, cfg, 2, 20)
+    if tx.lr(0) != 0.0:
+        raise AssertionError(f"the schedule's first LR is {tx.lr(0)}")
+    step = finetune_engine.make_finetune_train_step(
+        model, tx, losses.make_criterion(cfg.task_mode,
+                                         smoothing=cfg.smoothing))
+    x = torch.rand((1, 48, 256, 256, 1), generator=gen, device="cuda")
+    y = torch.tensor(FT_TARGET, device="cuda")
+    names = [n for n, _ in model.named_parameters()]
+    before = [p.detach().clone() for p in model.parameters()]
+    seen = []
+    for i in range(3):
+        state, m = _ft_step(torch, _cuda, step, state, x, y,
+                            f"octcube_multitask step {i + 1} (lr "
+                            f"{tx.lr(i):.4e})", seen)
+        if i == 0 and not all(torch.equal(a, p) for a, p in
+                              zip(before, model.parameters())):
+            raise AssertionError("params moved at the first update, whose "
+                                 "LR is 0")
+    # a param may stay put only where twice its scaled LR is below one fp32
+    # spacing at its largest entry: Adam's |u| is at most about 1 at steps
+    # 2-3 with these betas (Cauchy-Schwarz over the two or three
+    # gradients), so no entry can round to a new value (the early blocks'
+    # LayerNorm scales, all 1.0, at 3.9e-6 x 0.65^(24 - i))
+    lr_max = max(tx.lr(1), tx.lr(2))
+    still, unexplained = [], []
+    for n, a, p, s in zip(names, before, model.parameters(), tx.scales):
+        if torch.equal(a, p):
+            still.append(n)
+            if 2 * lr_max * s >= _spacing(torch, p):
+                unexplained.append(n)
+    moments = all(bool((m != 0).any()) for m in tx.mu + tx.nu)
+    print(f"octcube_multitask: {len(names) - len(still)} of {len(names)} "
+          f"params moved by steps 2-3 (lr {lr_max:.4e} x layer scales); "
+          f"unmoved {still}; every param's moments moved {moments}; count "
+          f"{int(tx.count)}")
+    if unexplained or not moments or int(tx.count) != 3:
+        raise AssertionError(f"params that should have moved did not: "
+                             f"{unexplained}")
+    del before
+    # the NaN step: the whole state kept, the generator moved on
+    snap = ([p.detach().clone() for p in model.parameters()],
+            [t.clone() for t in tx.mu], [t.clone() for t in tx.nu],
+            tx.count.clone(), state.step.clone())
+    gen_before = state.generator.get_state()
+    bad = x.clone()
+    bad[0, 7, 100, 100, 0] = math.nan
+    _cuda.reset_launches()
+    state, m = step(state, bad, y)
+    torch.cuda.synchronize()
+    kept = (all(torch.equal(a, p) for a, p in zip(snap[0], model.parameters()))
+            and all(torch.equal(a, b) for a, b in zip(snap[1], tx.mu))
+            and all(torch.equal(a, b) for a, b in zip(snap[2], tx.nu))
+            and torch.equal(snap[3], tx.count)
+            and torch.equal(snap[4], state.step))
+    moved_gen = not torch.equal(gen_before, state.generator.get_state())
+    print(f"octcube_multitask NaN step: loss {m['loss'].item()} finite "
+          f"{bool(m['finite'])}; params, mu, nu, count and step kept "
+          f"{kept}; generator moved on {moved_gen}; launches "
+          f"{_nonzero(_cuda.launches)}")
+    if bool(m["finite"]) or not kept or not moved_gen:
+        raise AssertionError("the NaN step was not reverted on the device")
+    after_nan = state.generator.get_state()
+    state, m_a = _ft_step(torch, _cuda, step, state, x, y,
+                          "octcube_multitask step after the NaN step", seen)
+    loss_a, grads_a = m_a["loss"].clone(), _leaf_grads(model)
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), snap[0]):
+            p.copy_(s)
+        for dst, src in ((tx.mu, snap[1]), (tx.nu, snap[2])):
+            for a, b in zip(dst, src):
+                a.copy_(b)
+    tx.count, state.step = snap[3].clone(), snap[4].clone()
+    state.generator.set_state(after_nan)
+    state, m_b = _ft_step(torch, _cuda, step, state, x, y,
+                          "the same step in a run without the NaN step", [])
+    same_loss = torch.equal(loss_a, m_b["loss"])
+    print(f"after the NaN step vs without it: loss {loss_a.item():.6f} vs "
+          f"{m_b['loss'].item():.6f}, bit-identical {same_loss}")
+    _grads_agree("after the NaN step vs without it", grads_a,
+                 _leaf_grads(model))
+    if not same_loss:
+        raise AssertionError("the step after the NaN step differs from a run "
+                             "without it")
+    del snap, grads_a
+    flops = finetune_flops()
+    ms, peak, bound = _time_ft(torch, step, state, x, y, smi,
+                               "octcube_multitask step (ViT-L/16 48x256x256, "
+                               "batch 1, bf16)", flops)
+    idle, busy, window, _, dtoh = _profiled(
+        torch, lambda: step(state, x, y), tmp, "multitask")
+    print(f"octcube_multitask step trace on {smi}: idle share {idle:.4f} "
+          f"(busy {busy:.3f} of {window:.3f} ms); device-to-host copies "
+          f"{dtoh}")
+    if dtoh:
+        raise AssertionError(f"the fine-tune step reads the device: {dtoh}")
+    del state, tx, model, step, x
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak": peak, "bound": bound, "idle": idle,
+            "seen": {"octcube_multitask steps": seen}}
+
+
+# the octcube_multitask model cut to 2 blocks (4,097 tokens), flash
+# against impl="naive" under its multi-task loss: fp32 and the bf16
+# gradients at phase 8's limits (TOL_NAIVE).  The bf16 loss is taken from
+# 16 bf16 logits (a mean of 8 two-way smoothed CEs), where phase 8's is a
+# mean over thousands of bf16 predictions: one bf16 step of one logit
+# moves it by ~1e-4 relative.  scripts/ft_naive_spread.py on an H100 at
+# 700 W, 7 draws (this one and seeds 0-5): bf16 loss rel 3.9e-5 to
+# 1.151e-3 (this draw 3.6e-4), so its limit is ~2.2x the largest.  B1
+# broken at run time (scale off by 2^-7, D = 128's scale, no cls key)
+# moves the bf16 loss by 5.4e-4 to 7.5e-4, inside that spread: the fp32
+# half is what catches it (loss rel 1.5e-5 to 5.5e-4 against draws of at
+# most 2.1e-7, gradients 1.1e-2 to 0.54 against at most 1.6e-6).
+TOL_NAIVE_FT = {"float32": TOL_NAIVE["float32"],
+                "bfloat16": (2.5e-3, TOL_NAIVE["bfloat16"][1])}
+
+
+def check_ft_vs_naive(torch):
+    """19b: the octcube_multitask model cut to 2 blocks at drop path 0,
+    batch 1, flash (B1 + B2) against impl="naive": the multi-task loss
+    and per-leaf gradients, fp32 and bf16, within TOL_NAIVE_FT."""
+    from octcubem_tpu_torch.models import vit_st
+    from octcubem_tpu_torch.train import losses
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.rand((1, 48, 256, 256, 1), generator=gen, device="cuda")
+    y = torch.tensor(FT_TARGET, device="cuda")
+    crit = losses.make_criterion("multi_task_default")
+    for dtype in (torch.float32, torch.bfloat16):
+        model = vit_st.create_model(
+            vit_st.vit_large_patch16, seed=22, depth=2, num_frames=48,
+            img_size=256, in_chans=1, num_classes=16, dtype=dtype).train()
+        mhas = [m for m in model.modules() if hasattr(m, "attn_impl")]
+        res = {}
+        for impl in ("auto", "naive"):
+            for m in mhas:
+                m.attn_impl = impl
+            model.zero_grad(set_to_none=True)
+            loss = crit(model(x), y)
+            loss.backward()
+            res[impl] = (loss.item(), _leaf_grads(model))
+        _compare_to_naive(f"octcube_multitask model {str(dtype)[6:]} (2 "
+                          f"blocks, 4,097 tokens)", res, dtype, TOL_NAIVE_FT)
+        del model, res
+        torch.cuda.empty_cache()
+
+
+def run_ft_variable_joint(torch, _cuda, smi, tmp):
+    """19c: the variable_joint model (high_res_input_size 512: a second
+    patch embed, the spatial pos embed stored at the 32 x 32 grid): one
+    step on the 48x256x256 stream (4,097 tokens, the table bicubic-pooled
+    to 16 x 16), one on the 48x512x512 stream (16,385 tokens); 24 B1 + 24
+    B2 each; each stream's time and peak."""
+    from octcubem_tpu_torch.core.config import PRESETS
+    from octcubem_tpu_torch.models import vit_st
+    from octcubem_tpu_torch.train import finetune_engine, losses
+
+    cfg = PRESETS["octcube_multitask"]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    model = vit_st.create_model(
+        vit_st.vit_large_patch16, seed=23, num_frames=48, img_size=256,
+        in_chans=1, num_classes=16, drop_path_rate=cfg.drop_path,
+        high_res_input_size=cfg.high_res_input_size, dtype=torch.bfloat16)
+    state, tx = _ft_state(torch, model, cfg, 2, 24)
+    step = finetune_engine.make_finetune_train_step(
+        model, tx, losses.make_criterion(cfg.task_mode))
+    y = torch.tensor(FT_TARGET, device="cuda")
+    out, seen = {}, {}
+    for size in (256, 512):
+        x = torch.rand((1, 48, size, size, 1), generator=gen, device="cuda")
+        tokens = (size // 16) ** 2 * 16 + 1
+        state, _ = _ft_step(torch, _cuda, step, state, x, y,
+                            f"variable_joint step, the {size} stream "
+                            f"({tokens} tokens)", seen.setdefault(
+                                f"variable_joint {tokens}-token step", []))
+        res = _time_ft(torch, step, state, x, y, smi,
+                       f"variable_joint step, 48x{size}x{size} stream",
+                       finetune_flops(img=size), iters=3)
+        idle = _profiled(torch, lambda: step(state, x, y), tmp,
+                         f"vj{size}")[0]
+        print(f"variable_joint {size} stream step trace on {smi}: idle "
+              f"share {idle:.4f}")
+        out[size] = res + (idle,)
+        del x
+    del state, tx, model, step
+    torch.cuda.empty_cache()
+    return out, seen
+
+
+def run_ft_2d_trunks(torch, _cuda, smi, tmp):
+    """19d: vit2d ViT-L/16 at 224, in_chans 1, batch 48, and vit_3dhead
+    (ViT-L/16 trunk at 224 over 48 slices, batch 1): one step each through
+    the engine (24 B1 + 24 B2 at 197 tokens, no fold; a finite loss), its
+    time, peak and trace idle share."""
+    from octcubem_tpu_torch.core.config import PRESETS
+    from octcubem_tpu_torch.models import registry
+    from octcubem_tpu_torch.train import finetune_engine, losses
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    y = torch.tensor(FT_TARGET, device="cuda")
+    out, seen = {}, {}
+    for family, shape in (("vit2d", (48, 224, 224, 1)),
+                          ("vit_3dhead", (1, 48, 224, 224, 1))):
+        model = registry.create_model(
+            family, "vit_large_patch16", device="cuda", seed=25, img_size=224,
+            in_chans=1, num_classes=16, drop_path_rate=0.2,
+            dtype=torch.bfloat16)
+        state, tx = _ft_state(torch, model, PRESETS["octcube_multitask"], 2,
+                              26)
+        step = finetune_engine.make_finetune_train_step(
+            model, tx, losses.make_criterion("multi_task_default"))
+        x = torch.rand(shape, generator=gen, device="cuda")
+        yy = y.expand(shape[0], -1).contiguous()
+        state, _ = _ft_step(torch, _cuda, step, state, x, yy,
+                            f"{family} ViT-L/16 224 step, input "
+                            f"{list(shape)} (197 tokens)",
+                            seen.setdefault(f"{family} 197-token step", []))
+        res = _time_ft(torch, step, state, x, yy, smi,
+                       f"{family} step ({list(shape)}, bf16)",
+                       finetune_flops(frames=None, img=224, batch=48), 3)
+        idle = _profiled(torch, lambda: step(state, x, yy), tmp, family)[0]
+        print(f"{family} step trace on {smi}: idle share {idle:.4f}")
+        out[family] = res + (idle,)
+        del model, state, tx, step, x
+        torch.cuda.empty_cache()
+    return out, seen
+
+
+SLIVIT_HAND = ("fwd_hopper_kernel", "bwd_hopper_kernel", "flash_")
+
+
+def run_ft_slivit(torch, _cuda, smi, tmp):
+    """19e: the slivit_ct3d model (slivit_baseline: the ConvNeXt-tiny trunk
+    on 60 slices at 256^2 stacked into one tall image, the compact ViT
+    head; batch 4, multi_cls, layer decay 1.0): one step with a finite
+    loss, its time and peak, and no hand-written kernel in its profile
+    (its attention is the head's torch.matmul softmax); then the ViT-L
+    trunk with a SLIViT head at 48x256x256, batch 1: one step, 24 B1 +
+    24 B2."""
+    from octcubem_tpu_torch.core.config import PRESETS
+    from octcubem_tpu_torch.models import slivit
+    from octcubem_tpu_torch.train import finetune_engine, losses
+
+    cfg = PRESETS["slivit_ct3d"]
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    model = slivit.create_model(
+        slivit.slivit_baseline, seed=27, num_classes=cfg.num_classes,
+        num_frames=cfg.num_frames, img_size=cfg.input_size,
+        slivit_depth=cfg.slivit_depth, dtype=torch.bfloat16)
+    state, tx = _ft_state(torch, model, cfg, 2, 28)
+    step = finetune_engine.make_finetune_train_step(
+        model, tx, losses.make_criterion(cfg.task_mode,
+                                         smoothing=cfg.smoothing))
+    x = torch.rand((cfg.batch_size, cfg.num_frames, cfg.input_size,
+                    cfg.input_size, 1), generator=gen, device="cuda")
+    y = torch.tensor([0, 1, 1, 0], device="cuda")
+    state, _ = _ft_step(torch, _cuda, step, state, x, y,
+                        "slivit_ct3d step (4 x 60 x 256 x 256)", [], want={})
+    ms, peak, bound = _time_ft(torch, step, state, x, y, smi,
+                               "slivit_ct3d step (batch 4, bf16)",
+                               convnext_flops(), 3)
+    idle, busy, window, names, _ = _profiled(torch, lambda: step(state, x, y),
+                                             tmp, "slivit")
+    hand = sorted(n for n in names if any(h in n for h in SLIVIT_HAND))
+    print(f"slivit_ct3d step trace on {smi}: idle share {idle:.4f} (busy "
+          f"{busy:.3f} of {window:.3f} ms), {len(names)} kernel names, "
+          f"hand-written kernels {hand}")
+    if hand:
+        raise AssertionError(f"slivit_baseline launched hand kernels: {hand}")
+    del model, state, tx, step, x
+    torch.cuda.empty_cache()
+    model = slivit.create_model(
+        slivit.vit_large_patch16_slivit, seed=29, num_classes=2,
+        num_frames=48, t_patch_size=3, img_size=256, in_chans=1,
+        drop_path_rate=0.2, dtype=torch.bfloat16)
+    state, tx = _ft_state(torch, model, PRESETS["octcube_multitask"], 2,
+                          30)
+    step = finetune_engine.make_finetune_train_step(
+        model, tx, losses.make_criterion("multi_cls"))
+    x = torch.rand((1, 48, 256, 256, 1), generator=gen, device="cuda")
+    y1 = torch.tensor([1], device="cuda")
+    seen = []
+    state, _ = _ft_step(torch, _cuda, step, state, x, y1,
+                        "vit_large_patch16_slivit step (48x256x256)", seen)
+    head = _time_ft(torch, step, state, x, y1, smi,
+                    "vit_large_patch16_slivit step (batch 1, bf16)",
+                    finetune_flops(), 3)
+    idle_head = _profiled(torch, lambda: step(state, x, y1), tmp, "head")[0]
+    print(f"vit_large_patch16_slivit step trace on {smi}: idle share "
+          f"{idle_head:.4f}")
+    head = head + (idle_head,)
+    del model, state, tx, step, x
+    torch.cuda.empty_cache()
+    return {"ct3d": (ms, peak, bound, idle), "head": head,
+            "seen": {"ViT-L + SLIViT head step": seen}}
+
+
+def run_ft_predict(torch, _cuda, smi, tmp):
+    """19f: cli/predict.py in process over 6 seeded .npy volumes at
+    48x256x256, batch 4 (the tail batch padded): its CSV equals a direct
+    vit_st forward of the batches it sent to the card (seeded weights
+    as the CLI builds them), the embeddings .npz holds 6 rows, --quant
+    int8 answers, and --export_aot then --aot gives the live CSV to 1e-6
+    and its embeddings."""
+    import csv
+
+    import numpy as np
+
+    from octcubem_tpu_torch.cli import predict
+    from octcubem_tpu_torch.core import device as devmod
+
+    root = Path(tmp) / "predict"
+    rng = np.random.default_rng(31)
+    for i in range(6):
+        d = root / "data" / f"p{i}"
+        d.mkdir(parents=True)
+        np.save(d / "vol.npy", (rng.random((48, 256, 256)) * 255).astype(
+            np.float32))
+    sent = []
+    real = devmod.to_device
+
+    def spy(batch, device):
+        t = real(batch, device)
+        sent.append(t)
+        return t
+
+    def run(tag, extra):
+        out = root / tag
+        out.mkdir()
+        _cuda.reset_launches()
+        rows = predict.main([str(root / "data"), "--batch_size", "4",
+                             "--out_csv", str(out / "p.csv"),
+                             "--dump_embeddings", str(out / "e.npz")] + extra)
+        torch.cuda.synchronize()
+        with open(out / "p.csv") as f:
+            table = list(csv.reader(f))
+        return rows, table, np.load(out / "e.npz"), _nonzero(_cuda.launches)
+
+    devmod.to_device = spy
+    try:
+        t0 = time.perf_counter()
+        rows, live, emb, launches = run("live", [])
+        wall = time.perf_counter() - t0
+    finally:
+        devmod.to_device = real
+    print(f"cli/predict.py: {len(rows)} rows in {wall:.2f} s, {len(sent)} "
+          f"batches of {[list(t.shape) for t in sent]}, launches {launches}, "
+          f"header {live[0]}")
+    if (len(rows) != 6 or emb["embeddings"].shape != (6, 1024)
+            or launches != {"flash_fwd_packed": 24 * len(sent)}):
+        raise AssertionError("cli/predict.py: wrong rows, embeddings or "
+                             "launches")
+    args = predict._parser().parse_args([str(root / "data")])
+    model = predict.WithEmbeddings(predict.build_model(args, torch.device(
+        "cuda")))
+    with torch.inference_mode():
+        outs = [model(t) for t in sent]
+    logits = torch.cat([o[0] for o in outs])[:6].float().cpu().numpy()
+    direct_emb = torch.cat([o[1] for o in outs])[:6].float().cpu().numpy()
+    lg = logits.reshape(6, -1, 2)
+    e = np.exp(lg - lg.max(-1, keepdims=True))
+    probs = (e / e.sum(-1, keepdims=True))[:, :, 1]
+    want = [[f"{v:.4f}" for v in p] for p in probs]
+    got = [r[1:] for r in live[1:]]
+    demb = float(np.abs(direct_emb - emb["embeddings"]).max())
+    print(f"cli/predict.py vs the direct forward: CSV equal {got == want}; "
+          f"max|d embedding| {demb:.3e}")
+    if got != want or demb > 1e-6:
+        raise AssertionError("cli/predict.py's CSV differs from the direct "
+                             "forward")
+    del model, outs, sent
+    _, q, qemb, ql = run("int8", ["--quant", "int8"])
+    qprobs = np.array([[float(v) for v in r[1:]] for r in q[1:]])
+    lprobs = np.array([[float(v) for v in r[1:]] for r in live[1:]])
+    print(f"cli/predict.py --quant int8: {len(q) - 1} rows, launches {ql}, "
+          f"max|d prob| vs bf16 {np.abs(qprobs - lprobs).max():.3e}")
+    if len(q) != 7 or not np.isfinite(qprobs).all():
+        raise AssertionError("cli/predict.py --quant int8 did not answer")
+    art = str(root / "m.octaot")
+    t0 = time.perf_counter()
+    predict.main([str(root / "data"), "--batch_size", "4", "--export_aot",
+                  art])
+    export_s = time.perf_counter() - t0
+    _, a, aemb, al = run("aot", ["--aot", art])
+    aprobs = np.array([[float(v) for v in r[1:]] for r in a[1:]])
+    demb = float(np.abs(aemb["embeddings"] - emb["embeddings"]).max())
+    print(f"cli/predict.py --export_aot in {export_s:.1f} s, --aot: launches "
+          f"{al}, max|d prob| vs live {np.abs(aprobs - lprobs).max():.3e}, "
+          f"max|d embedding| {demb:.3e}")
+    if (a[0] != live[0] or not np.allclose(aprobs, lprobs, rtol=0, atol=1e-6)
+            or demb > 1e-6 or al != launches):
+        raise AssertionError("the AOT artifact's CSV differs from the live one")
+    os.remove(art)
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _probe_finetune(probe):
+    """Wraps the engine's make_finetune_train_step so that ``probe`` (a
+    CliProbe) records each step cli/finetune.py takes."""
+    from octcubem_tpu_torch.train import finetune_engine
+
+    make = finetune_engine.make_finetune_train_step
+    finetune_engine.make_finetune_train_step = (
+        lambda *a, **k: probe._wrap_step(make(*a, **k)))
+    try:
+        yield probe
+    finally:
+        finetune_engine.make_finetune_train_step = make
+
+
+def run_ft_cli(torch, _cuda, smi, tmp, direct_ms):
+    """19g: cli/finetune.py in process: the octcube_multitask preset at
+    full width on 10 synthetic volumes, one epoch (args.json, log.txt, the
+    val and test metric CSVs, ckpt/ at the best epoch, the confusion
+    images; 24 B1 + 24 B2 in every step), its step time beside 19a's
+    direct step; then the slivit_ct3d preset on a seeded
+    nodulemnist3d.npz (8 / 4 / 4 items) for one epoch at its full
+    geometry (60 slices at 256^2, batch 4)."""
+    import shutil
+
+    import numpy as np
+
+    from octcubem_tpu_torch.cli import finetune
+
+    probe = CliProbe(torch, _cuda)
+    run1 = str(Path(tmp) / "ft1")
+    with _probe_finetune(probe):
+        t0 = time.perf_counter()
+        res = finetune.main(CLI_FT + ["--output_dir", run1])
+        wall = time.perf_counter() - t0
+    steps = probe.take()[0]
+    seen = [s["launches"] for s in steps]
+    files = sorted(os.listdir(run1))
+    _cli_steps("cli/finetune.py octcube_multitask", steps, FT_B1_B2)
+    _, ev = _cli_times("cli/finetune.py octcube_multitask (one epoch)",
+                       steps, smi, len(steps))
+    with open(Path(run1) / "log.txt") as f:
+        recs = [json.loads(line) for line in f]
+    ckpt = sorted(os.listdir(Path(run1) / "ckpt"))
+    pngs = [f for f in files if f.startswith("confusion_test")]
+    print(f"cli/finetune.py octcube_multitask on {smi}: {wall:.1f} s in "
+          f"main, result {res}; CUDA events per step after the first "
+          f"{[round(v, 3) for v in ev]} ms (19a's direct step "
+          f"{direct_ms:.3f} ms); log.txt {recs}; ckpt {ckpt}; confusion "
+          f"images {len(pngs)}; files {files}")
+    want = {"args.json", "log.txt", "macro_metrics_val.csv",
+            "macro_metrics_test.csv", "ckpt"}
+    if not want <= set(files) or ckpt != ["0"] or not pngs:
+        raise AssertionError(f"cli/finetune.py wrote {files}, ckpt {ckpt}")
+    for p in pngs:
+        with open(Path(run1) / p, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{p} is not a PNG")
+    shutil.rmtree(run1)
+    # the SLIViT ct3d preset on MedMNIST-layout data
+    rng = np.random.default_rng(33)
+    npz = Path(tmp) / "nodulemnist3d.npz"
+    parts = {}
+    for split, n in (("train", 8), ("val", 4), ("test", 4)):
+        parts[f"{split}_images"] = rng.integers(0, 255, (n, 28, 28, 28),
+                                                dtype=np.uint8)
+        parts[f"{split}_labels"] = rng.integers(0, 2, (n, 1), dtype=np.int64)
+    np.savez(npz, **parts)
+    run2 = str(Path(tmp) / "ft2")
+    with _probe_finetune(probe):
+        t0 = time.perf_counter()
+        finetune.main(["--slivit_dataset", "ct3d", "--data_dir", str(npz),
+                       "--epochs", "1", "--output_dir", run2])
+        wall = time.perf_counter() - t0
+    steps = probe.take()[0]
+    _cli_steps("cli/finetune.py slivit_ct3d", steps, {})
+    files = sorted(os.listdir(run2))
+    ev2 = [s["ev"][0].elapsed_time(s["ev"][1]) for s in steps]
+    print(f"cli/finetune.py slivit_ct3d on {smi}: {wall:.1f} s in main; "
+          f"CUDA events per step {[round(v, 3) for v in ev2]} ms; files "
+          f"{files}")
+    if not {"macro_metrics_val.csv", "macro_metrics_test.csv",
+            "confusion_test.png", "ckpt"} <= set(files):
+        raise AssertionError(f"cli/finetune.py slivit_ct3d wrote {files}")
+    shutil.rmtree(run2)
+    torch.cuda.empty_cache()
+    return ev, {"cli/finetune.py octcube_multitask steps": seen}
+
+
+def run_phase19(torch, _cuda, smi):
+    """Phase 19: the fine-tuning family (19a-19g above), on one card;
+    checkpoints and artifacts under a temporary directory."""
+    try:
+        import matplotlib  # noqa: F401
+        renderer = "matplotlib"
+    except ImportError:
+        renderer = "the stdlib PNG grid (no matplotlib)"
+    print(f"phase 19: confusion images rendered by {renderer}")
+    with tempfile.TemporaryDirectory() as tmp:
+        a = run_ft_multitask(torch, _cuda, smi, tmp)
+        check_ft_vs_naive(torch)
+        vj, vj_seen = run_ft_variable_joint(torch, _cuda, smi, tmp)
+        trunks, trunks_seen = run_ft_2d_trunks(torch, _cuda, smi, tmp)
+        sl = run_ft_slivit(torch, _cuda, smi, tmp)
+        run_ft_predict(torch, _cuda, smi, tmp)
+        cli_ev, cli_seen = run_ft_cli(torch, _cuda, smi, tmp, a["ms"])
+    print(f"phase 19 summary on {smi} (ms per step, CUDA events; peak GiB; "
+          f"bound ms; idle share): octcube_multitask {a['ms']:.3f} / "
+          f"{a['peak']:.2f} / {a['bound']:.3f} / {a['idle']:.4f}; "
+          f"variable_joint 256 {vj[256][0]:.3f} / {vj[256][1]:.2f} / "
+          f"{vj[256][2]:.3f} / {vj[256][3]:.4f}, 512 {vj[512][0]:.3f} / "
+          f"{vj[512][1]:.2f} / {vj[512][2]:.3f} / {vj[512][3]:.4f}; vit2d "
+          f"{trunks['vit2d'][0]:.3f} / "
+          f"{trunks['vit2d'][1]:.2f} / {trunks['vit2d'][2]:.3f} / "
+          f"{trunks['vit2d'][3]:.4f}; vit_3dhead "
+          f"{trunks['vit_3dhead'][0]:.3f} / {trunks['vit_3dhead'][1]:.2f} / "
+          f"{trunks['vit_3dhead'][2]:.3f} / {trunks['vit_3dhead'][3]:.4f}; "
+          f"slivit_ct3d {sl['ct3d'][0]:.3f} / {sl['ct3d'][1]:.2f} / "
+          f"{sl['ct3d'][2]:.3f} / {sl['ct3d'][3]:.4f}; ViT-L + SLIViT head "
+          f"{sl['head'][0]:.3f} / {sl['head'][1]:.2f} / {sl['head'][2]:.3f} / "
+          f"{sl['head'][3]:.4f}; the CLI's "
+          f"octcube_multitask steps {[round(v, 3) for v in cli_ev]}")
+    # for the kernels line: per kernel, each path's launches in each of its
+    # checked steps, as the counters read them in this run
+    seen = {**a["seen"], **vj_seen, **trunks_seen, **sl["seen"], **cli_seen}
+    return {kern: {path: [d.get(kern, 0) for d in steps]
+                   for path, steps in seen.items()} for kern in FT_B1_B2}
+
+
 def main() -> int:
     import torch
 
@@ -2779,6 +3546,7 @@ def main() -> int:
     err = check_flash_fwd(torch, fa)
     check_hopper_fwd(torch, fa)
     check_flash_bwd(torch, fa)
+    check_head_by_head(torch, fa)
     bh_errs = check_bh_kernels(torch, fa)
     phase_done("3: B1-B5, B7 against their plain versions")
 
@@ -2839,16 +3607,22 @@ def main() -> int:
     phase_done("17: the 2D MAE")
     run_phase18(torch, _cuda, entry_mod, smi)
     phase_done("18: cli/pretrain.py")
+    ft_launches = run_phase19(torch, _cuda, smi)
+    phase_done("19: the fine-tuning family")
 
     kernels = [{
         "name": "flash_fwd_packed", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_fwd_packed.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:859",
-        "launches": launches, "max_abs_err": err, **timing}, {
+        "launches": launches,
+        "launches_per_step_on": ft_launches["flash_fwd_packed"],
+        "max_abs_err": err, **timing}, {
         "name": "flash_bwd_packed", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_bwd_packed.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:961",
-        "launches": launches_bwd, **timing_bwd}]
+        "launches": launches_bwd,
+        "launches_per_step_on": ft_launches["flash_bwd_packed"],
+        **timing_bwd}]
     # (counter, TPU kernel's line, source, launches on its path)
     for kern, counter, line, src, n in (
             ("B3", "flash_fwd_bh_cls", 128, "flash_fwd_bh.cu", b3_launches),

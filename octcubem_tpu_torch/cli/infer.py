@@ -10,7 +10,10 @@ Volumes are .npy [T, H, W] or uncompressed little-endian DICOM
 (data/dicom.py).  ``--saliency_dir`` writes a Grad-CAM overlay PNG for
 the top-probability disease (utils/saliency.py, rendered by
 utils/visualization.py, which needs matplotlib).  Runs on the card
-unless ``--device cpu``.
+unless ``--device cpu``.  The JAX CLI's flags all parse with its
+effect: ``--attn_impl`` reaches the model; ``--model`` and
+``--drop_path`` are read and have no effect at inference, and
+``--global_pool``, ``--sep_pos_embed`` and ``--cls_embed`` are on.
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ def build_model(args, device):
         num_frames=args.num_frames,
         t_patch_size=args.t_patch_size, img_size=args.input_size,
         in_chans=1, num_classes=args.nb_classes, num_heads=args.num_heads,
-        head_type="dropout", global_pool=True, sep_pos_embed=True,
-        cls_embed=True, dtype=policy_from_name(args.precision).compute_dtype,
+        head_type="dropout", global_pool=args.global_pool,
+        sep_pos_embed=args.sep_pos_embed, cls_embed=args.cls_embed,
+        drop_path_rate=args.drop_path, attn_impl=args.attn_impl,
+        dtype=policy_from_name(args.precision).compute_dtype,
         capture_cam=bool(getattr(args, "saliency_dir", None)))
     if args.ckpt:
         report = load_reference_weights(
@@ -98,6 +103,9 @@ def main(argv=None):
                         help="reference .pth (any layout the importer "
                              "reads); seeded random weights when absent")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--model", default="flash_attn_vit_large_patch16",
+                        help="read and unused, as in the JAX CLI (the "
+                             "model is the ViT-L classifier)")
     parser.add_argument("--t_patch_size", type=int, default=3)
     parser.add_argument("--num_frames", type=int, default=48)
     parser.add_argument("--input_size", type=int, default=256)
@@ -105,8 +113,17 @@ def main(argv=None):
     parser.add_argument("--num_heads", type=int, default=16,
                         help="encoder heads; must match the checkpoint's "
                              "pretrain geometry")
+    parser.add_argument("--drop_path", type=float, default=0.2,
+                        help="the model's drop-path rate; no effect at "
+                             "inference")
+    parser.add_argument("--global_pool", action="store_true", default=True)
+    parser.add_argument("--sep_pos_embed", action="store_true", default=True)
+    parser.add_argument("--cls_embed", action="store_true", default=True)
     parser.add_argument("--precision", choices=["fp32", "bf16"],
                         default="fp32")
+    parser.add_argument("--attn_impl", default="auto",
+                        help="attention implementation (ops/attention.py): "
+                             "auto | flash | naive | ...")
     parser.add_argument("--device", default=None,
                         help="default cuda; 'cpu' runs the plain path")
     parser.add_argument("--saliency_dir", default=None,
@@ -115,7 +132,10 @@ def main(argv=None):
                              "(needs matplotlib)")
     args = parser.parse_args(argv)
 
+    from ..core.runtime import setup_compilation_cache
+
     device = resolve_device(args.device)
+    setup_compilation_cache(device=device)
     if args.precision == "fp32":
         # full-fp32 matmuls on the card (the parity path)
         torch.backends.cuda.matmul.allow_tf32 = False

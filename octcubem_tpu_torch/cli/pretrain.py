@@ -41,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import resolve_device, to_device
 
 # model-geometry fields that change the FUNCTION the params compute while
 # leaving the param TREE identical (or cleanly interpolatable) — a resume
@@ -99,16 +99,6 @@ class SyntheticOCT2D:
         img = rng.random((1, self.size, self.size, 1), np.float32)
         frame = np.repeat(img, self.t_patch, axis=0)  # T = t_patch tube
         return frame, self.names[i]
-
-
-def to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host-to-device copy of a numpy batch.  On the card it goes
-    through pinned memory with ``non_blocking``, so the host does not wait
-    for the work already queued on the stream (a pageable copy would)."""
-    t = torch.from_numpy(np.ascontiguousarray(batch))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def profile_window(n_steps: int, profile_steps: int) -> int:

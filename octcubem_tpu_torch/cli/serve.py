@@ -210,8 +210,11 @@ def main(argv=None, started_event=None, server_box=None):
                         help="default cuda; 'cpu' runs the plain path")
     args = parser.parse_args(argv)
 
+    from ..core.device import resolve_device
+    from ..core.runtime import setup_compilation_cache
     from ..data.transforms import create_3d_transforms
 
+    setup_compilation_cache(device=resolve_device(args.device))
     log = logging.getLogger("octcubem_tpu_torch.serve")
     predict, meta = build_predictor(args)
     _, val_t = create_3d_transforms(meta["input_size"], meta["num_frames"],

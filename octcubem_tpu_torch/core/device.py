@@ -8,6 +8,7 @@ when the caller asks for it (``device="cpu"``), as the tests do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host-to-device copy of a numpy batch.  On the card it goes
+    through pinned memory with ``non_blocking``, so the host does not wait
+    for the work already queued on the stream (a pageable copy would)."""
+    t = torch.from_numpy(np.ascontiguousarray(batch))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,30 +1,33 @@
 """Model name registry (counterpart of octcubem_tpu/models/registry.py):
 the reference's ``models_*.__dict__[name]`` constructor pattern.
 
-The port serves the families it has: ``vit_st`` (aggregate head),
-``vit_st_dropout`` (dropout head) and ``mae3d``.  ``vit2d``,
-``vit_3dhead`` and ``slivit`` come with the fine-tuning family (ROADMAP
-A12), the COEM JSON configs with the contrastive path (A13); asking for
-them raises ``NotImplementedError`` naming the item.
+Families and the reference modules they follow:
+  vit_st            -> models_vit_st_flash_attn_nodrop (aggregate head)
+  vit_st_dropout    -> models_vit_st_flash_attn (dropout head)
+  vit2d             -> models_vit / models_vit_flash_attn
+  vit_3dhead        -> models_vit_3dhead_flash_attn
+  mae3d             -> models_mae_joint_res_flash_attn
+  slivit            -> model_slivit_baseline / models_vit_st_flash_attn_slivit
+The COEM JSON configs come with the contrastive path (ROADMAP A13);
+asking for them raises ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
 
-from . import mae3d, vit_st
+from . import mae3d, slivit, vit2d, vit_3dhead, vit_st
 
 _FAMILIES = {
     "vit_st": vit_st,
     "vit_st_dropout": vit_st,
+    "vit2d": vit2d,
+    "vit_3dhead": vit_3dhead,
     "mae3d": mae3d,
+    "slivit": slivit,
 }
-_LATER = {"vit2d": "A12", "vit_3dhead": "A12", "slivit": "A12"}
+_CTOR_PREFIXES = ("vit", "mae", "flash", "slivit")
 
 
 def _family(family: str):
-    if family in _LATER:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet "
-            f"(ROADMAP {_LATER[family]})")
     if family not in _FAMILIES:
         raise KeyError(f"unknown model family {family!r}; available: "
                        f"{sorted(_FAMILIES)}")
@@ -41,10 +44,10 @@ def create_model(family: str, name: str, device=None, seed: int = 0,
     if family == "vit_st_dropout":
         kwargs.setdefault("head_type", "dropout")
     ctor = getattr(mod, name, None)
-    if ctor is None or not name.startswith(("vit", "mae", "flash")):
+    if ctor is None or not name.startswith(_CTOR_PREFIXES):
         raise KeyError(
             f"unknown model {name!r} in family {family!r}; available: "
-            f"{[n for n in dir(mod) if n.startswith(('vit', 'mae', 'flash'))]}")
+            f"{[n for n in dir(mod) if n.startswith(_CTOR_PREFIXES)]}")
     return mod.create_model(ctor, device=device, seed=seed,
                             state_dict=state_dict, **kwargs)
 

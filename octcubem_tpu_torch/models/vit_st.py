@@ -54,6 +54,8 @@ class VisionTransformerST(nn.Module):
         self.sep_pos_embed, self.cls_embed = sep_pos_embed, cls_embed
         self.global_pool, self.head_type = global_pool, head_type
         self.dropout = dropout
+        # the flax module's field: cli/finetune.py's layer decay reads it
+        self.depth = depth
 
         self.patch_embed = PatchEmbed3D(img_size, patch_size, in_chans,
                                         embed_dim, num_frames, t_patch_size,
@@ -111,8 +113,10 @@ class VisionTransformerST(nn.Module):
             pos = torch.cat([self.pos_embed_class, pos], dim=1)
         return pos
 
-    def forward_features(self, x, generator: torch.Generator | None = None):
-        """x: [B, T, H, W, C] -> pooled feature [B, D] (pre-head)."""
+    def forward_features(self, x, generator: torch.Generator | None = None,
+                         return_hidden: bool = False):
+        """x: [B, T, H, W, C] -> pooled feature [B, D] (pre-head), or with
+        ``return_hidden`` the blocks' list (``TransformerStack``)."""
         input_grid = x.shape[2] // self.patch_size
         pe = (self.high_res_patch_embed
               if self.high_res_input_size is not None
@@ -124,6 +128,8 @@ class VisionTransformerST(nn.Module):
             cls = self.cls_token.to(x.dtype).expand(b, 1, d)
             x = torch.cat([cls, x], dim=1)
         x = x + self._pos_embed(input_grid).to(x.dtype)
+        if return_hidden:
+            return self.blocks(x, generator, return_hidden=True)
         x = self.blocks(x, generator)
         if self.global_pool:
             start = 1 if self.cls_embed else 0
@@ -138,17 +144,46 @@ class VisionTransformerST(nn.Module):
             pooled = x[:, 0]
         return pooled
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None,
+                return_embeddings: bool = False, return_hidden: bool = False):
         """x: [B, T, H, W, C] -> logits [B, num_classes] in the compute
         dtype.  ``generator`` draws drop-path and head-dropout masks in
-        training mode."""
-        feat = self.forward_features(x, generator)
+        training mode.  ``return_embeddings`` (dropout head only, as in
+        JAX): (logits, the pre-head feature); ``return_hidden``: the
+        blocks' list instead of logits."""
+        feat = self.forward_features(x, generator, return_hidden)
+        if return_hidden:
+            return feat
         if self.head_type == "aggregate":
             out = self.aggregate_cls_norm(self.fc_aggregate_cls(feat))
             return self.head(F.gelu(out))
+        embedding = feat
         if self.dropout > 0 and self.training:
             feat = dropout(feat, self.dropout, generator)
-        return self.head(feat)
+        out = self.head(feat)
+        return (out, embedding) if return_embeddings else out
+
+    def lock_groups(self) -> list[list[str]]:
+        """Progressive-unfreeze groups, first to last, as JAX's (the
+        reference ``lock()``): the embeddings, each block but the last,
+        the last block with the final norm, the head.  Entries are
+        state-dict name prefixes."""
+        first = ["patch_embed"]
+        if self.sep_pos_embed:
+            first += ["pos_embed_spatial", "pos_embed_temporal",
+                      "pos_embed_class"]
+        else:
+            first += ["pos_embed"]
+        if self.cls_embed:
+            first += ["cls_token"]
+        groups = [first]
+        groups += [[f"blocks.{i}"] for i in range(self.depth - 1)]
+        groups += [[f"blocks.{self.depth - 1}", "norm"]]
+        if self.head_type == "aggregate":
+            groups += [["fc_aggregate_cls", "aggregate_cls_norm", "head"]]
+        else:
+            groups += [["head"]]
+        return groups
 
 
 # ---- constructor registry (reference models_*.__dict__[name] pattern) ----
@@ -187,34 +222,46 @@ def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator):
     t.erfinv_().mul_(std * math.sqrt(2)).clamp_(-2 * std, 2 * std)
 
 
+def _lecun_(p: torch.Tensor, g: torch.Generator):
+    """flax's lecun_normal: truncated normal, fan_in the elements of one
+    output's slice (a Dense kernel's input width, a conv's C * kh * kw)."""
+    _trunc_normal_(p, p[0].numel() ** -0.5 / 0.87962566103423978, g)
+
+
 @torch.no_grad()
-def init_params(model: VisionTransformerST, generator: torch.Generator):
-    """Seeded random weights with flax's default distributions: lecun
-    truncated-normal Dense kernels, xavier-uniform patch kernel,
-    N(0, 0.02) head, truncated N(0, 0.02) pos embeds, zero cls token and
-    biases, unit LayerNorm scales; a quant model's int8 weights 0 and
-    scales 1, as the JAX QuantDense initialises them."""
+def init_vit_param(name: str, p: torch.Tensor, generator: torch.Generator):
+    """One ViT parameter with flax's default distribution (``name`` relative
+    to the ViT): lecun truncated-normal Dense kernels, xavier-uniform patch
+    kernel, N(0, 0.02) head, truncated N(0, 0.02) pos embeds, zero cls
+    token and biases, unit LayerNorm scales."""
+    if name.endswith("bias") or name == "cls_token":
+        p.zero_()
+    elif name.endswith("patch_embed.proj.weight"):
+        fan_in, fan_out = p[0].numel(), p.shape[0]
+        lim = math.sqrt(6.0 / (fan_in + fan_out))
+        p.uniform_(-lim, lim, generator=generator)
+    elif name == "head.weight":
+        p.normal_(0.0, 0.02, generator=generator)
+    elif name.startswith("pos_embed"):
+        _trunc_normal_(p, 0.02, generator)
+    elif p.ndim == 1:  # LayerNorm scale
+        p.fill_(1.0)
+    else:  # Dense kernel [out, in]
+        _lecun_(p, generator)
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator):
+    """Seeded random weights with flax's default distributions
+    (``init_vit_param``); a quant model's int8 weights 0 and scales 1, as
+    the JAX QuantDense initialises them."""
     for name, b in model.named_buffers():
         if name.endswith("weight_q"):
             b.zero_()
         elif name.endswith(".scale"):
             b.fill_(1.0)
     for name, p in model.named_parameters():
-        if name.endswith("bias") or name == "cls_token":
-            p.zero_()
-        elif name.endswith("patch_embed.proj.weight"):
-            fan_in, fan_out = p[0].numel(), p.shape[0]
-            lim = math.sqrt(6.0 / (fan_in + fan_out))
-            p.uniform_(-lim, lim, generator=generator)
-        elif name == "head.weight":
-            p.normal_(0.0, 0.02, generator=generator)
-        elif name.startswith("pos_embed"):
-            _trunc_normal_(p, 0.02, generator)
-        elif p.ndim == 1:  # LayerNorm scale
-            p.fill_(1.0)
-        else:  # Dense kernel [out, in]: lecun normal, truncated at 2 std
-            _trunc_normal_(p, p.shape[1] ** -0.5 / 0.87962566103423978,
-                           generator)
+        init_vit_param(name, p, generator)
 
 
 def create_model(ctor=vit_large_patch16, device=None, seed: int = 0,

@@ -245,11 +245,16 @@ class TransformerStack(nn.ModuleList):
         self.cam.append((t, pert))
         return t
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None,
+                return_hidden: bool = False):
+        """-> the final feature, or with ``return_hidden`` the list of
+        every block's: its MLP branch under parity="flash" (as the
+        final feature is), its hidden state under "standard"."""
         m = x
         remat = self.remat and torch.is_grad_enabled()
         if self.capture_cam:
             self.cam = []
+        hidden = []
         for i, blk in enumerate(self):
             x, m = (_checkpointed(blk, x, generator) if remat
                     else blk(x, generator))
@@ -258,4 +263,8 @@ class TransformerStack(nn.ModuleList):
                     m = self._cam_point(m)
                 else:
                     x = self._cam_point(x)
+            if return_hidden:
+                hidden.append(m if self.parity == "flash" else x)
+        if return_hidden:
+            return hidden
         return m if self.parity == "flash" else x

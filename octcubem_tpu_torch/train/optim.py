@@ -17,6 +17,15 @@ pre-increment count.  Without clip and layer decay that is exactly
 takes a zero gradient, as JAX gives it one: its count, moments and
 weight decay still advance (``torch.optim`` would skip it).  Each stage
 is one multi-tensor (``torch._foreach_*``) op over all params.
+
+``step(ok=...)`` is the fine-tune step's NaN guard on the device (JAX's
+``jnp.where(ok, new, old)`` over the whole state): the update is computed
+out of place and kept only where the 0-d bool ``ok`` holds, so a
+non-finite loss leaves the params, both moments and the count as they
+were, and the host reads nothing.  On that path the count is a 0-d
+tensor on the params' device and the LR is read at it from a table of
+the schedule over its ``total_steps`` (the last entry past the end).
+Without ``ok`` the update is the host-count one above, unchanged.
 """
 
 from __future__ import annotations
@@ -43,11 +52,14 @@ def weight_decay_mask(params) -> dict[str, bool]:
             for name, p in _named(params).items()}
 
 
-def layer_decay_scales(params, num_blocks: int,
-                       layer_decay: float) -> dict[str, float]:
+def layer_decay_scales(params, num_blocks: int, layer_decay: float,
+                       name_prefix: str = "") -> dict[str, float]:
     """name -> BEiT layer-decay LR multiplier.  Layer 0: names starting
     with cls_token, pos_embed or patch_embed; i + 1: block i of a
-    ``blocks`` / ``decoder_blocks`` stack; the rest: the head layer."""
+    ``blocks`` / ``decoder_blocks`` stack; the rest: the head layer.
+    Names are matched with ``name_prefix`` in front: the JAX CLIs pass
+    their params tree with its root, ``"params."`` here, under which no
+    name is layer 0 (cli/finetune.py)."""
     num_layers = num_blocks + 1
     scales = [layer_decay ** (num_layers - i) for i in range(num_layers + 1)]
 
@@ -57,7 +69,8 @@ def layer_decay_scales(params, num_blocks: int,
         m = re.search(r"blocks\.(\d+)\.", name)
         return int(m.group(1)) + 1 if m else num_layers
 
-    return {name: scales[layer_id(name)] for name in _named(params)}
+    return {name: scales[layer_id(name_prefix + name)]
+            for name in _named(params)}
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -95,6 +108,7 @@ class AdamW:
                        else [float(scales[n]) for n in self.names])
         self.mu_dtype = mu_dtype
         self.count = 0
+        self._lr_table = None
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
@@ -127,11 +141,9 @@ class AdamW:
 
     def lr(self, count: int) -> float:
         lr = self.learning_rate
-        return float(lr(count) if callable(lr) else lr)
+        return float(lr(int(count)) if callable(lr) else lr)
 
-    @torch.no_grad()
-    def step(self) -> None:
-        """One update from the params' ``.grad`` (None taken as zeros)."""
+    def _grads(self) -> list[torch.Tensor]:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         grads = [g.float() for g in grads]
@@ -140,6 +152,15 @@ class AdamW:
             factor = torch.where(gn < self.clip_grad, torch.ones_like(gn),
                                  self.clip_grad / gn)
             grads = torch._foreach_mul(grads, factor)
+        return grads
+
+    @torch.no_grad()
+    def step(self, ok: torch.Tensor | None = None) -> None:
+        """One update from the params' ``.grad`` (None taken as zeros);
+        with ``ok``, gated on it on the device (module docstring)."""
+        if ok is not None:
+            return self._gated_step(ok)
+        grads = self._grads()
         lr = self.lr(self.count)  # the schedule's step: pre-increment
         self.count += 1           # bias correction: post-increment
         c1 = 1.0 - self.b1 ** self.count
@@ -150,7 +171,15 @@ class AdamW:
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        denom = torch._foreach_div(self.nu, c2)
+        u = self._direction(mu, self.nu, c1, c2)
+        torch._foreach_add_(self.params, u, alpha=-lr)
+        if self.mu_dtype is not None:
+            torch._foreach_copy_(self.mu, mu)
+
+    def _direction(self, mu, nu, c1, c2) -> list[torch.Tensor]:
+        """The update before the LR: (mu / c1) / (sqrt(nu / c2) + eps),
+        plus the decoupled weight decay, times the layer scales."""
+        denom = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         u = torch._foreach_div(mu, c1)
@@ -161,9 +190,47 @@ class AdamW:
                                 alpha=self.weight_decay)
         if self.scales is not None:
             torch._foreach_mul_(u, self.scales)
-        torch._foreach_add_(self.params, u, alpha=-lr)
-        if self.mu_dtype is not None:
-            torch._foreach_copy_(self.mu, mu)
+        return u
+
+    def _device_lr(self, count: torch.Tensor) -> torch.Tensor:
+        """The schedule at a device count, from a table of steps 0 ..
+        ``total_steps`` built once; a schedule without ``total_steps`` is
+        refused (a table it cannot size would freeze or skew the LR)."""
+        if not callable(self.learning_rate):
+            return torch.tensor(float(self.learning_rate),
+                                dtype=torch.float64, device=count.device)
+        total = getattr(self.learning_rate, "total_steps", None)
+        if total is None:
+            raise ValueError("step(ok=...) needs a float LR or a schedule "
+                             "with total_steps (train/schedules.py)")
+        if self._lr_table is None or self._lr_table.device != count.device:
+            self._lr_table = torch.tensor(
+                [self.lr(i) for i in range(int(total) + 1)],
+                dtype=torch.float64, device=count.device)
+        # index_select, not [count]: a 0-d index is read back to the host
+        idx = count.clamp(max=self._lr_table.numel() - 1).reshape(1)
+        return self._lr_table.index_select(0, idx)[0]
+
+    def _gated_step(self, ok: torch.Tensor) -> None:
+        dev = self.params[0].device
+        if not torch.is_tensor(self.count):
+            self.count = torch.tensor(int(self.count), device=dev)
+        grads = self._grads()
+        lr = self._device_lr(self.count)
+        count = self.count + 1
+        c1 = (1.0 - torch.pow(self.b1, count.double())).float()
+        c2 = (1.0 - torch.pow(self.b2, count.double())).float()
+        mu = torch._foreach_mul([m.float() for m in self.mu], self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        nu = torch._foreach_mul(self.nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        u = self._direction(mu, nu, c1, c2)
+        torch._foreach_mul_(u, (-lr).float())
+        new = torch._foreach_add(self.params, u)
+        for old, upd in ((self.params, new), (self.mu, mu), (self.nu, nu)):
+            for o, n in zip(old, upd):
+                torch.where(ok, n.to(o.dtype), o, out=o)
+        self.count = torch.where(ok, count, self.count)
 
 
 def build_fused_adamw(params, learning_rate: float | Callable,
@@ -179,14 +246,16 @@ def build_adamw(params, learning_rate: float | Callable,
                 betas: tuple[float, float] = (0.9, 0.95),
                 layer_decay: float | None = None,
                 num_blocks: int | None = None,
-                clip_grad: float | None = None, mu_dtype=None) -> AdamW:
+                clip_grad: float | None = None, mu_dtype=None,
+                name_prefix: str = "") -> AdamW:
     """AdamW of the reference pretrain (betas 0.9 / 0.95) and finetune
     (layer decay) configurations; without clip_grad and layer_decay it is
-    ``build_fused_adamw``."""
+    ``build_fused_adamw``.  ``name_prefix``: see ``layer_decay_scales``."""
     scales = None
     if layer_decay is not None and layer_decay != 1.0:
         if num_blocks is None:
             raise ValueError("layer_decay needs num_blocks")
-        scales = layer_decay_scales(params, num_blocks, layer_decay)
+        scales = layer_decay_scales(params, num_blocks, layer_decay,
+                                    name_prefix)
     return AdamW(params, learning_rate, weight_decay, betas, mu_dtype=mu_dtype,
                  clip_grad=clip_grad, scales=scales)

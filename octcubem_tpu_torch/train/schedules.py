@@ -3,7 +3,9 @@
 Each LR schedule is a function of the optimizer step (an int) returning a
 float: the reference MAE per-iteration half-cosine with linear warmup over
 fractional epochs (OCTCube/util/lr_sched.py) and the retinal-COEM
-per-step cosine with warmup.
+per-step cosine with warmup.  Each carries ``total_steps``, the step at
+which it ends, which sizes the device LR table of ``optim.AdamW``'s gated
+step.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ def warmup_half_cosine(base_lr: float, min_lr: float, warmup_epochs: float,
         return min_lr + (base_lr - min_lr) * 0.5 * (1.0 + math.cos(math.pi
                                                                    * progress))
 
+    schedule.total_steps = math.ceil(total_epochs * steps_per_epoch)
     return schedule
 
 
@@ -39,6 +42,7 @@ def clip_cosine_lr(base_lr: float, warmup_steps: int, total_steps: int):
         e = (step - warmup_steps) / max(total_steps - warmup_steps, 1)
         return 0.5 * (1 + math.cos(math.pi * e)) * base_lr
 
+    schedule.total_steps = total_steps
     return schedule
 
 

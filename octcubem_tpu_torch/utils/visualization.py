@@ -4,12 +4,17 @@ own copy).
 
 matplotlib is imported inside each renderer, never at import: a machine
 without it (the card's) imports this module, and only a call to a
-renderer needs it.
+renderer needs it.  The confusion matrix, which ``cli/finetune.py``
+writes after each new best epoch, has a second renderer for such a
+machine: ``write_matrix_png``, a shaded grid (one cell per entry, darker
+for larger counts) encoded with zlib and struct alone.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -41,17 +46,51 @@ def reconstruction_panels(imgs: np.ndarray, pred_tokens: np.ndarray,
     return imgs, masked_input, recon, pasted
 
 
+def write_matrix_png(cm: np.ndarray, out_path: str, cell: int = 24) -> str:
+    """A count matrix as an 8-bit gray PNG: one ``cell``-pixel square per
+    entry, white for 0 to black for the largest count, 1-pixel grid
+    lines; written with zlib and struct (no imaging library)."""
+    cm = np.asarray(cm)
+    rows, cols = cm.shape
+    top = max(int(cm.max()), 1)
+    shade = (255 - np.round(224 * cm / top)).astype(np.uint8)
+    img = np.kron(shade, np.ones((cell, cell), np.uint8))
+    img[::cell, :] = 128
+    img[:, ::cell] = 128
+    img = np.pad(img, ((0, 1), (0, 1)), constant_values=128)
+    h, w = img.shape
+    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+    return out_path
+
+
 def save_confusion_matrix(y_true, y_pred, class_names, out_path: str):
     """Confusion-matrix image, the matplotlib equivalent of the
-    reference's pycm JPEG dumps (engine_finetune.py:766-776)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    reference's pycm JPEG dumps (engine_finetune.py:766-776); without
+    matplotlib, ``write_matrix_png``'s shaded grid.  Returns the counts
+    [true, predicted]."""
     n = len(class_names)
     cm = np.zeros((n, n), np.int64)
     for t, p in zip(np.asarray(y_true), np.asarray(y_pred)):
         cm[int(t), int(p)] += 1
+    try:
+        import matplotlib
+    except ImportError:
+        write_matrix_png(cm, out_path)
+        return cm
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     fig, ax = plt.subplots(figsize=(1 + 0.6 * n, 1 + 0.6 * n))
     ax.imshow(cm, cmap="Blues")
     ax.set_xticks(range(n), class_names, rotation=45, ha="right", fontsize=7)

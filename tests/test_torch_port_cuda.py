@@ -675,3 +675,52 @@ def test_aot_round_trip_on_card(gen, tmp_path):
     with pytest.raises(ValueError, match="exported for"):
         aot.load_serving_artifact(aot.export_serving_artifact(
             cpu_model, (x.cpu(),), str(tmp_path / "c")))
+
+
+def test_finetune_step_launches_b1_b2_per_block_and_reads_nothing_back(gen):
+    """One fine-tune step (train/finetune_engine.py) on a small ViT-ST at a
+    cls-prefixed 129 tokens, drop path 0.2, the layer-decay AdamW gated on
+    the device: one B1 and one B2 launch per block and no other attention
+    kernel; a NaN batch leaves params, moments and count as they were;
+    the step's trace holds no device-to-host copy."""
+    from octcubem_tpu_torch.models import vit_st
+    from octcubem_tpu_torch.train import finetune_engine, losses, optim
+    from octcubem_tpu_torch.train.train_state import TrainState
+
+    model = vit_st.create_model(
+        vit_st.VisionTransformerST, device="cuda", num_frames=6,
+        t_patch_size=3, img_size=128, in_chans=1, num_classes=6,
+        embed_dim=128, depth=3, num_heads=2, drop_path_rate=0.2,
+        dtype=torch.bfloat16)
+    tx = optim.build_adamw(model, 1e-3, 0.05, layer_decay=0.65,
+                           num_blocks=3, name_prefix="params.")
+    state = TrainState.create(model, tx, 1)
+    step = finetune_engine.make_finetune_train_step(
+        model, tx, losses.make_criterion("multi_task_default"))
+    x = torch.randn((2, 6, 128, 128, 1), generator=gen, device="cuda")
+    y = torch.tensor([[0, 1, 0, 1], [1, 0, 0, 0]], dtype=torch.float32,
+                     device="cuda")
+    _cuda.reset_launches()
+    state, m = step(state, x, y)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in _cuda.launches.items() if c} == {
+        "flash_fwd_packed": 3, "flash_bwd_packed": 3}
+    assert bool(m["finite"])
+    before = [p.detach().clone() for p in model.parameters()]
+    mu = [t.clone() for t in tx.mu]
+    count = tx.count.clone()
+    bad = x.clone()
+    bad[0, 0, 0, 0, 0] = float("nan")
+    state, m = step(state, bad, y)
+    assert not bool(m["finite"])
+    assert all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(mu, tx.mu))
+    assert torch.equal(count, tx.count)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, x, y)
+        torch.cuda.synchronize()
+    dtoh = [e.name for e in prof.events()
+            if "DtoH" in e.name or "Device -> Host" in e.name]
+    assert dtoh == []

@@ -284,15 +284,14 @@ def test_serve_loads_like_jax(layout_file):
 
 
 def _infer_args(path, frames, size, pkg):
+    # both CLIs parse the JAX CLI's flags (ROADMAP C7); the port adds seed
     common = dict(ckpt=path, t_patch_size=3, num_frames=frames,
                   input_size=size, nb_classes=4, num_heads=2,
-                  precision="fp32")
+                  precision="fp32", model="flash_attn_vit_large_patch16",
+                  drop_path=0.2, global_pool=True, sep_pos_embed=True,
+                  cls_embed=True, attn_impl="auto", saliency_dir=None)
     if pkg == "port":
         common.update(seed=0)
-    else:
-        common.update(model="flash_attn_vit_large_patch16", drop_path=0.2,
-                      global_pool=True, sep_pos_embed=True, cls_embed=True,
-                      attn_impl="auto", saliency_dir=None)
     return argparse.Namespace(**common)
 
 

@@ -68,7 +68,17 @@ def test_port_imports_no_jax():
             "octcubem_tpu_torch/data/patients.py",
             "octcubem_tpu_torch/data/loader.py",
             "octcubem_tpu_torch/data/spl.py",
-            "octcubem_tpu_torch/cli/pretrain.py"} <= scanned
+            "octcubem_tpu_torch/cli/pretrain.py",
+            "octcubem_tpu_torch/models/vit2d.py",
+            "octcubem_tpu_torch/models/vit_3dhead.py",
+            "octcubem_tpu_torch/models/slivit.py",
+            "octcubem_tpu_torch/train/losses.py",
+            "octcubem_tpu_torch/train/metrics.py",
+            "octcubem_tpu_torch/train/finetune_engine.py",
+            "octcubem_tpu_torch/data/aireadi.py",
+            "octcubem_tpu_torch/data/crossmodal.py",
+            "octcubem_tpu_torch/cli/finetune.py",
+            "octcubem_tpu_torch/cli/predict.py"} <= scanned
     # the native directory holds its C++ source beside the binding, and
     # no file of the JAX package's (nor its prebuilt library)
     native = sorted(p.name for p in
@@ -78,6 +88,10 @@ def test_port_imports_no_jax():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+    # the card's machine has no scikit-learn: the metrics are numpy + scipy
+    sk = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+          if m.split(".")[0] == "sklearn"]
+    assert sk == []
 
 
 def test_resolve_device_needs_a_card(monkeypatch):

@@ -105,13 +105,52 @@ def test_registry_serves_the_ported_families():
         jreg.create_model("vit_st", "no_such_model")
 
 
+# the families ROADMAP A12 ported: each registry name builds a model that
+# forwards equal to the JAX registry's on the same weights (fp32, 5e-5)
+REGISTRY_A12 = {
+    "vit2d": ("vit_large_patch16", dict(img_size=32, in_chans=1,
+                                        num_classes=3), (2, 32, 32, 1)),
+    "vit_3dhead": ("vit_large_patch16", dict(img_size=32, in_chans=1,
+                                             num_classes=3), (1, 2, 32, 32, 1)),
+    "slivit": ("slivit_baseline", dict(num_classes=2, num_frames=2,
+                                       img_size=32, slivit_depth=1,
+                                       convnext_depths=(1, 1, 1, 1),
+                                       convnext_dims=(8, 8, 8, 16)),
+               (1, 2, 32, 32, 1)),
+}
+
+
 @pytest.mark.parametrize("family,item", [("vit2d", "A12"),
                                          ("vit_3dhead", "A12"),
                                          ("slivit", "A12")])
 def test_registry_names_what_is_not_ported(family, item):
-    assert family in jreg._FAMILIES
-    with pytest.raises(NotImplementedError, match=item):
-        treg.create_model(family, "vit_large_patch16")
+    """Once named as not ported (ROADMAP ``item``), now built by both
+    registries: the port's forward equals JAX's on JAX's weights."""
+    from octcubem_tpu_torch.compat.jax_params import state_dict_from_jax
+
+    assert family in jreg._FAMILIES and item == "A12"
+    name, kw, shape = REGISTRY_A12[family]
+    # the ViT-L constructors at one block (the port's take depth)
+    small = {} if family == "slivit" else dict(depth=1)
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    if family == "slivit":
+        jm = jreg.create_model(family, name, **kw)
+    else:
+        # the JAX constructors fix depth and width: the classes directly
+        from octcubem_tpu.models import vit2d, vit_3dhead
+
+        cls = (vit2d.VisionTransformer2D if family == "vit2d"
+               else vit_3dhead.VisionTransformer3DHead)
+        jm = cls(**kw, embed_dim=1024, depth=1, num_heads=16,
+                 attn_impl="naive")
+    params = jax.jit(jm.init)(jax.random.key(1), jnp.asarray(x))
+    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
+    tm = treg.create_model(family, name, device="cpu", **kw, **small)
+    assert not tm.training
+    tm.load_state_dict(state_dict_from_jax(params), strict=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, atol=5e-5, rtol=5e-5)
 
 
 def test_coem_configs_wait_for_a13():

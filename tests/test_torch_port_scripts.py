@@ -1,7 +1,8 @@
 """The card scripts' pieces that run without a card (CPU): the forward
 bound of ``scripts/time_kernels.py``, the variant edits of
-``scripts/ablate_fwd.py`` against the forward body as it is, and the
-kernel groups of ``scripts/profile_step.py``."""
+``scripts/ablate_fwd.py`` against the forward body as it is, the
+kernel groups of ``scripts/profile_step.py``, and
+``scripts/ft_naive_spread.py``'s refusal without a card."""
 
 import pytest
 
@@ -66,3 +67,16 @@ def test_step_profile_groups_each_flash_body(name, group):
     """Both forward bodies (the Hopper one and the mma.sync one) and the
     backward land in the flash groups, not among "other elementwise"."""
     assert profile_step.group_of(name) == group
+
+
+def test_ft_naive_spread_needs_a_card(monkeypatch, capsys):
+    """The limit-spread script measures on the card only: without a CUDA
+    device it exits 2 and prints no reading."""
+    import torch
+
+    from octcubem_tpu_torch.scripts import ft_naive_spread
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ft_naive_spread.main(["--seeds", "1"]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
