@@ -24,7 +24,9 @@ Phases, each fatal on failure (no phase's error is caught):
      fine-tuning family's 2D trunks (48, 197, 16, 64; no fold) and,
      head by head, at the variable_joint high-res stream's (1, 16,385,
      16, 64; folded), whose plain scores over all heads would take 17.2
-     GB a tensor;
+     GB a tensor; and, sample by sample, at the COEM towers' (8, 5,121,
+     16, 64; folded) and (8, 577, 16, 64; not folded), with B1 alone at
+     the octcube_ir preset's chunk of 32 x 5,121;
   4. the serving path: entry()'s ViT-L 48x256x256 bf16 forward, its
      launch counts, finite [1, 16] logits that agree with the same model
      run with impl="naive";
@@ -149,10 +151,34 @@ Phases, each fatal on failure (no phase's error is caught):
      SLIViT head; cli/predict.py in process (the CSV equal to the direct
      forward, --quant int8, --export_aot / --aot) and cli/finetune.py in
      process (the octcube_multitask preset on 10 synthetic volumes, the
-     slivit_ct3d preset on a MedMNIST-layout .npz).  Then one
+     slivit_ct3d preset on a MedMNIST-layout .npz);
+ 20. the COEM contrastive path (train/clip_engine.py, models/coem.py) at
+     full width and depth, bf16: the octcube_ir accumulation step on
+     vitl16_octcube_ir (OCT ViT-ST-L/16 at 60x256x256, 5,121 tokens
+     folded; en face ViT-L/16 at 384^2, 577 tokens; grad checkpointing,
+     the partition lock at 9 groups), chunk 8 x accum_freq 2, three steps
+     (finite, 256 B1 + 64 B2 each and no other kernel, the frozen params
+     bit for bit with no moments, the trainable ones moved, no
+     device-to-host copy in a step's trace, its time, peak, idle share
+     and bound), and one step at the preset's 32 x 4 (512 B1 + 128 B2);
+     the accumulated step against the full batch at 2 + 2 blocks in fp32
+     (the JAX test's 1e-4 / 1e-3); flash against impl="naive" at 2 + 2
+     blocks, fp32 and bf16 (the CLIP loss, and the gradients of a fixed
+     random projection of the features); one vitl16_octcube_ef_3mod
+     step (4 x 2: 400 B1 + 112 B2); clip_pair_gradcam at full width (OCT
+     layers -1 and 0);
+     cli/retclip.py in process on the octcube_ir preset (80 synthetic
+     pairs, batch 8 x accum 4: the epoch, the retrieval pkl, the save,
+     --resume latest with the state bit for bit, --evaluate_only --quant
+     int8, --export_aot (48 B1 op calls, features equal to the live
+     model's) and --aot, the first loss against one direct step);
+     cli/retclip_finetune.py on vitl16_octcube_ef_3mod (synthetic, fp32,
+     the lock, two folds of one epoch) and a vitl16_octcube_ir
+     classifier's towers from the retclip run; cli/retrieval_eval.py on
+     the dumped features with a seeded laterality column.  Then one
      {"kernels": [...]} line with B1-B8; B1's and B2's entries carry
-     ``launches_per_step_on``: for each phase-19 path, the launches
-     counted in each of its checked steps of this run.
+     ``launches_per_step_on``: for each phase-19 and phase-20 path, the
+     launches counted in each of its checked steps of this run.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -498,6 +524,100 @@ def check_head_by_head(torch, fa):
                                  f"head by head at n={n} {key}")
         del qkv, args, o, lse, do, g_lse, runs
         torch.cuda.empty_cache()
+
+
+# (B, n, H, D) of the COEM towers (phase 20): the OCT tower at 60x256x256
+# (5,120 tubes + cls, folded) and the en face tower at 384^2 (576 + cls,
+# not folded) at phase 20's chunk of 8, and the OCT tower at the octcube_ir
+# preset's chunk of 32 (the forward alone: its pass 1)
+COEM_CASES = [(8, 5121, 16, 64), (8, 577, 16, 64)]
+COEM_FWD_CASE = (32, 5121, 16, 64)
+
+
+def check_coem_shapes(torch, fa):
+    """Phase 3, B1 and B2 at the COEM towers' shapes, bf16 and fp32,
+    against their plain versions sample by sample (the plain scores of all
+    8 samples would take 13.4 GB a tensor at 5,121 tokens): each sample's
+    rows of the fused buffer go through them at B = 1 and are held
+    against that sample's rows of the kernels' outputs (B1's o and lse,
+    B2's dq, dk, dv, dkc, dvc from two runs) at phase 3's limits over each
+    whole output; then B1 alone at the preset's chunk of 32 x 5,121."""
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    names = ("dq", "dk", "dv", "dkc", "dvc")
+    for (b, n, h, d), bwd in [(c, True) for c in COEM_CASES] + [
+            (COEM_FWD_CASE, False)]:
+        scale = d ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype).split(".")[1]
+            qkv = torch.randn((b, n, 3 * h * d), generator=gen,
+                              device="cuda").to(dtype)
+            args = _kernel_args(qkv, h)
+            o, lse = fa.fwd_packed_cuda(*args, h, scale)
+            runs = []
+            if bwd:
+                do = torch.randn(o.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                g_lse = 0.1 * torch.randn(lse.shape, generator=gen,
+                                          device="cuda")
+                runs = [fa.bwd_packed_cuda(*args, o, lse, do, g_lse, h, scale)
+                        for _ in range(2)]
+            torch.cuda.synchronize()
+            atol, rtol = TOL_O[key]
+            excess = dlse = 0.0
+            top = dict.fromkeys(names, 0.0)
+            err = {k: [0.0, 0.0] for k in names}
+            finite = bool(torch.isfinite(o.float()).all())
+            for i in range(b):
+                one = tuple(None if t is None else t[i:i + 1] for t in args)
+                o_ref, lse_ref = fa.fwd_packed_plain(*one, h, scale)
+                d_o = (o[i:i + 1].float() - o_ref.float()).abs()
+                excess = max(excess, (d_o - rtol * o_ref.float().abs()).max()
+                             .item())
+                dlse = max(dlse, (lse[i:i + 1] - lse_ref).abs().max().item())
+                if bwd:
+                    ref = fa.bwd_packed_plain(*one, o[i:i + 1], lse[i:i + 1],
+                                              do[i:i + 1], g_lse[i:i + 1], h,
+                                              scale)
+                    for name, r, g0, g1 in zip(names, ref, *runs):
+                        if r is None:
+                            continue
+                        top[name] = max(top[name],
+                                        r.float().abs().max().item())
+                        for j, g in enumerate((g0, g1)):
+                            err[name][j] = max(err[name][j], (
+                                g[i:i + 1].float() - r.float()).abs().max()
+                                .item())
+                    del ref
+                del o_ref, lse_ref, d_o
+            torch.cuda.empty_cache()
+            cls = args[3] is not None
+            line = (f"B1{' / B2' if bwd else ''} sample by sample B={b} "
+                    f"n={n} H={h} D={d} {key} cls={cls}: max|do|-"
+                    f"{rtol:.1e}|o| = {excess:.3e} (tol {atol:.1e}) "
+                    f"max|dlse|={dlse:.3e} (tol {TOL_LSE:.0e})")
+            ok = excess <= atol and dlse <= TOL_LSE and finite
+            if bwd:
+                finite = all(bool(torch.isfinite(g.float()).all())
+                             for r in runs for g in r if g is not None)
+                same = all(torch.equal(runs[0][i], runs[1][i])
+                           for i in range(1, 5) if runs[0][i] is not None)
+                tol = TOL_GRAD[key]
+                live = [k for k in names if top[k] > 0]
+                grads_ok = all(max(err[k]) <= tol * top[k] for k in live)
+                line += ("; B2 max|d| " + " ".join(
+                    f"{k}={max(err[k]):.3e}/{top[k]:.3e}" for k in live)
+                         + f" (tol {tol:.1e} x max|plain|); dk dv dkc dvc "
+                         f"identical between runs {same}")
+                ok = ok and grads_ok and same and finite
+            print(line)
+            if not ok:
+                raise AssertionError(f"B1 / B2 disagree with their plain "
+                                     f"versions at the COEM shape B={b} "
+                                     f"n={n} {key}")
+            del qkv, args, o, lse, runs
+            if bwd:
+                del do, g_lse
+            torch.cuda.empty_cache()
 
 
 def _nonzero(launches):
@@ -3489,6 +3609,635 @@ def run_phase19(torch, _cuda, smi):
                    for path, steps in seen.items()} for kern in FT_B1_B2}
 
 
+# ----------------------------------------- phase 20: the COEM contrastive path
+
+# the octcube_ir preset's towers (vitl16_octcube_ir): the OCT ViT-ST-L/16
+# at 60x256x256 (5,120 tubes + cls = 5,121 tokens, folded) and the en face
+# ViT-L/16 at 384^2 (576 patches + cls = 577, not folded), 16 heads of 64;
+# the partition lock at 9 unlocked groups leaves OCT blocks 16-23 and the
+# head trainable, so per accumulation chunk: pass 1 runs 24 + 24 B1; pass 2
+# runs 24 + 8 recomputed B1 and 8 B2 in the OCT tower, 24 + 24 B1 and 24 B2
+# in the en face tower (remat): 128 B1 + 32 B2 a chunk.  The 3-modality
+# step runs the en face trunk twice a chunk: 200 B1 + 56 B2.
+COEM_CONFIG = "vitl16_octcube_ir"
+COEM_3MOD_CONFIG = "vitl16_octcube_ef_3mod"
+
+
+def coem_launches(accum, three_mod=False):
+    per = (200, 56) if three_mod else (128, 32)
+    return {"flash_fwd_packed": per[0] * accum,
+            "flash_bwd_packed": per[1] * accum}
+
+
+def vit_fwd_flops(n, layers=24, d=1024, pix=0, l=0):
+    """One ViT forward over n tokens: the block projections (2 * n * 12 d^2
+    a block), the attention products (4 * n^2 * d a block), the patch
+    projection (2 * l * pix * d)."""
+    return layers * (2 * n * 12 * d * d + 4 * n * n * d) + 2 * l * pix * d
+
+
+def coem_flops(pairs, unlocked=8, layers=24, enface_passes=1):
+    """Analytic FLOPs of a locked, rematerialised accumulation step over
+    ``pairs`` pairs: pass 1 both forwards; pass 2 both forwards again, the
+    OCT tower's ``unlocked`` blocks recomputed and differentiated (3x their
+    share), every en face block recomputed and differentiated (3x);
+    ``enface_passes`` en face images a pair (2 for the 3-modality step)."""
+    oct_f = vit_fwd_flops(5121, layers, pix=3 * 16 * 16, l=5120)
+    enf_f = vit_fwd_flops(577, layers, pix=16 * 16 * 3, l=576)
+    per = (2 * (oct_f + enface_passes * enf_f)
+           + 3 * oct_f * unlocked / layers + 3 * enface_passes * enf_f)
+    return pairs * per
+
+
+def _coem_batch(torch, gen, accum, chunk, three_mod=False):
+    """Seeded pairs on the card, [accum, chunk, ...]: OCT volumes
+    60x256x256x1, en face 384x384x3 (and a second en face image with a
+    presence weight for 3-modality)."""
+    lead = (accum, chunk)
+    b = {"image": torch.rand(lead + (60, 256, 256, 1), generator=gen,
+                             device="cuda")}
+    if three_mod:
+        b["enface1"] = torch.rand(lead + (384, 384, 3), generator=gen,
+                                  device="cuda")
+        b["enface2"] = torch.rand(lead + (384, 384, 3), generator=gen,
+                                  device="cuda")
+        b["weight1"] = torch.ones(lead, device="cuda")
+        b["weight2"] = (torch.rand(lead, generator=gen, device="cuda")
+                        > 0.3).float()
+    else:
+        b["enface"] = torch.rand(lead + (384, 384, 3), generator=gen,
+                                 device="cuda")
+    return b
+
+
+def _coem_state(torch, name, seed, dtype=None, lock=9, lr=None, **kw):
+    """A COEM model from its registry config on the card with the
+    octcube_ir preset's optimizer: the partition lock at ``lock`` groups,
+    AdamW (0.9, 0.98) at the preset's cosine LR (or ``lr``) over the
+    trainable params -> (model, tx, state, frozen names)."""
+    from octcubem_tpu_torch.core.config import PRESETS
+    from octcubem_tpu_torch.models import registry
+    from octcubem_tpu_torch.train import optim, schedules
+    from octcubem_tpu_torch.train.train_state import TrainState
+
+    cfg = PRESETS["octcube_ir"]
+    dtype = torch.bfloat16 if dtype is None else dtype
+    model = registry.create_coem_model(name, dtype=dtype, seed=seed, **kw)
+    params = dict(model.named_parameters())
+    if lock is not None:
+        scales = optim.lit_lock_scales(model, model.vision_cfg["depth"], lock)
+        params = optim.make_partition(model, {k: s > 0
+                                              for k, s in scales.items()})
+    sched = (schedules.clip_cosine_lr(cfg.lr, cfg.warmup_steps, 100)
+             if lr is None else lr)
+    tx = optim.build_adamw(params, sched, cfg.weight_decay,
+                           betas=(0.9, 0.98))
+    frozen = [k for k in dict(model.named_parameters()) if k not in params]
+    return model, tx, TrainState.create(model, tx, seed + 1), frozen
+
+
+def _coem_step(torch, _cuda, step, state, batch, what, want, seen):
+    """One COEM step: finite loss and grad norm, ``want`` launches and no
+    other kernel; the launches (counters set to 0 just before the step)
+    are appended to ``seen``."""
+    _cuda.reset_launches()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    launches = _nonzero(_cuda.launches)
+    seen.append(launches)
+    loss, gn = m["loss"].item(), m["grad_norm"].item()
+    print(f"{what}: loss {loss:.6f} grad_norm {gn:.6f} launches {launches}")
+    if not (math.isfinite(loss) and math.isfinite(gn)):
+        raise AssertionError(f"{what}: non-finite loss or grad norm")
+    if launches != want:
+        raise AssertionError(f"{what}: expected {want} and no other kernel, "
+                             f"got {launches}")
+    return state, m
+
+
+def run_coem_steps(torch, _cuda, smi, tmp):
+    """20a: the octcube_ir accumulation step at full width and depth
+    (vitl16_octcube_ir, bf16 with fp32 params, grad checkpointing, the
+    partition lock at 9 groups), chunk 8 x accum_freq 2, three steps:
+    finite, 256 B1 + 64 B2 each and no other kernel; the frozen params
+    bit for bit and no optimizer moments for them; every trainable param
+    moved that its LR can move in fp32; the step's time, peak, trace
+    (idle share, no device-to-host copy) and bound.  20b: one step at the
+    preset's real size, chunk 32 x accum_freq 4 (512 B1 + 128 B2)."""
+    from octcubem_tpu_torch.train import clip_engine
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    model, tx, state, frozen = _coem_state(torch, COEM_CONFIG, 20,
+                                           remat=True)
+    step = clip_engine.make_clip_accum_train_step(model, tx, 2)
+    batch = _coem_batch(torch, gen, 2, 8)
+    names = [n for n, _ in model.named_parameters()]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    want = coem_launches(2)
+    seen = []
+    for i in range(3):
+        state, _ = _coem_step(torch, _cuda, step, state, batch,
+                              f"octcube_ir step {i + 1} (chunk 8 x accum 2, "
+                              f"lr {tx.lr(i):.4e})", want, seen)
+    params = dict(model.named_parameters())
+    frozen_same = all(torch.equal(before[n], params[n]) for n in frozen)
+    no_moments = not set(frozen) & set(tx.state_dict()["mu"])
+    lr_sum = sum(tx.lr(i) for i in range(3))
+    still, unexplained = [], []
+    for n in set(names) - set(frozen):
+        if torch.equal(before[n], params[n]):
+            still.append(n)
+            # Adam's |u| is about 1 at the first steps: a param stays put
+            # only where the LRs' sum is below its fp32 spacing
+            if 2 * lr_sum >= _spacing(torch, params[n]):
+                unexplained.append(n)
+    print(f"octcube_ir lock: {len(frozen)} of {len(names)} params frozen "
+          f"(OCT blocks 0-15, the embeddings), bit-identical after three "
+          f"steps {frozen_same}; moments held for {len(tx.names)} params, "
+          f"none frozen {no_moments}; trainable unmoved {sorted(still)}")
+    if not (frozen_same and no_moments and len(frozen) > 0) or unexplained:
+        raise AssertionError(f"the lock failed: frozen kept {frozen_same}, "
+                             f"no frozen moments {no_moments}, unexplained "
+                             f"unmoved {unexplained}")
+    del before
+    flops = coem_flops(16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _elapsed_ms(lambda: step(state, batch), 3, 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    idle, busy, window, _, dtoh = _profiled(
+        torch, lambda: step(state, batch), tmp, "coem")
+    print(f"octcube_ir step (chunk 8 x accum 2) on {smi}: {ms:.3f} ms per "
+          f"step (CUDA events over 3 after 1); bound {bound:.3f} ms "
+          f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
+          f"max_memory_allocated {peak:.2f} GiB; trace idle share "
+          f"{idle:.4f} (busy {busy:.3f} of {window:.3f} ms); device-to-host "
+          f"copies {dtoh}")
+    if dtoh:
+        raise AssertionError(f"the COEM step reads the device: {dtoh}")
+    # 20b: the preset's real size
+    step4 = clip_engine.make_clip_accum_train_step(model, tx, 4)
+    del batch
+    torch.cuda.empty_cache()
+    big = _coem_batch(torch, gen, 4, 32)
+    seen_big = []
+    state, _ = _coem_step(torch, _cuda, step4, state, big,
+                          "octcube_ir step at the preset's size (chunk 32 x "
+                          "accum 4)", coem_launches(4), seen_big)
+    torch.cuda.reset_peak_memory_stats()
+    ms_big = _elapsed_ms(lambda: step4(state, big), 1, 0)
+    peak_big = torch.cuda.max_memory_allocated() / 2 ** 30
+    bound_big = coem_flops(128) / PEAK_BF16_FLOPS * 1e3
+    print(f"octcube_ir step (chunk 32 x accum 4) on {smi}: {ms_big:.3f} ms "
+          f"(CUDA events, one step after one); bound {bound_big:.3f} ms; "
+          f"max_memory_allocated {peak_big:.2f} GiB")
+    del big, state, tx, model, step, step4
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak": peak, "bound": bound, "idle": idle,
+            "ms_big": ms_big, "peak_big": peak_big, "bound_big": bound_big,
+            "seen": {"octcube_ir steps (8 x 2)": seen,
+                     "octcube_ir step (32 x 4)": seen_big}}
+
+
+# the accumulated step against the full-batch step at the same params: the
+# JAX package's own tolerances (tests/test_coem.py:320-322), loss to 1e-4
+# and grad norm to 1e-3 relative.  Every chunk's loss spans the whole
+# bank and so the logit scale, whose gradient the summed chunks count
+# accum_freq times, as the JAX step and OpenCLIP do: the grad norm sits a
+# little above the full batch's (4.4e-4 relative on an H100, PR 12)
+TOL_ACCUM = (1e-4, 1e-3)
+
+
+def check_coem_accum_vs_full(torch):
+    """20c: the octcube_ir towers cut to 2 + 2 blocks at full width and
+    resolution, fp32, 8 pairs: the accumulation step (chunk 4 x 2, LR 0)
+    against the loss and gradient norm of the full batch."""
+    from octcubem_tpu_torch.train import clip_engine
+    from octcubem_tpu_torch.train.optim import global_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cut = _cut_towers(2)
+    model, tx, state, _ = _coem_state(torch, COEM_CONFIG, 23,
+                                      dtype=torch.float32, lock=None, lr=0.0,
+                                      remat=True, **cut)
+    batch = _coem_batch(torch, gen, 2, 4)
+    model.train()
+    img, enf, scale = model(batch["image"].flatten(0, 1),
+                            batch["enface"].flatten(0, 1))
+    full = clip_engine.clip_loss(img, enf, scale)
+    grads = torch.autograd.grad(full, tx.params)
+    full_gn = global_norm(grads).item()
+    del img, enf, grads
+    step = clip_engine.make_clip_accum_train_step(model, tx, 2)
+    _, m = step(state, batch)
+    dl = abs(m["loss"].item() - full.item()) / abs(full.item())
+    dg = abs(m["grad_norm"].item() - full_gn) / full_gn
+    print(f"accumulation (4 x 2) vs the full batch of 8, fp32, 2 + 2 blocks: "
+          f"loss {m['loss'].item():.7f} vs {full.item():.7f} rel {dl:.3e} "
+          f"(tol {TOL_ACCUM[0]:.0e}); grad norm {m['grad_norm'].item():.6f} "
+          f"vs {full_gn:.6f} rel {dg:.3e} (tol {TOL_ACCUM[1]:.0e})")
+    if not (dl <= TOL_ACCUM[0] and dg <= TOL_ACCUM[1]):
+        raise AssertionError("the accumulated step differs from the full "
+                             "batch")
+    del model, tx, state, step, batch
+    torch.cuda.empty_cache()
+
+
+def _cut_towers(depth):
+    """create_coem_model overrides: vitl16_octcube_ir's towers at ``depth``
+    blocks each, full width and resolution."""
+    import json
+
+    from octcubem_tpu_torch.models import registry
+
+    with open(Path(registry.CONFIG_DIR) / f"{COEM_CONFIG}.json") as f:
+        cfg = json.load(f)
+    return {"vision_cfg": dict(cfg["vision_cfg"], depth=depth),
+            "enface_cfg": dict(cfg["enface_cfg"], depth=depth)}
+
+
+# COEP2Tower cut to 2 + 2 blocks, flash (B1 + B2) against impl="naive".
+# At random init the towers' features are near orthogonal and the CLIP
+# loss sits at ln(pairs): its gradient is the residue of near-cancelling
+# per-sample terms.  Measured on an H100 at 700 W (PR 12, two draws):
+# flash against naive moved those gradients by 1.1e-3 to 1.3e-3 of a
+# leaf's largest in fp32 and by 0.5 to 1.2 in bf16, so they tell nothing.
+# The gradients held are those of a fixed random projection of both
+# towers' normalized features (no cancellation across samples; on the CPU
+# the plain versions agree to 5e-7), at phase 8's limits (TOL_NAIVE);
+# the CLIP loss itself is held in fp32 at phase 8's limit (measured 0)
+# and in bf16 at phase 19's 2.5e-3 (measured 3.4e-6 and 2.6e-5).
+TOL_NAIVE_COEM_LOSS = {"float32": TOL_NAIVE["float32"][0],
+                       "bfloat16": 2.5e-3}
+
+
+def check_coem_vs_naive(torch):
+    """20d: COEP2Tower at 2 + 2 blocks (full width, 5,121 and 577 tokens),
+    4 pairs, flash against impl="naive", fp32 and bf16: the contrastive
+    loss (TOL_NAIVE_COEM_LOSS), and the per-leaf gradients of a fixed
+    random projection of the two towers' features (TOL_NAIVE)."""
+    from octcubem_tpu_torch.models import registry
+    from octcubem_tpu_torch.train import clip_engine
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    batch = _coem_batch(torch, gen, 1, 4)
+    x = (batch["image"][0], batch["enface"][0])
+    r = torch.randn((2, 512), generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
+        model = registry.create_coem_model(COEM_CONFIG, dtype=dtype, seed=25,
+                                           **_cut_towers(2)).train()
+        mhas = [m for m in model.modules() if hasattr(m, "attn_impl")]
+        clip, proj = {}, {}
+        for impl in ("auto", "naive"):
+            for m in mhas:
+                m.attn_impl = impl
+            model.zero_grad(set_to_none=True)
+            img, enf, scale = model(*x)
+            clip[impl] = clip_engine.clip_loss(img, enf, scale).item()
+            obj = (img @ r[0]).sum() + (enf @ r[1]).sum()
+            obj.backward()
+            proj[impl] = (obj.item(), _leaf_grads(model))
+        dl = abs(clip["auto"] - clip["naive"]) / abs(clip["naive"])
+        what = (f"COEP2Tower {key} (2 + 2 blocks, 5,121 / 577 tokens, 4 "
+                f"pairs)")
+        print(f"flash vs naive {what}: CLIP loss {clip['auto']:.8f} vs "
+              f"{clip['naive']:.8f}, rel {dl:.3e} (tol "
+              f"{TOL_NAIVE_COEM_LOSS[key]:.1e})")
+        if dl > TOL_NAIVE_COEM_LOSS[key]:
+            raise AssertionError(f"flash and naive disagree: {what}")
+        # the projection's value is a readout; its gradients are held
+        tols = {key: (math.inf, TOL_NAIVE[key][1])}
+        _compare_to_naive(f"{what}, projected features", proj, dtype, tols)
+        del model, clip, proj
+        torch.cuda.empty_cache()
+
+
+def run_coem_3mod(torch, _cuda, smi):
+    """20e: one vitl16_octcube_ef_3mod accumulation step (chunk 4 x 2,
+    bf16, remat, the partition lock): finite, 400 B1 + 112 B2 and no other
+    kernel, its time and bound."""
+    from octcubem_tpu_torch.train import clip_engine
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    model, tx, state, _ = _coem_state(torch, COEM_3MOD_CONFIG, 26,
+                                      remat=True)
+    step = clip_engine.make_clip_accum_train_step_3mod(model, tx, 2)
+    batch = _coem_batch(torch, gen, 2, 4, three_mod=True)
+    seen = []
+    state, _ = _coem_step(torch, _cuda, step, state, batch,
+                          "octcube_ef_3mod step (chunk 4 x accum 2)",
+                          coem_launches(2, three_mod=True), seen)
+    ms = _elapsed_ms(lambda: step(state, batch), 1, 0)
+    bound = coem_flops(8, enface_passes=2) / PEAK_BF16_FLOPS * 1e3
+    print(f"octcube_ef_3mod step (chunk 4 x accum 2) on {smi}: {ms:.3f} ms "
+          f"(CUDA events, one step after one); bound {bound:.3f} ms")
+    del model, tx, state, step, batch
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound": bound,
+            "seen": {"octcube_ef_3mod step (4 x 2)": seen}}
+
+
+def run_coem_gradcam(torch, _cuda, smi):
+    """20f: clip_pair_gradcam at full width (COEP2Tower with capture_cam,
+    bf16, one pair): OCT target at layers -1 and 0, a finite [1, 20, 16,
+    16] map in [0, 1]; 48 B1 per map and B2 for each OCT block after the
+    chosen one (0 at -1, 23 at 0)."""
+    import numpy as np
+
+    from octcubem_tpu_torch.models import registry
+    from octcubem_tpu_torch.utils.saliency import clip_pair_gradcam
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    model = registry.create_coem_model(COEM_CONFIG, dtype=torch.bfloat16,
+                                       seed=27, capture_cam=True)
+    b = _coem_batch(torch, gen, 1, 1)
+    x = (b["image"][0], b["enface"][0])
+    for layer, b2 in ((-1, 0), (0, 23)):
+        _cuda.reset_launches()
+        cam = clip_pair_gradcam(model, *x, target="image", layer=layer,
+                                grid=(20, 16, 16))
+        launches = _nonzero(_cuda.launches)
+        ms = _elapsed_ms(lambda: clip_pair_gradcam(
+            model, *x, target="image", layer=layer, grid=(20, 16, 16)), 2, 0)
+        want = {"flash_fwd_packed": 48, **({"flash_bwd_packed": b2}
+                                           if b2 else {})}
+        ok = (cam.shape == (1, 20, 16, 16) and np.isfinite(cam).all()
+              and cam.min() >= 0 and cam.max() <= 1 and cam.max() > 0)
+        print(f"clip_pair_gradcam OCT layer {layer} on {smi}: map "
+              f"{cam.shape} in [{cam.min():.3e}, {cam.max():.3e}], "
+              f"launches {launches}, {ms:.3f} ms per map (CUDA events over "
+              f"2)")
+        if not ok or launches != want:
+            raise AssertionError(f"clip_pair_gradcam layer {layer}: ok {ok}, "
+                                 f"launches {launches} (want {want})")
+    del model
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _probe_clip(probe):
+    """Wraps the engine's contrastive step builders so that ``probe`` (a
+    CliProbe) records each step a CLI takes."""
+    from octcubem_tpu_torch.train import clip_engine
+
+    names = ("make_clip_train_step", "make_clip_accum_train_step",
+             "make_clip_accum_train_step_3mod", "make_clip_cls_train_step")
+    saved = {n: getattr(clip_engine, n) for n in names}
+    for n, make in saved.items():
+        setattr(clip_engine, n, lambda *a, _make=make, **k:
+                probe._wrap_step(_make(*a, **k)))
+    try:
+        yield probe
+    finally:
+        for n, make in saved.items():
+            setattr(clip_engine, n, make)
+
+
+CLI_RETCLIP = ["--preset", "octcube_ir", "--synthetic", "--synthetic_n",
+               "80", "--batch_size", "8"]
+
+
+def _cli_first_loss(torch):
+    """One direct make_clip_accum_train_step step of cli/retclip.py's
+    first step: its model (seed 0) and optimizer, its loader's first batch
+    (SyntheticPairs, the 0.2 val split, batch 8 x accum 4) -> its loss."""
+    import numpy as np
+
+    from octcubem_tpu_torch.cli import retclip
+    from octcubem_tpu_torch.core.config import PRESETS
+    from octcubem_tpu_torch.core.device import to_device
+    from octcubem_tpu_torch.data import loader as loader_lib
+    from octcubem_tpu_torch.models import coem
+    from octcubem_tpu_torch.train import clip_engine, optim, schedules
+    from octcubem_tpu_torch.train.train_state import TrainState
+
+    cfg = PRESETS["octcube_ir"]
+    model = coem.create_model(coem.COEP2Tower, seed=cfg.seed,
+                              embed_dim=cfg.embed_dim,
+                              vision_cfg=dict(cfg.vision_cfg),
+                              enface_cfg=dict(cfg.enface_cfg),
+                              dtype=torch.bfloat16, remat=True)
+    scales = optim.lit_lock_scales(model, 24, cfg.lock_image_unlocked_groups)
+    params = optim.make_partition(model, {k: s > 0 for k, s in
+                                          scales.items()})
+    ds = retclip.SyntheticPairs(80, 60, 256, 384)
+    train, _ = retclip._split_train_val(ds, 0.2, cfg.seed)
+    ld = loader_lib.Loader(train, 32, num_workers=4, seed=cfg.seed)
+    tx = optim.build_adamw(params, schedules.clip_cosine_lr(
+        cfg.lr, cfg.warmup_steps, cfg.epochs * len(ld)), cfg.weight_decay,
+        betas=(0.9, 0.98))
+    state = TrainState.create(model, tx, cfg.seed + 1)
+    ld.set_epoch(0)
+    vol, enf = next(iter(ld))
+    batch = {k: to_device(np.asarray(v, np.float32), torch.device("cuda"))
+             .reshape((4, 8) + v.shape[1:])
+             for k, v in (("image", vol), ("enface", enf))}
+    _, m = clip_engine.make_clip_accum_train_step(model, tx, 4)(state, batch)
+    loss = m["loss"].item()
+    del model, tx, state, batch
+    torch.cuda.empty_cache()
+    return loss
+
+
+def run_coem_cli(torch, _cuda, smi, tmp):
+    """20g: cli/retclip.py in process on the octcube_ir preset at full
+    width (80 synthetic pairs: 64 train, 16 val; batch 8 x accum 4, two
+    steps an epoch): one epoch (params.txt, results.jsonl, the retrieval
+    pkl, ckpt/0; 512 B1 + 128 B2 a step), its first loss against one
+    direct step on the same batch; --resume latest into a second epoch,
+    the state bit for bit before its first step; --evaluate_only with
+    --quant int8; --export_aot (48 B1 op calls in the graph, features
+    equal to the live model's) and --evaluate_only --aot (metrics equal to
+    the live evaluation's).  20h: cli/retclip_finetune.py on
+    vitl16_octcube_ef_3mod, synthetic, fp32 as the JAX CLI, the lock, two
+    folds of one epoch; the towers of a vitl16_octcube_ir classifier
+    initialised from the retclip run (init_towers_from_retclip, its
+    geometry check first).  20i: cli/retrieval_eval.py on the dumped
+    features with a seeded laterality column."""
+    import pickle
+
+    import numpy as np
+
+    from octcubem_tpu_torch.cli import retclip, retclip_finetune, retrieval_eval
+    from octcubem_tpu_torch.compat.aot import (flash_op_calls,
+                                               load_serving_artifact)
+    from octcubem_tpu_torch.core import checkpoint as ckpt_lib
+    from octcubem_tpu_torch.models import registry
+    from octcubem_tpu_torch.train import clip_engine
+
+    run = str(Path(tmp) / "retclip")
+    probe = CliProbe(torch, _cuda)
+    with _probe_clip(probe):
+        t0 = time.perf_counter()
+        retclip.main(CLI_RETCLIP + ["--epochs", "1", "--output_dir", run,
+                                    "--save_retrieval_results"])
+        wall = time.perf_counter() - t0
+    steps = probe.take()[0]
+    want = coem_launches(4)
+    losses = _cli_steps("cli/retclip.py octcube_ir", steps, want)
+    _, ev = _cli_times("cli/retclip.py octcube_ir (one epoch)", steps, smi,
+                       len(steps))
+    files = sorted(os.listdir(run))
+    with open(Path(run) / "results.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    print(f"cli/retclip.py octcube_ir on {smi}: {wall:.1f} s in main; files "
+          f"{files}; results {rows}")
+    if (len(steps) != 2 or not {"params.txt", "results.jsonl",
+                                "retrieval_results_0.pkl"} <= set(files)
+            or sorted(os.listdir(Path(run) / "ckpt")) != ["0"]):
+        raise AssertionError(f"cli/retclip.py: {len(steps)} steps, {files}")
+    direct = _cli_first_loss(torch)
+    print(f"cli/retclip.py first loss {losses[0]:.7f} vs one direct step on "
+          f"its first batch {direct:.7f} (tol {TOL_CLI_LOSS:.0e})")
+    if abs(losses[0] - direct) > TOL_CLI_LOSS:
+        raise AssertionError("the CLI's first loss differs from the direct "
+                             "step's")
+    # --resume latest: the state the first resumed step sees is the saved one
+    raw, _ = ckpt_lib.restore_raw(str(Path(run) / "ckpt"))
+    seen_state = []
+
+    def check(state):
+        sd = state.params.state_dict()
+        opt = state.tx.state_dict()
+        seen_state.append(
+            all(torch.equal(sd[k].cpu(), v) for k, v in raw["params"].items())
+            and all(torch.equal(opt[m][k].cpu(), v)
+                    for m in ("mu", "nu")
+                    for k, v in raw["opt_state"][m].items())
+            and opt["count"] == raw["opt_state"]["count"]
+            and torch.equal(state.generator.get_state(), raw["generator"]))
+
+    probe.on_first = check
+    with _probe_clip(probe):
+        retclip.main(CLI_RETCLIP + ["--epochs", "2", "--output_dir", run,
+                                    "--resume", "latest"])
+    resumed = probe.take()[0]
+    _cli_steps("cli/retclip.py --resume latest", resumed, want)
+    print(f"cli/retclip.py --resume latest: state bit for bit before the "
+          f"first step {seen_state}; ckpt {sorted(os.listdir(Path(run) / 'ckpt'))}")
+    if seen_state != [True]:
+        raise AssertionError("the resumed state differs from the checkpoint")
+    steps_all = steps + resumed
+    # evaluation: live, int8, an artifact
+    ev_args = CLI_RETCLIP + ["--output_dir", run, "--resume", "latest",
+                             "--evaluate_only"]
+    live = retclip.main(ev_args)
+    _cuda.reset_launches()
+    q = retclip.main(ev_args + ["--quant", "int8"])
+    q_launch = _nonzero(_cuda.launches)
+    art = str(Path(tmp) / "coem_encoder.octaot")
+    t0 = time.perf_counter()
+    retclip.main(CLI_RETCLIP + ["--output_dir", run, "--resume", "latest",
+                                "--export_aot", art])
+    export_s = time.perf_counter() - t0
+    fn, meta = load_serving_artifact(art)
+    calls = flash_op_calls(fn.program)
+    latest, _ = ckpt_lib.restore_raw(str(Path(run) / "ckpt"))
+    model = registry.create_coem_model(COEM_CONFIG, dtype=torch.bfloat16,
+                                       state_dict=latest["params"])
+    with open(Path(run) / "retrieval_results_0.pkl", "rb") as f:
+        pkl = pickle.load(f)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    b = _coem_batch(torch, gen, 1, 8)
+    x = (b["image"][0], b["enface"][0])
+    _cuda.reset_launches()
+    got = fn(*x)
+    torch.cuda.synchronize()
+    art_launch = _nonzero(_cuda.launches)
+    with torch.no_grad():
+        ref = model(*x)[:2]
+    err = max((a.float() - r.float()).abs().max().item()
+              for a, r in zip(got, ref))
+    aot = retclip.main(ev_args + ["--aot", art])
+    print(f"cli/retclip.py evaluation on {smi}: live {live}; int8 {q} "
+          f"(launches {q_launch}); artifact exported in {export_s:.1f} s, "
+          f"{calls} B1 op calls in its graph, {art_launch} launches, "
+          f"features against the live model's max|d| {err:.3e} (tol "
+          f"{TOL_AOT:.0e}); --aot {aot}")
+    if (calls != 48 or err > TOL_AOT or aot != live
+            or art_launch != {"flash_fwd_packed": 48}):
+        raise AssertionError("the retrieval artifact differs from the live "
+                             "encoder")
+    del model, fn, got, ref, b, x
+    torch.cuda.empty_cache()
+    # 20i: the offline evaluator on the dumped features
+    rng = np.random.default_rng(29)
+    lat = rng.integers(0, 2, len(pkl["image"]))
+    pkl["image_laterality"] = pkl["enface_laterality"] = lat
+    lat_pkl = str(Path(tmp) / "retrieval_laterality.pkl")
+    with open(lat_pkl, "wb") as f:
+        pickle.dump(pkl, f)
+    lat_m = retrieval_eval.main([lat_pkl, "--topk", "1", "3", "5"])
+    print(f"cli/retrieval_eval.py on the dumped features ({len(lat)} rows, "
+          f"seeded laterality): {lat_m}")
+    if set(lat_m) != {"laterality_acc@top1", "laterality_acc@top3",
+                      "laterality_acc@top5"}:
+        raise AssertionError(f"cli/retrieval_eval.py gave {lat_m}")
+    # 20h: the classification fine-tune and the tower init
+    ft = str(Path(tmp) / "retclip_ft")
+    with _probe_clip(probe):
+        t0 = time.perf_counter()
+        reg = retclip_finetune.main([
+            "--model_config", COEM_3MOD_CONFIG, "--synthetic_n", "8",
+            "--batch_size", "2", "--k_folds", "2", "--epochs", "1",
+            "--lock_image", "--output_dir", ft])
+        ft_wall = time.perf_counter() - t0
+    ft_steps = probe.take()[0]
+    # fp32 without remat: 24 + 2 x 24 B1, 8 + 2 x 24 B2 a step
+    ft_want = {"flash_fwd_packed": 72, "flash_bwd_packed": 56}
+    _cli_steps("cli/retclip_finetune.py octcube_ef_3mod (fp32)", ft_steps,
+               ft_want)
+    ft_ev = [s["ev"][0].elapsed_time(s["ev"][1]) for s in ft_steps]
+    print(f"cli/retclip_finetune.py on {smi}: {ft_wall:.1f} s in main, "
+          f"registry {reg}; CUDA events per step "
+          f"{[round(v, 3) for v in ft_ev]} ms; peak "
+          f"{[round(s['peak'], 2) for s in ft_steps]} GiB")
+    if sorted(reg) != [0, 1]:
+        raise AssertionError(f"cli/retclip_finetune.py registry {reg}")
+    cls = registry.create_coem_model(COEM_CONFIG, num_classes=2)
+    clip_engine.check_retclip_run_geometry(run, cls.vision_cfg,
+                                           cls.enface_cfg)
+    _, copied = clip_engine.init_towers_from_retclip(cls, run)
+    sd = cls.clip.state_dict()
+    same = all(torch.equal(sd[k].cpu(), v)
+               for k, v in latest["params"].items())
+    print(f"init_towers_from_retclip: {copied} tensors from the retclip run, "
+          f"equal to its latest checkpoint {same}")
+    if not same or copied != len(sd):
+        raise AssertionError("the classifier's towers differ from the run's")
+    del cls, sd, latest, raw
+    torch.cuda.empty_cache()
+    return ev, {"cli/retclip.py octcube_ir steps": [
+        s["launches"] for s in steps_all],
+        "cli/retclip_finetune.py octcube_ef_3mod steps": [
+            s["launches"] for s in ft_steps]}
+
+
+def run_phase20(torch, _cuda, smi):
+    """Phase 20: the COEM contrastive path (20a-20i above), on one card;
+    checkpoints and artifacts under a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        a = run_coem_steps(torch, _cuda, smi, tmp)
+        check_coem_accum_vs_full(torch)
+        check_coem_vs_naive(torch)
+        three = run_coem_3mod(torch, _cuda, smi)
+        run_coem_gradcam(torch, _cuda, smi)
+        cli_ev, cli_seen = run_coem_cli(torch, _cuda, smi, tmp)
+    print(f"phase 20 summary on {smi} (ms per step, CUDA events; peak GiB; "
+          f"bound ms; idle share): octcube_ir 8 x 2 {a['ms']:.3f} / "
+          f"{a['peak']:.2f} / {a['bound']:.3f} / {a['idle']:.4f}; 32 x 4 "
+          f"{a['ms_big']:.3f} / {a['peak_big']:.2f} / {a['bound_big']:.3f}; "
+          f"octcube_ef_3mod 4 x 2 {three['ms']:.3f} / - / "
+          f"{three['bound']:.3f}; the CLI's steps "
+          f"{[round(v, 3) for v in cli_ev]}")
+    seen = {**a["seen"], **three["seen"], **cli_seen}
+    return {kern: {path: [d.get(kern, 0) for d in steps]
+                   for path, steps in seen.items()}
+            for kern in ("flash_fwd_packed", "flash_bwd_packed")}
+
+
 def main() -> int:
     import torch
 
@@ -3547,6 +4296,7 @@ def main() -> int:
     check_hopper_fwd(torch, fa)
     check_flash_bwd(torch, fa)
     check_head_by_head(torch, fa)
+    check_coem_shapes(torch, fa)
     bh_errs = check_bh_kernels(torch, fa)
     phase_done("3: B1-B5, B7 against their plain versions")
 
@@ -3609,19 +4359,23 @@ def main() -> int:
     phase_done("18: cli/pretrain.py")
     ft_launches = run_phase19(torch, _cuda, smi)
     phase_done("19: the fine-tuning family")
+    coem_launches_seen = run_phase20(torch, _cuda, smi)
+    phase_done("20: the COEM contrastive path")
+    per_step = {kern: {**ft_launches[kern], **coem_launches_seen[kern]}
+                for kern in ft_launches}
 
     kernels = [{
         "name": "flash_fwd_packed", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_fwd_packed.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:859",
         "launches": launches,
-        "launches_per_step_on": ft_launches["flash_fwd_packed"],
+        "launches_per_step_on": per_step["flash_fwd_packed"],
         "max_abs_err": err, **timing}, {
         "name": "flash_bwd_packed", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_bwd_packed.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:961",
         "launches": launches_bwd,
-        "launches_per_step_on": ft_launches["flash_bwd_packed"],
+        "launches_per_step_on": per_step["flash_bwd_packed"],
         **timing_bwd}]
     # (counter, TPU kernel's line, source, launches on its path)
     for kern, counter, line, src, n in (

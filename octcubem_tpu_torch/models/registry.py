@@ -8,13 +8,16 @@ Families and the reference modules they follow:
   vit_3dhead        -> models_vit_3dhead_flash_attn
   mae3d             -> models_mae_joint_res_flash_attn
   slivit            -> model_slivit_baseline / models_vit_st_flash_attn_slivit
-The COEM JSON configs come with the contrastive path (ROADMAP A13);
-asking for them raises ``NotImplementedError`` naming the item.
+  coem2 / coem3     -> open_clip CustomTextCLIP(3Mod), from the JSON
+                       configs in ``configs/`` (open_clip/factory.py)
 """
 
 from __future__ import annotations
 
-from . import mae3d, slivit, vit2d, vit_3dhead, vit_st
+import json
+import os
+
+from . import coem, mae3d, slivit, vit2d, vit_3dhead, vit_st
 
 _FAMILIES = {
     "vit_st": vit_st,
@@ -52,12 +55,34 @@ def create_model(family: str, name: str, device=None, seed: int = 0,
                             state_dict=state_dict, **kwargs)
 
 
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
+
+
 def list_coem_configs() -> list[str]:
-    raise NotImplementedError(
-        "the COEM model configs are not ported yet (ROADMAP A13)")
+    if not os.path.isdir(CONFIG_DIR):
+        return []
+    return sorted(f[:-5] for f in os.listdir(CONFIG_DIR) if f.endswith(".json"))
 
 
 def create_coem_model(name_or_path: str, num_classes: int | None = None,
-                      **kwargs):
-    raise NotImplementedError(
-        "the COEM contrastive models are not ported yet (ROADMAP A13)")
+                      device=None, seed: int = 0, state_dict=None, **kwargs):
+    """A COEM model from a JSON config (the reference's model_configs
+    pattern; schema {embed_dim, three_mod, vision_cfg, enface_cfg}), a
+    name in ``configs/`` or a path; with ``num_classes`` its
+    classification variant.  Built on ``device`` (default cuda) with
+    seeded weights, then ``state_dict`` imported over them, as
+    ``create_model``."""
+    path = (name_or_path if os.path.isfile(name_or_path)
+            else os.path.join(CONFIG_DIR, name_or_path + ".json"))
+    with open(path) as f:
+        cfg = json.load(f)
+    three_mod = cfg.pop("three_mod", False)
+    cfg.update(kwargs)
+    if num_classes is not None:
+        ctor = (coem.COEP3TowerClassification if three_mod
+                else coem.COEP2TowerClassification)
+        cfg["num_classes"] = num_classes
+    else:
+        ctor = coem.COEP3Tower if three_mod else coem.COEP2Tower
+    return coem.create_model(ctor, device=device, seed=seed,
+                             state_dict=state_dict, **cfg)

@@ -26,6 +26,14 @@ were, and the host reads nothing.  On that path the count is a 0-d
 tensor on the params' device and the LR is read at it from a table of
 the schedule over its ``total_steps`` (the last entry past the end).
 Without ``ok`` the update is the host-count one above, unchanged.
+
+LiT locking (the COEM towers): ``lit_lock_scales`` gives each param 1.0
+or 0.0 by the reference lock() groups; ``make_partition`` freezes the
+0.0 ones for real (``requires_grad_(False)``, so autograd builds no
+backward for a frozen prefix, and an ``AdamW`` built over the trainable
+params it returns holds no moments for the frozen ones), and
+``scale_by_tree`` is the zero-scaled-update fallback, which still
+differentiates and keeps moments for every param.
 """
 
 from __future__ import annotations
@@ -71,6 +79,67 @@ def layer_decay_scales(params, num_blocks: int, layer_decay: float,
 
     return {name: scales[layer_id(name_prefix + name)]
             for name in _named(params)}
+
+
+def lit_lock_scales(params, depth: int, n_unlocked: int,
+                    tower_prefix: str = "visual.") -> dict[str, float]:
+    """name -> 1.0 (trainable) or 0.0 (locked) for LiT image-tower locking.
+
+    The groups follow the reference lock() (models_vit_st_flash_attn_
+    nodrop.py:308-351): [embeds + pos + cls, blocks 0..D-2, the last block
+    with the final norm, the head group], D + 2 groups, of which the last
+    ``n_unlocked`` train: 0 freezes the whole tower (head included), 1
+    unlocks the head group, 2 adds the last block and the final norm, D + 2
+    the embeddings too.  Params outside ``tower_prefix`` always train
+    (``"clip.visual."`` in the classification models)."""
+    n_groups = depth + 2
+    first_unlocked = n_groups - n_unlocked  # group indices >= this train
+
+    def scale(name: str) -> float:
+        if not name.startswith(tower_prefix):
+            return 1.0
+        if any(t in name for t in ("fc_aggregate_cls", "aggregate_cls_norm",
+                                   "head")):
+            group = n_groups - 1
+        elif (m := re.search(r"blocks\.(\d+)\.", name)):
+            i = int(m.group(1))
+            # blocks 0..D-2 are groups 1..D-1; the last block shares group
+            # D with the final norm
+            group = i + 1 if i < depth - 1 else depth
+        elif ".norm." in name:
+            group = depth  # the final norm, with the last block
+        else:
+            group = 0  # patch_embed, pos embeds, cls_token
+        return 1.0 if group >= first_unlocked else 0.0
+
+    return {name: scale(name) for name in _named(params)}
+
+
+def make_partition(model: nn.Module,
+                   trainable_mask: Mapping[str, bool]) -> dict[str, nn.Parameter]:
+    """Real freezing (the LiT lock): every param of ``model`` whose mask
+    entry is false gets ``requires_grad_(False)``, the rest True ->
+    {name: param} of the trainable ones, to build the ``AdamW`` over.
+    Autograd then differentiates only what reaches a trainable param: a
+    frozen tower prefix is a constant of the loss and builds no backward,
+    as under the reference lock() (requires_grad=False)."""
+    out = {}
+    for name, p in model.named_parameters():
+        keep = bool(trainable_mask[name])
+        p.requires_grad_(keep)
+        if keep:
+            out[name] = p
+    return out
+
+
+def scale_by_tree(tx: "AdamW", scales: Mapping[str, float]) -> "AdamW":
+    """Multiply ``tx``'s updates elementwise by a static per-param scalar
+    (optax ``chain(tx, scale_by_tree(scales))``): folded into its layer
+    scales, which multiply the update before the LR.  -> ``tx``."""
+    extra = [float(scales[n]) for n in tx.names]
+    tx.scales = (extra if tx.scales is None
+                 else [a * b for a, b in zip(tx.scales, extra)])
+    return tx
 
 
 def global_norm(tensors) -> torch.Tensor:

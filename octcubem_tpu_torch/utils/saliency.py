@@ -14,6 +14,8 @@ the score reaches the last block's MLP branch through the pool and the
 head alone, so no attention backward runs; at ``layer=0`` every block
 but the first is differentiated.  The JAX function differentiates every
 perturbation at once; the chosen layer's gradient is the same.
+``clip_pair_gradcam`` does the same on one tower of a COEM model built
+with ``capture_cam=True`` (both towers record their activations).
 """
 
 from __future__ import annotations
@@ -77,9 +79,37 @@ def gradcam(model: torch.nn.Module, x: torch.Tensor,
     return (cam / (top + 1e-8)).cpu().numpy()
 
 
-def clip_pair_gradcam(*args, **kwargs):
+def clip_pair_gradcam(model: torch.nn.Module, image: torch.Tensor,
+                      enface: torch.Tensor, target: str = "image",
+                      layer: int = -1, grid: tuple[int, ...] | None = None
+                      ) -> np.ndarray:
     """Saliency of the COEM pair similarity with respect to one tower's
-    blocks: it needs the COEM towers, not ported yet."""
-    raise NotImplementedError(
-        "clip_pair_gradcam needs the COEM contrastive towers, not ported yet "
-        "(ROADMAP A13)")
+    blocks, the retclip use (base_cam_retclip_3mod.py:21-303): which OCT
+    or en face regions drive the match -> [B, L] (or [B, *grid]) in
+    [0, 1].
+
+    model: a 2-tower ``COEP2Tower`` built with capture_cam=True, in eval
+      mode.  target: "image" (the OCT tower) or "enface".
+    The map is |dSim/dA| over the channels at block ``layer`` of that
+    tower, Sim the sum over the batch of the two normalized features'
+    dot products, each sample divided by its max + 1e-8; the cls token is
+    dropped as in ``gradcam``."""
+    tower = model.visual if target == "image" else model.enface
+    stack = _cam_stack(tower)
+    other = _cam_stack(model.enface if target == "image" else model.visual)
+    try:
+        with torch.enable_grad():
+            img_f, enf_f, _ = model(image, enface)
+            _, pert = stack.cam[layer]
+            (g,) = torch.autograd.grad((img_f * enf_f).sum(), pert)
+    finally:
+        stack.cam = []
+        other.cam = []
+    cam = torch.linalg.vector_norm(g.float(), dim=-1)
+    if grid is not None:
+        n = int(np.prod(grid))
+        if cam.shape[1] == n + 1:
+            cam = cam[:, 1:]
+        cam = cam.reshape((cam.shape[0],) + tuple(grid))
+    top = cam.amax(dim=tuple(range(1, cam.ndim)), keepdim=True)
+    return (cam / (top + 1e-8)).cpu().numpy()

@@ -38,6 +38,13 @@ card's int8 GEMM refuses the shapes it cannot take and equals the CPU's
 int32 product; an AOT artifact round trip on the card equals the live
 model and launches one B1 per block.
 
+The COEM towers' shapes (ROADMAP A13): B1 and B2 at the OCT tower's
+5,121 tokens (folded) and the en face tower's 577 (unfolded), 16 heads
+of 64, against their plain versions sample by sample; a locked COEM
+accumulation step launches B1 and B2 by the count of its passes (no
+backward for the frozen blocks), keeps the frozen params bit for bit and
+reads nothing back.
+
 Batch 2 throughout, and the cls-fold dO is the [:, 1:] slice of a
 [B, m + 1, H*D] buffer, as autograd hands it over after the cls row's
 concat: the kernels' batch strides are exercised.  B3-B5 and B7 take
@@ -724,3 +731,84 @@ def test_finetune_step_launches_b1_b2_per_block_and_reads_nothing_back(gen):
     dtoh = [e.name for e in prof.events()
             if "DtoH" in e.name or "Device -> Host" in e.name]
     assert dtoh == []
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [5121, 577])
+def test_coem_tower_shapes_match_plain(gen, n, dtype):
+    """B1 and B2 at the COEM towers' token counts, batch 2, against the
+    plain versions run on each sample alone."""
+    h, d = 16, 64
+    scale = d ** -0.5
+    qkv = _qkv(gen, n, h, d, dtype)
+    hd = h * d
+    q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+    args = ((q[:, 1:], k[:, 1:], v[:, 1:], k[:, :1], v[:, :1]) if n == 5121
+            else (q, k, v, None, None))
+    o, lse = fa.fwd_packed_cuda(*args, h, scale)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+    g_lse = 0.1 * torch.randn(lse.shape, generator=gen, device="cuda")
+    got = fa.bwd_packed_cuda(*args, o, lse, do, g_lse, h, scale)
+    atol, rtol = TOL_O[dtype]
+    for i in range(2):
+        one = tuple(None if t is None else t[i:i + 1] for t in args)
+        o_ref, lse_ref = fa.fwd_packed_plain(*one, h, scale)
+        torch.testing.assert_close(o[i:i + 1].float(), o_ref.float(),
+                                   atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse[i:i + 1], lse_ref, atol=1e-4, rtol=0)
+        ref = fa.bwd_packed_plain(*one, o[i:i + 1], lse[i:i + 1],
+                                  do[i:i + 1], g_lse[i:i + 1], h, scale)
+        for name, a, b in zip(("dq", "dk", "dv", "dkc", "dvc"), got, ref):
+            if b is None:
+                assert a is None
+                continue
+            _assert_grad_close(a[i:i + 1], b, dtype, f"{name} sample {i}")
+
+
+def test_coem_accum_step_launches_and_frozen_prefix(gen):
+    """A COEM accumulation step (train/clip_engine.py) at accum 2 with the
+    partition lock on a 4-block OCT tower (3 unlocked groups: blocks 2-3
+    and the head) at 129 tokens, a 2-block en face tower, remat on: per
+    chunk, pass 1 runs 4 + 2 B1, pass 2 runs 4 + 2 recomputed B1 and 2
+    B2 in the OCT tower and 2 + 2 B1 and 2 B2 in the en face tower: 32 B1
+    and 8 B2 a step.  Frozen params bit for bit; no device-to-host copy."""
+    from octcubem_tpu_torch.models import coem
+    from octcubem_tpu_torch.train import clip_engine, optim
+    from octcubem_tpu_torch.train.train_state import TrainState
+
+    model = coem.create_model(
+        coem.COEP2Tower, device="cuda", embed_dim=64, dtype=torch.bfloat16,
+        remat=True,
+        vision_cfg=dict(num_frames=6, t_patch_size=3, img_size=128,
+                        in_chans=1, embed_dim=128, depth=4, num_heads=2),
+        enface_cfg=dict(img_size=64, in_chans=3, embed_dim=128, depth=2,
+                        num_heads=2, num_mod_head=1))
+    scales = optim.lit_lock_scales(model, 4, 3)
+    trainable = optim.make_partition(model, {k: s > 0
+                                             for k, s in scales.items()})
+    tx = optim.build_adamw(trainable, 1e-3, 0.1, betas=(0.9, 0.98))
+    state = TrainState.create(model, tx, 1)
+    step = clip_engine.make_clip_accum_train_step(model, tx, 2)
+    batch = {"image": torch.rand((2, 2, 6, 128, 128, 1), generator=gen,
+                                 device="cuda"),
+             "enface": torch.rand((2, 2, 64, 64, 3), generator=gen,
+                                  device="cuda")}
+    frozen = {k: v.detach().clone() for k, v in model.named_parameters()
+              if k not in trainable}
+    assert "visual.trunk.blocks.1.mixer.Wqkv.weight" in frozen
+    _cuda.reset_launches()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in _cuda.launches.items() if c} == {
+        "flash_fwd_packed": 32, "flash_bwd_packed": 8}
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    assert [e.name for e in prof.events()
+            if "DtoH" in e.name or "Device -> Host" in e.name] == []
+    params = dict(model.named_parameters())
+    assert all(torch.equal(v, params[k]) for k, v in frozen.items())
+

@@ -153,9 +153,23 @@ def test_registry_names_what_is_not_ported(family, item):
     np.testing.assert_allclose(got, ref, atol=5e-5, rtol=5e-5)
 
 
-def test_coem_configs_wait_for_a13():
-    assert jreg.list_coem_configs()  # the JAX package has them
-    with pytest.raises(NotImplementedError, match="A13"):
-        treg.list_coem_configs()
-    with pytest.raises(NotImplementedError, match="A13"):
-        treg.create_coem_model("coem2")
+def test_coem_configs_wait_for_a13(monkeypatch):
+    """The COEM configs (ROADMAP A13, ported): both registries list the
+    same eight, and the port builds each as the JAX package does, the
+    3-modality ones as COEP3Tower, with the recorded tower configs (the
+    weights left uninitialised here: full-width towers; the seeded init
+    and the keys are held in test_torch_port_coem_configs.py)."""
+    from octcubem_tpu.models import coem as jcoem
+    from octcubem_tpu_torch.models import coem as tcoem
+
+    names = jreg.list_coem_configs()
+    assert len(names) == 8 and treg.list_coem_configs() == names
+    monkeypatch.setattr(tcoem, "init_params", lambda model, gen: None)
+    for name in names:
+        jm = jreg.create_coem_model(name)
+        tm = treg.create_coem_model(name, device="cpu")
+        assert type(tm).__name__ == type(jm).__name__, name
+        assert isinstance(tm, tcoem.COEP3Tower) == isinstance(
+            jm, jcoem.COEP3Tower)
+        assert (tm.embed_dim, tm.vision_cfg, tm.enface_cfg) == (
+            jm.embed_dim, jm.vision_cfg, jm.enface_cfg)

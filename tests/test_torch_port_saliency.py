@@ -1,5 +1,6 @@
-"""Port parity: Grad-CAM (utils/saliency.py, vit_st(capture_cam=True)) and
-infer --saliency_dir against the JAX package on the CPU.
+"""Port parity: Grad-CAM (utils/saliency.py, vit_st(capture_cam=True)),
+infer --saliency_dir and the COEM pair map (clip_pair_gradcam on a
+COEP2Tower(capture_cam=True)) against the JAX package on the CPU.
 
 Both packages run the same weights (state_dict_from_jax) and input; the
 JAX side differentiates its flax perturbations through the Pallas
@@ -21,10 +22,12 @@ import jax.numpy as jnp
 from octcubem_tpu.cli import infer as jinfer
 from octcubem_tpu.compat.torch_export import (export_state_dict,
                                               save_torch_checkpoint)
+from octcubem_tpu.models import coem as jcoem
 from octcubem_tpu.models import vit_st as jvit
 from octcubem_tpu.utils import saliency as jsal
 from octcubem_tpu_torch.cli import infer as tinfer
 from octcubem_tpu_torch.compat.jax_params import state_dict_from_jax
+from octcubem_tpu_torch.models import coem as tcoem
 from octcubem_tpu_torch.models import vit_st as tvit
 from octcubem_tpu_torch.ops import _cuda
 from octcubem_tpu_torch.utils import saliency as tsal
@@ -33,6 +36,13 @@ KW = dict(num_frames=12, t_patch_size=3, img_size=32, patch_size=16,
           in_chans=1, num_classes=6, embed_dim=64, depth=2, num_heads=2,
           head_type="dropout", global_pool=True)
 GRID = (4, 2, 2)
+# the COEM pair (clip_pair_gradcam): the same OCT tower, a 48 x 48 en face
+# tower (9 patches + cls)
+COEM_KW = dict(embed_dim=16, vision_cfg=dict(
+    num_frames=12, t_patch_size=3, img_size=32, patch_size=16, in_chans=1,
+    embed_dim=64, depth=2, num_heads=2), enface_cfg=dict(
+    img_size=48, patch_size=16, in_chans=3, embed_dim=64, depth=2,
+    num_heads=2, num_mod_head=1))
 TOL_CAM = 1e-4
 
 
@@ -108,11 +118,58 @@ def test_gradcam_runs_the_kernels_path_and_keeps_logits():
 
 
 def test_gradcam_needs_capture_cam():
+    """Both maps refuse a model built without capture_cam: the port with
+    ValueError; the JAX clip_pair_gradcam finds no perturbations."""
     with pytest.raises(ValueError, match="capture_cam=True"):
         tsal.gradcam(tvit.VisionTransformerST(**KW), torch.zeros(
             (1, 12, 32, 32, 1)))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tsal.clip_pair_gradcam(None, None, None)
+    img, enf = (np.zeros((1,) + s, np.float32) for s in (
+        (12, 32, 32, 1), (48, 48, 3)))
+    with pytest.raises(ValueError, match="capture_cam=True"):
+        tsal.clip_pair_gradcam(tcoem.COEP2Tower(**COEM_KW),
+                               torch.from_numpy(img), torch.from_numpy(enf))
+    jm = jcoem.COEP2Tower(**COEM_KW, attn_impl="naive")
+    shapes = jax.eval_shape(jm.init, jax.random.key(0), img, enf)
+    assert "perturbations" not in shapes
+    with pytest.raises(KeyError, match="perturbations"):
+        jsal.clip_pair_gradcam(jm, {"params": shapes["params"]}, img, enf)
+
+
+@functools.lru_cache(maxsize=None)
+def _coem_pair():
+    jm = jcoem.COEP2Tower(**COEM_KW, capture_cam=True, attn_impl="flash")
+    rng = np.random.default_rng(8)
+    img = rng.random((2, 12, 32, 32, 1), np.float32)
+    enf = rng.random((2, 48, 48, 3), np.float32)
+    variables = jax.jit(jm.init)(jax.random.key(0), img, enf)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32)
+        + 0.05 * rng.standard_normal(a.shape).astype(np.float32),
+        variables["params"])
+    tm = tcoem.create_model(tcoem.COEP2Tower, device="cpu", capture_cam=True,
+                            **COEM_KW)
+    tm.load_state_dict(state_dict_from_jax(params), strict=True)
+    return jm, {"params": params,
+                "perturbations": variables["perturbations"]}, tm, img, enf
+
+
+@pytest.mark.parametrize("target,layer,grid", [
+    ("image", -1, GRID), ("image", 0, GRID), ("enface", -1, (3, 3)),
+    ("enface", 0, None)])
+def test_clip_pair_gradcam_matches_jax(target, layer, grid):
+    """|dSim/dA| over the channels of one tower's block, the same map as
+    the JAX package's (its Pallas kernels in interpret mode)."""
+    jm, variables, tm, img, enf = _coem_pair()
+    want = jsal.clip_pair_gradcam(jm, variables, jnp.asarray(img),
+                                  jnp.asarray(enf), target=target,
+                                  layer=layer, grid=grid)
+    got = tsal.clip_pair_gradcam(tm, torch.from_numpy(img),
+                                 torch.from_numpy(enf), target=target,
+                                 layer=layer, grid=grid)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all() and got.min() >= 0 and got.max() <= 1
+    np.testing.assert_allclose(got, want, atol=TOL_CAM)
+    assert not tm.visual.trunk.blocks.cam and not tm.enface.trunk.blocks.cam
 
 
 @pytest.fixture
