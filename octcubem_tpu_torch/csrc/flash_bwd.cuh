@@ -25,8 +25,8 @@
 // strides; dkc / dvc share one (batch, head) stride pair.  lse and delta
 // are [B, H, nq] fp32.
 //
-// Design, bf16 at D in {32, 64, 80, 128} (B4 at 80, B2 at 32, 64, 128, B7
-// at 80): one pass over key tiles, FlashAttention-3's backward written
+// Design, bf16 at D in {16, 32, 64, 80, 128} (B4 at 16 and 80, B2 at 32,
+// 64, 128, B7 at 16 and 80): one pass over key tiles, FlashAttention-3's backward written
 // here from the Hopper guides (bwd_hopper_kernel):
 //   - one block per (128-key tile, head, batch), 384 threads: a producer
 //     warpgroup whose one TMA warp loads K and V once and streams the Q,
@@ -85,11 +85,14 @@
 //   - The host: four tensor maps and the accumulator's memset per call;
 //     B7 (512 tokens) is measured on device time (time_kernels.py).
 //   - The build: no CuTe or CUTLASS headers (wgmma through
-//     flash_wgmma.cuh's inline asm); the four D instantiate one kernel each.
-//   - The dq tile in shared memory: at D <= 64 in TMA's 128-byte swizzle
-//     and reduced with one tensor reduce-add per 32 columns (conflict-
-//     free stores), at D = 80 and 128 dense, one bulk reduce-add per tile:
-//     each measured faster at its D (PERF.md, PR 5).
+//     flash_wgmma.cuh's inline asm); the five D instantiate one kernel each.
+//   - The dq tile in shared memory: at D = 32 and 64 in TMA's 128-byte
+//     swizzle and reduced with one tensor reduce-add per 32 columns
+//     (conflict-free stores), at D = 16, 80 and 128 dense, one bulk
+//     reduce-add per tile: each measured faster at 32-128 (PERF.md, PR 5).
+//   - D = 16 (the HIPT ViT-4K's 12 heads of 16) is the D = 32 design with
+//     one k16 step over D and N = 16 products for dv, dk and dq; a tile
+//     shaped for it is later work.
 
 #pragma once
 
@@ -438,13 +441,14 @@ struct HopperCfg {
   static constexpr int kStages = D == 128 ? 2 : 3;  // as shared memory allows
   static constexpr int kThreads = 384;  // producer warpgroup + 2 consumers
   static constexpr int DQP = D <= 80 ? D : 64;  // dq columns per product
-  // the dq tile in shared memory, fp32: at D <= 64, D / 32 chunks of BM
-  // rows x 32 in TMA's 128-byte swizzle (16-byte unit u of row r at
+  // the dq tile in shared memory, fp32: at D = 32 and 64, D / 32 chunks
+  // of BM rows x 32 in TMA's 128-byte swizzle (16-byte unit u of row r at
   // u ^ r % 8), so the fragments' float2 stores meet no bank conflict and
-  // a TMA reduce-add takes a chunk; at D = 80 and 128 dense [BM][D] rows,
-  // one bulk reduce-add for the tile (measured faster there: 80 is no
-  // whole number of chunks, and 128 loses to the four ops per tile)
-  static constexpr bool kSwizzleDq = D <= 64;
+  // a TMA reduce-add takes a chunk; at D = 16, 80 and 128 dense [BM][D]
+  // rows, one bulk reduce-add for the tile (measured faster at 80 and 128:
+  // 80 is no whole number of chunks, and 128 loses to the four ops per
+  // tile; 16 is less than one chunk)
+  static constexpr bool kSwizzleDq = D == 32 || D == 64;
   static constexpr int kDqTile = BM * D * 4;
   static constexpr int kKV = BN * D * 2;  // bytes of a K or V tile
   static constexpr int kQ = BM * D * 2;   // bytes of a Q or dO tile

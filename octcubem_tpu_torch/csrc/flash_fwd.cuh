@@ -30,11 +30,11 @@
 // kc / vc point at the cls row of k / v and share their batch and head
 // strides.  o has its own strides; lse is [B, H, nq] fp32.
 //
-// Two bodies.  bf16 at D in {32, 64, 80, 128} runs fwd_hopper_kernel,
+// Two bodies.  bf16 at D in {16, 32, 64, 80, 128} runs fwd_hopper_kernel,
 // FlashAttention-3's forward written here for the H100, with one
 // softmax policy as a template parameter: the fixed shift (B1 at 32, 64,
-// 128; B3 and B5 at 80), the exact online softmax (B6) and B8's ablation
-// switches (flash_ablate.cu).  The body:
+// 128; B3 and B5 at 16 and 80), the exact online softmax (B6) and B8's
+// ablation switches (flash_ablate.cu).  The body:
 //   - one block per (128-query tile, head, batch), 384 threads: a producer
 //     warpgroup whose one TMA thread loads the block's Q tile once and
 //     streams 128-key K and V tiles through a ring of 3-4 stages (K and V
@@ -73,8 +73,8 @@
 //   - the epilogue: l over the quad, the cls fold per row from the Q tile
 //     still in shared memory (its own buffer, outside the ring), o and lse
 //     stored directly with the row mask.
-// The tiles are panels of 64 columns (32 at D = 32) in TMA's 128-byte
-// (64-byte) swizzle, one TMA box per panel: D = 80 takes two panels, the
+// The tiles are panels of 64 columns (32 at D = 32, 16 at D = 16) in TMA's
+// 128-byte (64-, 32-byte) swizzle, one TMA box per panel: D = 80 takes two panels, the
 // second zero-filled by TMA past column 80 and read only in its first 16
 // columns.  The backward's column-chunked layout (8-column boxes,
 // flash_hopper.cuh) served D = 80 with no padding but measured 1.5-2.3x
@@ -172,13 +172,15 @@ struct FwdHopperCfg {
   static constexpr int BM = 64 * kWG;  // query rows per block: 64 per consumer
   static constexpr int BN = kBN;  // keys per tile
   // A tile is kPanels panels of W columns, each R rows of 2 W bytes in
-  // TMA's 128-byte swizzle (64-byte at D = 32, whose rows are 64 bytes):
-  // one TMA box per panel.  D = 80 takes two panels, the second one's
-  // columns 80-127 zero-filled by TMA and never read.
-  static constexpr int W = D == 32 ? 32 : 64;
+  // TMA's 128-byte swizzle (64-byte at D = 32 and 32-byte at D = 16,
+  // whose rows are 64 and 32 bytes): one TMA box per panel.  D = 80 takes
+  // two panels, the second one's columns 80-127 zero-filled by TMA and
+  // never read.
+  static constexpr int W = D <= 32 ? D : 64;
   static constexpr int kPanels = (D + W - 1) / W;
   static constexpr int kRow = 2 * W;  // bytes of a panel row
-  static constexpr int kLayout = W == 64 ? 1 : 2;  // wgmma's swizzle code
+  // wgmma's swizzle code: 1 128-byte, 2 64-byte, 3 32-byte
+  static constexpr int kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;
   static constexpr int kGroup = 8 * kRow;  // bytes of 8 rows: the swizzle atom
   // K/V tiles in flight, as shared memory allows; a stage is freed one
   // tile after its keys are read, so the ring needs 3
@@ -190,9 +192,10 @@ struct FwdHopperCfg {
   // faster at D = 80 and 128, slower at 64 (PERF.md)
   static constexpr bool kPingPong = kWG == 2 && D >= 80;
   // every kEmuEvery-th 8-key chunk's exps on the FMA pipe (ex2_fma), the
-  // rest on the SFU; 0: all on the SFU.  Only D = 32, where the exp is the
-  // bound, measured faster with a share on the FMA pipe
-  static constexpr int kEmuEvery = D == 32 ? 16 : 0;
+  // rest on the SFU; 0: all on the SFU.  D = 32, where the exp is the
+  // bound, measured faster with a share on the FMA pipe; D = 16, where it
+  // weighs twice as much against the products, takes the same share
+  static constexpr int kEmuEvery = D <= 32 ? 16 : 0;
   static constexpr int kQ = kPanels * BM * kRow;   // bytes of the Q tile
   static constexpr int kKV = kPanels * BN * kRow;  // bytes of a K or V tile
   static constexpr int oQ = 0;
@@ -1128,7 +1131,9 @@ cudaError_t fwd_launch_hopper(const FwdParams& p, int kv_rows,
   CUtensorMap tq, tk, tv;
   cudaError_t e;
   const CUtensorMapSwizzle sw =
-      Cfg::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+      Cfg::W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : Cfg::W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                     : CU_TENSOR_MAP_SWIZZLE_32B;
   if ((e = tile_map(&tq, p.q, D, p.nq, p.B, p.H, p.lq, Cfg::BM, Cfg::W, sw)) !=
           cudaSuccess ||
       (e = tile_map(&tk, p.k, D, kv_rows, p.B, p.H, p.lk, Cfg::BN, Cfg::W,

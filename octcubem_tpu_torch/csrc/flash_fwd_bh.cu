@@ -13,7 +13,7 @@
 // Wqkv buffer (row stride 3*H*D, head stride D) launch with no transpose
 // copy.  Queries (nq rows) and keys (nk) may
 // differ: the rectangular form attends to the first kv_valid keys only,
-// passed as nk.  D in {32, 64, 80, 128, 256}.
+// passed as nk.  D in {16, 32, 64, 80, 128, 256}.
 //
 // Bounds on an H100 SXM, bf16, at 989 TFLOP/s and 3.35 TB/s:
 // - B3 at the ViT-H/14 classifier shape (B=1, H=16, 4,096 rows plus the cls
@@ -37,6 +37,7 @@ namespace {
 template <bool kExact>
 cudaError_t launch_d(const FwdParams& p, int D, int is_bf16, cudaStream_t st) {
   switch (D) {
+    case 16: return fwd_launch<16, kExact>(p, is_bf16, st);
     case 32: return fwd_launch<32, kExact>(p, is_bf16, st);
     case 64: return fwd_launch<64, kExact>(p, is_bf16, st);
     case 80: return fwd_launch<80, kExact>(p, is_bf16, st);

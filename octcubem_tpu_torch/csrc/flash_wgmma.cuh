@@ -1,5 +1,6 @@
-// wgmma.mma_async products for the Hopper backward (flash_bwd.cuh): bf16
-// in, fp32 sums, one warpgroup, M = 64, N in {32, 64, 80, 128}.  Each function spells out its N / 2
+// wgmma.mma_async products for the Hopper bodies (flash_fwd.cuh,
+// flash_bwd.cuh): bf16 in, fp32 sums, one warpgroup, M = 64, N in
+// {16, 32, 64, 80, 128}.  Each function spells out its N / 2
 // accumulator registers, as inline asm takes no register pack.  Operands
 // in shared memory come as matrix descriptors (gmma_desc); scale_d = 0
 // overwrites the accumulator, 1 adds to it.  TA / TB set the transpose
@@ -18,6 +19,33 @@ namespace octcube {
 
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d (64 x 16) (+)= A (64 x 16, shared) B (16 x 16, shared)
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  // d (64 x 16) += A (64 x 16, registers) B (16 x 16, shared)
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+  }
+};
 
 template <>
 struct Wgmma<32> {

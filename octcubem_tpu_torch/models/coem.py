@@ -21,9 +21,15 @@ strictly.  Every attention call goes through the fused-QKV flash path
 (B1 forward, B2 backward on the card).  ``generator`` draws drop-path
 masks in training mode (the shipped configs' rate is 0).
 
-The auxiliary towers (ModifiedResNet, the HIPT ViT-4K, FocalNet, the
-Perceiver, the CLIP text transformer, the HuggingFace text tower) are
-ROADMAP A13b: configs that select them raise NotImplementedError.
+The auxiliary towers (models/aux_towers.py) are selected as in the JAX
+package: a list-valued ``layers`` builds the ModifiedResNet, ``hipt`` the
+HIPT ViT-4K (whose attention runs the flash kernels), ``tower`` or
+``model_name`` FocalNet and the Perceiver; in the en face slot
+``hf_model_name`` / ``hf_config`` a HuggingFace text encoder and ``text``
+the CLIP text transformer, both through ``_TextTowerAdapter`` (token ids
+in, one projection, the modality index ignored).  A ModifiedResNet
+refuses training mode without ``mutable=True``, so the COEM train steps
+refuse it, as the JAX package's do (aux_towers.RESNET_GAP).
 """
 
 from __future__ import annotations
@@ -36,14 +42,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import Dense, LayerNorm
+from . import aux_towers
 from .vit2d import VisionTransformer2D
 from .vit_3dhead import VisionTransformer3DHead
 from .vit_st import VisionTransformerST
 
 LOGIT_SCALE_INIT = float(math.log(1 / 0.07))
 LOGIT_SCALE_MAX = float(math.log(100.0))  # clamp at ln 100
-
-_A13B = "is ROADMAP A13b (models/aux_towers.py), not ported yet"
 
 
 class OCTTower(nn.Module):
@@ -118,8 +123,10 @@ def _build_vision_tower(cfg, out_dim, dtype, attn_impl, remat, capture_cam,
                         quant=False):
     """The vision-tower dispatch of the JAX package: ``tower`` names the
     branch ('vit2d' = ViT_2Dhead, 'vit_3dhead' = ViT_3Dhead); a list-valued
-    ``layers``, ``hipt``, FocalNet and the Perceiver are A13b; the default
-    is the OCT ViT-ST tower."""
+    ``layers`` selects ModifiedResNet, ``hipt`` the HIPT ViT-4K (its cls
+    head is the CLIP projection), 'focalnet' / a focalnet ``model_name``
+    FocalNet, 'perceiver' the Perceiver; the default is the OCT ViT-ST
+    tower."""
     cfg = dict(cfg or {})
     tower = cfg.pop("tower", None)
     if quant and tower not in (None, "vit2d"):
@@ -138,14 +145,20 @@ def _build_vision_tower(cfg, out_dim, dtype, attn_impl, remat, capture_cam,
                                        attn_impl=attn_impl, remat=remat,
                                        **cfg)
     if isinstance(cfg.get("layers"), (list, tuple)):
-        raise NotImplementedError("the ModifiedResNet vision tower " + _A13B)
-    if cfg.get("hipt"):
-        raise NotImplementedError("the HIPT ViT-4K vision tower " + _A13B)
+        cfg["layers"] = tuple(cfg["layers"])
+        return aux_towers.ModifiedResNet(output_dim=out_dim, dtype=dtype,
+                                         **cfg)
+    if cfg.pop("hipt", False):
+        return aux_towers.VisionTransformer4K(num_classes=out_dim,
+                                              dtype=dtype, **cfg)
     if tower == "focalnet" or str(cfg.get("model_name", "")).startswith(
             "focalnet"):
-        raise NotImplementedError("the FocalNet vision tower " + _A13B)
+        name = cfg.pop("model_name", "focalnet_tiny_srf")
+        return aux_towers.FocalNetTower(out_dim=out_dim, model_name=name,
+                                        trunk_cfg=cfg, dtype=dtype)
     if tower == "perceiver" or "perceiver" in str(cfg.get("model_name", "")):
-        raise NotImplementedError("the Perceiver vision tower " + _A13B)
+        cfg.pop("model_name", None)
+        return aux_towers.PerceiverTower(out_dim=out_dim, cfg=cfg, dtype=dtype)
     return OCTTower(out_dim=out_dim, dtype=dtype, attn_impl=attn_impl,
                     remat=remat, capture_cam=capture_cam, quant=quant, **cfg)
 
@@ -153,19 +166,44 @@ def _build_vision_tower(cfg, out_dim, dtype, attn_impl, remat, capture_cam,
 def _build_enface_tower(cfg, out_dim, dtype, attn_impl, remat, capture_cam,
                         quant=False):
     """The en face tower dispatch: the shipped configs feed images to the
-    multi-head ViT trunk (EnfaceTower); the text towers (``hf_model_name``
-    / ``hf_config``, ``text``) are A13b."""
+    multi-head ViT trunk (EnfaceTower); ``hf_model_name`` / ``hf_config``
+    select a HuggingFace text encoder and ``text`` the CLIP text
+    transformer, each behind ``_TextTowerAdapter``."""
     cfg = dict(cfg or {})
-    if quant and (cfg.get("hf_model_name") or cfg.get("hf_config")
-                  or cfg.get("text")):
+    if quant and _is_text(cfg):
         raise ValueError("int8 quant is not wired for text towers")
     if cfg.get("hf_model_name") or cfg.get("hf_config"):
-        raise NotImplementedError("the HuggingFace text tower " + _A13B)
-    if cfg.get("text"):
-        raise NotImplementedError("the CLIP text transformer tower " + _A13B)
+        return _TextTowerAdapter(aux_towers.HFTextTower(
+            output_dim=out_dim, model_name_or_path=cfg.get("hf_model_name"),
+            hf_config=cfg.get("hf_config"),
+            pooler_type=cfg.get("pooler_type", "mean_pooler"),
+            proj=cfg.get("proj", "linear"), dtype=dtype))
+    if cfg.pop("text", False):
+        return _TextTowerAdapter(aux_towers.TextTransformer(
+            output_dim=out_dim, dtype=dtype, **cfg))
     return EnfaceTower(out_dim=out_dim, dtype=dtype, attn_impl=attn_impl,
                        remat=remat, capture_cam=capture_cam, quant=quant,
                        **cfg)
+
+
+def _is_text(cfg: dict) -> bool:
+    """Whether an en face config selects a text tower."""
+    return bool(cfg.get("hf_model_name") or cfg.get("hf_config")
+                or cfg.get("text"))
+
+
+class _TextTowerAdapter(nn.Module):
+    """A (token ids -> feature) text tower in the en face slot: the call
+    contract enface(x, modality, generator), the modality ignored (one
+    projection).  Its parameters read ``enface.tower.*``."""
+
+    def __init__(self, tower: nn.Module):
+        super().__init__()
+        self.tower = tower
+
+    def forward(self, x, modality: int = 0,
+                generator: torch.Generator | None = None):
+        return self.tower(x, generator)
 
 
 def _scale(s):
@@ -190,7 +228,9 @@ class COEP2Tower(nn.Module):
                                           quant=quant)
         # the forward calls modality 0 only, and flax creates only the
         # heads a forward calls: the JAX tree has mod_head_0 alone
-        cfg = dict(enface_cfg or {}, num_mod_head=1)
+        cfg = dict(enface_cfg or {})
+        if not _is_text(cfg):
+            cfg["num_mod_head"] = 1
         self.enface = _build_enface_tower(cfg, embed_dim, dtype, attn_impl,
                                           remat, capture_cam, quant=quant)
         self.logit_scale = nn.Parameter(torch.tensor(LOGIT_SCALE_INIT))
@@ -341,7 +381,8 @@ def init_params(model: nn.Module, generator: torch.Generator):
     parameter as ``vit_st.init_vit_param`` by its name inside the towers
     (so every ``head`` kernel N(0, 0.02)), the ``mod_head_{i}`` and the
     classification fc1 kernels N(0, 0.02), the logit scales ln(1/0.07); a
-    quant model's int8 weights 0 and scales 1."""
+    quant model's int8 weights 0 and scales 1; an aux tower's as its JAX
+    modules initialise them (``aux_towers.init_tower``)."""
     from .vit_st import init_vit_param
 
     for name, b in model.named_buffers():
@@ -349,7 +390,14 @@ def init_params(model: nn.Module, generator: torch.Generator):
             b.zero_()
         elif name.endswith(".scale"):
             b.fill_(1.0)
+    aux = [m for m in model.modules()
+           if isinstance(m, aux_towers.AUX_TOWERS)]
+    for m in aux:
+        aux_towers.init_tower(m, generator)
+    aux_params = {id(p) for m in aux for p in m.parameters()}
     for name, p in model.named_parameters():
+        if id(p) in aux_params:
+            continue
         rel = name
         while rel.startswith(_WRAPPERS):
             rel = rel.split(".", 1)[1]

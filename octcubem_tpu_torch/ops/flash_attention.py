@@ -77,7 +77,7 @@ from . import _cuda
 NOMAX_SHIFT = 16.0
 NOMAX_CLAMP = 40.0
 HEAD_DIMS = (32, 64, 128, 256)          # B1, B2 on the card
-BH_HEAD_DIMS = (32, 64, 80, 128, 256)   # B3-B7 on the card
+BH_HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # B3-B7 on the card
 
 
 def _split_heads(hd: int, num_heads: int) -> int:
@@ -884,9 +884,9 @@ def flash_attention_packed(q, k, v, num_heads: int,
     sequence runs B1 on tokens 1: with token 0 folded in as the extra
     key/value, and its cls query row in plain PyTorch; any other n runs
     B1 over all tokens; the backward is B2.  Any other head_dim (80 for
-    the ViT-H/14 family at 16 heads) goes to ``flash_attention`` on the
-    [B, H, N, D] views, as the JAX package falls back for shapes its
-    packed kernels do not serve, and so does ``no_max=False`` (the exact
+    the ViT-H/14 family at 16 heads, 16 for the HIPT ViT-4K at 12) goes
+    to ``flash_attention`` on the [B, H, N, D] views, as the JAX package
+    falls back for shapes its packed kernels do not serve, and so does ``no_max=False`` (the exact
     softmax, B6 / B7), as in the JAX package.  The JAX rule there is the
     TPU's lane grouping (G = 128 / d heads per kernel instance); B1
     indexes heads by stride, so only the head_dim decides here."""

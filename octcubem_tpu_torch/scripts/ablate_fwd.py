@@ -92,11 +92,11 @@ def _pp(expr: str):
 
 def _emu(expr: str):
     """Every ``expr``-th 8-key chunk's exps on the FMA pipe (0: none)."""
-    return ("kEmuEvery = D == 32 ? 16 : 0;", f"kEmuEvery = {expr};")
+    return ("kEmuEvery = D <= 32 ? 16 : 0;", f"kEmuEvery = {expr};")
 
 
 # design alternatives (right results) to the body's choice, turns at
-# D >= 80 and every 16th chunk's exps on the FMA pipe at D = 32: "plain"
+# D >= 80 and every 16th chunk's exps on the FMA pipe at D <= 32: "plain"
 # has neither, the others vary one of them (at every D unless named) or,
 # from "plain", the ring's depth and the key tile
 _PLAIN = [_pp("false"), _emu("0")]
@@ -115,7 +115,7 @@ VARIANTS.update({
     # skips acc's rescale while every row's is 1); acc's rescale just
     # before the PV that needs it, after the next QK^T is issued ("late";
     # the body: once the PV before it has retired); every 16th chunk's
-    # exps on the FMA pipe at every D ("exactemu"; the body: at D = 32, by
+    # exps on the FMA pipe at every D ("exactemu"; the body: at D <= 32, by
     # kEmuEvery as the fixed shift); the row
     # max of the unscaled s, and p's exponent s sl2 - m sl2 by one FFMA
     # ("ffma") or rounded product and difference ("rawmax"), where the body

@@ -2,7 +2,7 @@
 models/configs/) and the tower options against the JAX package on the
 CPU: every shipped config builds in both packages with the same keys and
 sizes (the port's params left uninitialised: full-width ViT-L towers), the
-seeded init, the A13b towers' refusal, the int8 towers and capture_cam."""
+seeded init, the A13b towers' selectors, the int8 towers and capture_cam."""
 
 import jax
 import jax.numpy as jnp
@@ -85,14 +85,35 @@ def test_registry_is_seeded():
     (dict(tower="focalnet"), "vision"),
     (dict(model_name="perceiver_tiny"), "vision"),
     (dict(hf_model_name="bert-base-uncased"), "enface"),
-    (dict(hf_config={"model_type": "bert"}), "enface"),
+    (dict(hf_config="tiny bert"), "enface"),
     (dict(text=True, width=8), "enface"),
 ])
 def test_aux_towers_are_a13b(cfg, where):
+    """The A13b selectors build the aux towers of models/aux_towers.py
+    (their parity: test_torch_port_aux_{towers,coem}.py); a HuggingFace
+    model name is read from local files only, so an absent one raises
+    OSError and nothing is fetched."""
+    from transformers import BertConfig
+
+    from octcubem_tpu_torch.models import aux_towers as taux
+
+    if cfg.get("hf_config"):
+        cfg = dict(hf_config=BertConfig(
+            vocab_size=64, hidden_size=32, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=64))
     kw = dict(embed_dim=EDIM, vision_cfg=VCFG, enface_cfg=ECFG)
     kw["vision_cfg" if where == "vision" else "enface_cfg"] = cfg
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tcoem.COEP2Tower(**kw)
+    if "hf_model_name" in cfg:
+        with pytest.raises(OSError):
+            tcoem.COEP2Tower(**kw)
+        return
+    with torch.device("meta"):
+        model = tcoem.COEP2Tower(**kw)
+    tower = model.visual if where == "vision" else model.enface.tower
+    want = {"layers": taux.ModifiedResNet, "hipt": taux.VisionTransformer4K,
+            "tower": taux.FocalNetTower, "model_name": taux.PerceiverTower,
+            "hf_config": taux.HFTextTower, "text": taux.TextTransformer}
+    assert isinstance(tower, want[next(iter(cfg))])
 
 
 def test_quant_towers_and_refusals():

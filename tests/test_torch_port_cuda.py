@@ -45,6 +45,11 @@ accumulation step launches B1 and B2 by the count of its passes (no
 backward for the frozen blocks), keeps the frozen params bit for bit and
 reads nothing back.
 
+Head_dim 16 (the HIPT ViT-4K's 12 heads of 16): B3 / B4 and B5 / B7 at
+257 and 197 tokens, ragged, rect with kv_valid and at large logits, the
+Hopper forward on its 32-byte-swizzled panels, B6 at D = 16, and the
+packed path's reroute launching B3 / B4 or B5 / B7.
+
 Batch 2 throughout, and the cls-fold dO is the [:, 1:] slice of a
 [B, m + 1, H*D] buffer, as autograd hands it over after the cls row's
 concat: the kernels' batch strides are exercised.  B3-B5 and B7 take
@@ -172,7 +177,7 @@ def test_cuda_path_refuses_what_it_does_not_serve(gen):
 
 
 # the bf16 Hopper forward body (B1, B3, B5 at D <= 128): (route, D, case)
-HOPPER_FWD = [(r, d, c) for d in (32, 64, 80, 128)
+HOPPER_FWD = [(r, d, c) for d in (16, 32, 64, 80, 128)
               for c in ("ragged", "cls", "large-logit cls", "rect")
               for r in ("bh", "packed")
               if r == "bh" or (d in fa.HEAD_DIMS and c != "rect")]
@@ -291,7 +296,8 @@ def _check_bh(args, h, d, dtype, gen, kv_valid=None, no_max=True):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,h,d,qmul", [
     (129, 2, 80, 1.0), (200, 2, 80, 1.0), (65, 4, 32, 1.0), (257, 1, 128, 1.0),
-    (129, 1, 256, 1.0), (300, 2, 64, 1.0), (257, 2, 80, 40.0)])
+    (129, 1, 256, 1.0), (300, 2, 64, 1.0), (257, 2, 80, 40.0),
+    (257, 12, 16, 1.0), (197, 12, 16, 1.0), (129, 2, 16, 40.0)])
 def test_bh_kernels_match_plain(gen, n, h, d, qmul, dtype):
     """B5 / B7 over all n rows, and B3 / B4 over rows 1: with row 0 as the
     cls key/value."""
@@ -320,7 +326,8 @@ def test_bh_rect_and_exact_backward_match_plain(gen, nq, nk, kv_valid, no_max,
 @pytest.mark.parametrize("nq,nk,kv_valid,h,d,cls", [
     (70, 200, 190, 2, 32, True), (130, 300, 300, 2, 64, False),
     (100, 250, 201, 2, 80, True), (77, 129, 129, 1, 128, False),
-    (200, 333, 333, 2, 80, False)])
+    (200, 333, 333, 2, 80, False), (70, 200, 190, 2, 16, True),
+    (300, 333, 333, 12, 16, False)])
 def test_bf16_one_pass_ragged_and_run_to_run(gen, nq, nk, kv_valid, h, d,
                                              cls):
     """The bf16 one-pass body at each of its head dims, nq not a multiple
@@ -378,6 +385,36 @@ def test_bh_public_path_counts_launches(gen):
         _assert_grad_close(x.grad.cpu(), xc.grad, torch.bfloat16, "dqkv")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq,nk,kv_valid", [(197, 300, 259), (70, 260, 250)])
+def test_bh_head_dim_16_rect_matches_plain(gen, nq, nk, kv_valid, dtype):
+    """B5 / B7 at head_dim 16 (the HIPT ViT-4K's 12 heads of 16) in the
+    rect form: Nq != Nk, kv_valid < Nk, dk = dv = 0 past it."""
+    h, d = 12, 16
+    q = torch.randn((2, h, nq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((2, h, nk, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    _check_bh((q, k, v, None, None), h, d, dtype, gen, kv_valid)
+
+
+def test_hipt_head_dim_16_public_path_counts_launches(gen):
+    """The packed path at 12 heads of 16 (HIPT ViT-4K) launches B3 / B4 at
+    257 tokens (cls-prefixed) and B5 / B7 at 197, never B1 / B2, and
+    qkv.grad matches the CPU plain path."""
+    for n, fwd, bwd in ((257, "flash_fwd_bh_cls", "flash_bwd_bh_cls"),
+                        (197, "flash_fwd_bh", "flash_bwd_bh")):
+        qkv = _qkv(gen, n, 12, 16, torch.bfloat16)
+        g = torch.randn((2, n, 192), generator=gen, device="cuda").to(qkv.dtype)
+        _cuda.reset_launches()
+        x = qkv.clone().requires_grad_()
+        fa.flash_attention_packed_qkv(x, 12).backward(g)
+        assert {k: c for k, c in _cuda.launches.items() if c} == {fwd: 1,
+                                                                   bwd: 1}
+        xc = qkv.cpu().requires_grad_()
+        fa.flash_attention_packed_qkv(xc, 12).backward(g.cpu())
+        _assert_grad_close(x.grad.cpu(), xc.grad, torch.bfloat16, "dqkv")
+
+
 def test_bh_refuses_what_it_does_not_serve(gen):
     q = torch.randn((1, 2, 64, 48), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
@@ -396,7 +433,7 @@ def test_bh_refuses_what_it_does_not_serve(gen):
     (200, 200, None, 2, 32, 1.0), (129, 129, None, 2, 80, 8.0),
     (300, 300, None, 2, 64, 8.0), (257, 257, None, 1, 128, 1.0),
     (129, 129, None, 1, 256, 8.0), (70, 260, 250, 2, 80, 8.0),
-    (100, 513, 500, 4, 32, 1.0)])
+    (100, 513, 500, 4, 32, 1.0), (197, 197, None, 12, 16, 8.0)])
 def test_b6_matches_plain(gen, nq, nk, kv_valid, h, d, qmul, dtype):
     """B6 against fwd_bh_exact_plain: square on the fused buffer's
     [B, H, N, D] views, rect (Nq != Nk, kv_valid) on contiguous tensors;
@@ -437,7 +474,7 @@ def test_b6_public_path_counts_launches(gen):
 
 
 # B6 in bf16 on the Hopper body (D <= 128): (D, case)
-HOPPER_B6 = [(d, c) for d in (32, 64, 80, 128)
+HOPPER_B6 = [(d, c) for d in (16, 32, 64, 80, 128)
              for c in ("ragged", "x8", "x40", "rect")]
 
 
