@@ -198,7 +198,29 @@ Phases, each fatal on failure (no phase's error is caught):
      ``launches_per_step_on``: for each phase-19, phase-20 and phase-21
      path, the launches counted in each of its checked steps of this run;
      B3's, B4's, B5's and B7's carry phase 21's, and ``at_head_dim_16``:
-     their error and timing row at the default HIPT's shapes.
+     their error and timing row at the default HIPT's shapes;
+ 22. the multi-rank paths (ROADMAP A14): (a) on a one-rank NCCL group
+     formed by core/multihost.initialize, entry()'s ViT-L classifier
+     with attn_impl="flash_tp" under use_tensor_parallel (its weights
+     through shard_tp_params) against flash (24 B1), and three ViT-L MAE
+     steps per decoder geometry under flash_tp against flash from the
+     same state (step 1's loss and block 0's Wqkv gradient; 32 B1 + 32
+     B2 a step); (b) the n_tp = 4 geometry one rank's body at a time at
+     full ViT-L width (the encoder block at 4,097 tokens, both decoder
+     geometries at 5,121): each sublayer's projections split by
+     shard_tp_params' rule, the row-parallel partials summed as the
+     all-reduce sums them, against the unsharded sublayer forward and
+     backward; B1 / B2 at the rank's shard shapes (TP_SHARDS) against
+     their plain versions and timed (events, plain, SDPA, bound); (c)
+     two gloo ranks sharing cuda:0 (spawned, a FileStore, backend="gloo"
+     given explicitly): cli/pretrain.py on vitl_joint_pretrain at full
+     width (2 volumes and 8 2D images a rank), cli/retclip.py on
+     octcube_ir (4 pairs x accum_freq 2 a rank) and cli/predict.py
+     --n_data 2, each against the same CLI on one rank fed the global
+     batch (the first loss within TOL_DP_LOSS, the launches per step
+     equal, the CSV within TOL_DP_PROB), with each rank's step time, the
+     gloo all-reduce's host time apart, and peak; (d) B1's and B2's
+     entries of the kernels line carry ``at_tp_shards``: the rows of (b).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -211,6 +233,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4672,6 +4695,599 @@ def run_phase21(torch, _cuda, fa, smi, rate):
              for kern in counters}, timing)
 
 
+# ------------------------------------------ phase 22: the multi-rank paths
+
+# (name, B, n, heads of the shard, D) of B1 / B2 on a flash_tp rank at
+# n_tp = 4: the ViT-L encoder (4 of its 16 heads of 64) at the serving
+# forward's 4,097 tokens and the MAE encoder's 512 (batch 4); the reference
+# decoder (4 of 16 heads of 32) and the vitl_mae_tpu_native decoder (1 of 4
+# heads of 128) at 5,121 tokens (batch 4).  Each is the rank's own fused
+# buffer [B, n, 3 * heads * D], which flash_tp slices into q, k, v.
+TP_SHARDS = (("encoder 4x64 n4097", 1, 4097, 4, 64),
+             ("encoder 4x64 n512", 4, 512, 4, 64),
+             ("decoder 4x32 n5121", 4, 5121, 4, 32),
+             ("decoder 1x128 n5121", 4, 5121, 1, 128))
+# (name, model width, heads, B, n) of the n_tp = 4 geometry held one rank's
+# body at a time in 22b, at full ViT-L width
+TP_GEOMS = (("ViT-L encoder", 1024, 16, 1, 4097),
+            ("ViT-L MAE decoder h16", 512, 16, 4, 5121),
+            ("ViT-L MAE decoder h4", 512, 4, 4, 5121))
+N_TP = 4
+# the CLIs on two ranks against one rank fed the global batch: the first
+# step's loss (equal params, equal samples and noise) at the bf16 loss
+# limit phases 19 and 20 hold a CLI's loss to (TOL_NAIVE_COEM_LOSS); the
+# probabilities at one bf16 step of a logit near 1 times p(1 - p) <= 1/4,
+# plus the CSV's 4-decimal rounding
+TOL_DP_LOSS = 2.5e-3
+# 22b's weight gradients are bf16 GEMMs over B * n rows (20,484 in the
+# decoders), which cuBLAS reduces in an order that depends on the shape:
+# on an H100 at 700 W the decoder h16's out_proj gradient of the rank
+# bodies sat 1.98e-2 of its largest from the unsharded one's in three
+# runs, with the heads' attention outputs bit-identical between the two
+# forms; relative to the largest, ~2.5x that
+TOL_TP_WGRAD = 5e-2
+TOL_DP_PROB = 2 ** -8 + 1e-4
+
+
+def check_tp_shards(torch, fa, rate):
+    """22b / 22d: B1 and B2 at each TP_SHARDS shape, laid out as flash_tp
+    lays them out (column views of the rank's fused buffer), against their
+    plain versions at phase 3's limits (B2 twice); then timed: CUDA events
+    over the kernel, its plain version, SDPA at the same [B, H, N, D]
+    (the backward: SDPA forward + backward minus its forward) and the
+    bound -> {"flash_fwd_packed": {name: row}, "flash_bwd_packed": ...}."""
+    import torch.nn.functional as F
+
+    from octcubem_tpu_torch.scripts.time_kernels import bound, fwd_work
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = {"flash_fwd_packed": {}, "flash_bwd_packed": {}}
+    for name, b, n, h, d in TP_SHARDS:
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        args = _kernel_args(qkv, h)
+        cls = args[3] is not None
+        scale = d ** -0.5
+        o, lse = fa.fwd_packed_cuda(*args, h, scale)
+        o_ref, _ = fa.fwd_packed_plain(*args, h, scale)
+        fwd_err = (o.float() - o_ref.float()).abs().max().item()
+        del o_ref
+        do = torch.randn((b, n, h * d), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        do = do[:, 1:] if cls else do
+        dqkv = torch.zeros_like(qkv)
+        out = _kernel_args(dqkv, h)
+        bwd_err = _check_main_path_shape(torch, fa, f"flash_tp shard {name}",
+                                         args, o, lse, do, out, h, scale)
+        m = n - 1 if cls else n
+        keys = m + 1 if cls else m
+        qh, kh, vh = (t.contiguous().requires_grad_() for t in
+                      qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+        g = torch.randn((b, h, n, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        sdpa_fwd = _elapsed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale), 20)
+        sdpa_all = _elapsed_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+            (qh, kh, vh), g), 20)
+        fwd = {"max_abs_err": fwd_err,
+               "ms": _elapsed_ms(lambda: fa.fwd_packed_cuda(*args, h, scale),
+                                 20),
+               "plain_ms": _elapsed_ms(lambda: fa.fwd_packed_plain(
+                   *args, h, scale), 3, 1),
+               "library_ms": sdpa_fwd}
+        fwd["bound_ms"], fwd["bound_by"] = bound(*fwd_work(b, h, m, keys, d),
+                                                 rate)
+        es = qkv.element_size()
+        flops = 10 * b * h * m * keys * d
+        nbytes = (8 * b * m * h * d * es + b * h * m * 4
+                  + (4 * b * h * d * es if cls else 0))
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bwd = {"max_abs_err": bwd_err,
+               "ms": _elapsed_ms(lambda: fa.bwd_packed_cuda(
+                   *args, o, lse, do, None, h, scale, out=out), 20),
+               "plain_ms": _elapsed_ms(lambda: fa.bwd_packed_plain(
+                   *args, o, lse, do, None, h, scale), 3, 1),
+               "library_ms": sdpa_all - sdpa_fwd,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        for kern, row in (("B1", fwd), ("B2", bwd)):
+            print(f"{kern} flash_tp shard {name} B={b} H={h} N={n} D={d} "
+                  f"bf16: max|d| vs plain {row['max_abs_err']:.3e}; kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"by {row['bound_by']}")
+        rows["flash_fwd_packed"][name] = fwd
+        rows["flash_bwd_packed"][name] = bwd
+        del qkv, args, o, lse, do, dqkv, out, qh, kh, vh, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_tp_one_rank(torch, _cuda, entry_mod):
+    """22a: attn_impl="flash_tp" on a one-rank NCCL group formed by
+    core/multihost.initialize: entry()'s ViT-L classifier forward (its
+    weights through shard_tp_params) against flash, then three MAE steps
+    per decoder geometry against flash from the same state (step 1's
+    loss and Wqkv gradient of block 0).  Returns the launches per step."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from octcubem_tpu_torch.core import multihost
+    from octcubem_tpu_torch.parallel.tensor import (shard_tp_params,
+                                                    use_tensor_parallel)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    multihost.initialize(store=dist.FileStore(f"{tmp}/store", 1),
+                         world_size=1, rank=0, device="cuda")
+    seen = {}
+    try:
+        print(f"22a: one-rank group, backend {dist.get_backend()}, "
+              f"{multihost.summary()}")
+        if dist.get_backend() != "nccl":
+            raise AssertionError("the one-rank group is not NCCL")
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("tp",))
+        fn, (model, x) = entry_mod.entry(attn_impl="flash_tp")
+        shard_tp_params(model, mesh)
+        _cuda.reset_launches()
+        with use_tensor_parallel(mesh):
+            logits = fn(model, x)
+        torch.cuda.synchronize()
+        launches = _nonzero(_cuda.launches)
+        del model
+        ref_fn, (ref, _) = entry_mod.entry()
+        want = ref_fn(ref, x)
+        del ref
+        err = (logits.float() - want.float()).abs().max().item()
+        print(f"22a entry() ViT-L 48x256x256 flash_tp vs flash: max|dlogits| "
+              f"{err:.3e} (tol {TOL_LOGITS:.0e}), launches {launches}")
+        if err > TOL_LOGITS or launches != {"flash_fwd_packed": 24}:
+            raise AssertionError("flash_tp's classifier forward")
+        seen["classifier forward"] = [launches["flash_fwd_packed"]]
+        for dec_heads in (16, 4):
+            runs = {}
+            for impl in ("flash_tp", "auto"):
+                step, state, x = entry_mod.train_entry(dec_heads=dec_heads,
+                                                       batch=4, attn_impl=impl)
+                losses, counts = [], []
+                for i in range(3):
+                    _cuda.reset_launches()
+                    with use_tensor_parallel(mesh):
+                        state, m = step(state, x, mask_ratio=0.9)
+                    torch.cuda.synchronize()
+                    counts.append(_nonzero(_cuda.launches))
+                    losses.append(m["loss"].item())
+                    if i == 0:
+                        g = state.params.blocks[0].mixer.Wqkv.weight.grad
+                        runs[impl] = (losses, counts, g.clone())
+                del step, state, x
+                torch.cuda.empty_cache()
+            (lt, ct, gt), (lf, _, gf) = runs["flash_tp"], runs["auto"]
+            dloss = abs(lt[0] - lf[0]) / abs(lf[0])
+            dgrad = ((gt - gf).abs().max() / gf.abs().max()).item()
+            print(f"22a MAE dec_heads={dec_heads} flash_tp: losses "
+                  f"{[round(v, 6) for v in lt]} (flash {[round(v, 6) for v in lf]}), "
+                  f"step 1 rel dloss {dloss:.3e} (tol "
+                  f"{TOL_NAIVE['bfloat16'][0]:.1e}), blocks.0.mixer.Wqkv "
+                  f"grad rel {dgrad:.3e} (tol {TOL_RUN_TO_RUN:.1e}), launches "
+                  f"per step {ct}")
+            want = {"flash_fwd_packed": 32, "flash_bwd_packed": 32}
+            if (dloss > TOL_NAIVE["bfloat16"][0] or dgrad > TOL_RUN_TO_RUN
+                    or any(c != want for c in ct)):
+                raise AssertionError(f"flash_tp's MAE step, dec_heads "
+                                     f"{dec_heads}")
+            for kern in want:
+                seen[f"MAE dec_heads={dec_heads} {kern}"] = [
+                    c[kern] for c in ct]
+        return seen
+    finally:
+        multihost.shutdown()
+
+
+def run_tp_geometry(torch, _cuda, fa):
+    """22b: the n_tp = 4 geometry one rank's body at a time on one card,
+    at full ViT-L width: a block's attention and its MLP, each with its
+    projections split by shard_tp_params' rule (each rank the rows of its
+    heads in each of q, k, v and their out_proj columns; fc1's rows and
+    fc2's columns), each rank's heads through flash_attention_packed
+    (head_parallel_attention's body), the row-parallel partial products
+    summed in fp32 (what the all-reduce gives) and the bias added once,
+    then one rounding to bf16; each rank reads its own copy of the input,
+    whose gradients are summed in fp32 (the column-parallel input's
+    all-reduce).  Held against the unsharded sublayer: the output at
+    phase 3's bf16 limit and, under one backward, the input's gradient at
+    B2's and every weight's at TOL_TP_WGRAD.  Returns the launches."""
+    import torch.nn.functional as F
+
+    from octcubem_tpu_torch.nn.layers import MHA, Mlp
+    from octcubem_tpu_torch.parallel.tensor import _tp_split
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    seen = {}
+
+    def part(lin, x, pname, r, row):
+        idx = _tp_split(pname, lin.weight.shape, N_TP, r)[1].cuda()
+        if row:
+            return F.linear(x, lin.weight.index_select(1, idx).bfloat16())
+        return F.linear(x, lin.weight.index_select(0, idx).bfloat16(),
+                        lin.bias.index_select(0, idx).bfloat16())
+
+    def reduce(parts, lin):
+        return (sum(p.float() for p in parts) + lin.bias.float()).bfloat16()
+
+    for name, dim, heads, b, n in TP_GEOMS:
+        torch.manual_seed(24)
+        mha = MHA(dim, heads, dtype=torch.bfloat16).cuda()
+        mlp = Mlp(dim, 4 * dim, dim, torch.bfloat16).cuda()
+
+        seen_a = {}
+
+        def attn_tp(xs):
+            parts, heads_out = [], []
+            for r, x in enumerate(xs):
+                qkv = part(mha.Wqkv, x, "mixer.Wqkv.weight", r, False)
+                hd = qkv.shape[-1] // 3
+                a = fa.flash_attention_packed(
+                    qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
+                    heads // N_TP)
+                heads_out.append(a.detach())
+                parts.append(part(mha.out_proj, a, "mixer.out_proj.weight",
+                                  r, True))
+            seen_a["tp"] = torch.cat(heads_out, dim=-1)
+            return reduce(parts, mha.out_proj)
+
+        mha.out_proj.register_forward_pre_hook(
+            lambda _, args: seen_a.__setitem__("flash", args[0].detach()))
+
+        def mlp_tp(xs):
+            return reduce([part(mlp.fc2, F.gelu(part(
+                mlp.fc1, x, "mlp.fc1.weight", r, False)), "mlp.fc2.weight",
+                r, True) for r, x in enumerate(xs)], mlp.fc2)
+
+        for sub, module, sharded, want in (
+                ("attention", mha, attn_tp, {"flash_fwd_packed": N_TP,
+                                             "flash_bwd_packed": N_TP}),
+                ("MLP", mlp, mlp_tp, {})):
+            x0 = torch.randn((b, n, dim), generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+            g = torch.randn((b, n, dim), generator=gen, device="cuda")
+            names = ["input"] + [k for k, _ in module.named_parameters()]
+            params = list(module.parameters())
+            res = {}
+            for label, fn in (("tp", sharded), ("flash", module)):
+                xs = [x0.clone().requires_grad_()
+                      for _ in range(N_TP if label == "tp" else 1)]
+                for p in params:
+                    p.grad = None
+                _cuda.reset_launches()
+                out = fn(xs) if label == "tp" else fn(xs[0])
+                (out.float() * g).sum().backward()
+                torch.cuda.synchronize()
+                dx = sum(t.grad.float() for t in xs)
+                res[label] = (out.detach(), [dx] + [p.grad.clone()
+                                                    for p in params],
+                              _nonzero(_cuda.launches))
+            (o_t, g_t, l_t), (o_f, g_f, l_f) = res["tp"], res["flash"]
+            err = _hold(torch, f"22b {name} {sub} output", o_t, o_f,
+                        torch.bfloat16)
+            rels = {k: ((a.float() - r.float()).abs().max()
+                        / r.float().abs().max().clamp_min(1e-30)).item()
+                    for k, a, r in zip(names, g_t, g_f)}
+            d_in = rels.pop("input")
+            leaf = max(rels, key=rels.get)
+            worst = rels[leaf]
+            if sub == "attention":
+                da = (seen_a["tp"].float() - seen_a["flash"].float()).abs()
+                amax = seen_a["flash"].float().abs().max().item()
+                print(f"22b {name}: the heads' attention output, the rank "
+                      f"bodies' against the unsharded one: max|da| "
+                      f"{da.max().item():.3e} of max|a| {amax:.3e}, "
+                      f"elements differing {int((da > 0).sum())} of "
+                      f"{da.numel()}")
+            print(f"22b n_tp={N_TP} {name} {sub} (width {dim}, {heads} "
+                  f"heads, B={b}, n={n}) bf16, {N_TP} rank bodies vs the "
+                  f"unsharded sublayer: max|dout| {err:.3e}; the input's "
+                  f"gradient rel {d_in:.3e} (tol {TOL_GRAD['bfloat16']:.1e}),"
+                  f" the weights' worst {worst:.3e} ({leaf}; tol "
+                  f"{TOL_TP_WGRAD:.0e}); launches {l_t} vs {l_f}")
+            if (d_in > TOL_GRAD["bfloat16"] or worst > TOL_TP_WGRAD
+                    or l_t != want):
+                raise AssertionError(f"22b: the n_tp geometry of {name} "
+                                     f"{sub}")
+            if want:
+                seen[name] = l_t
+            del res, x0, g
+        del mha, mlp
+        torch.cuda.empty_cache()
+    return seen
+
+
+def _global_order(world, chunks_of):
+    """A Loader._indices for one rank serving the global batches ``world``
+    ranks assemble (each rank's local batch, its stride of the
+    permutation, in rank order; chunk by chunk where ``chunks_of(loader)``
+    > 1, as the feature-cached accumulation splits a batch).  Loaders
+    that do not shuffle (the eval splits) keep their order."""
+    import numpy as np
+
+    from octcubem_tpu_torch.data.loader import Loader
+
+    plain = Loader._indices
+
+    def _indices(self):
+        idx = plain(self)
+        if not self.shuffle:
+            return idx
+        per = [idx[r::world][:len(idx) // world] for r in range(world)]
+        b = self.batch_size // world
+        m = b // chunks_of(self)
+        out = [per[r][i * b + c * m:i * b + (c + 1) * m]
+               for i in range(len(per[0]) // b)
+               for c in range(chunks_of(self)) for r in range(world)]
+        return np.concatenate(out) if out else idx[:0]
+
+    return _indices
+
+
+def _gloo_clis(tmp, world):
+    """(name, module, argv, the one-rank run's argv, accumulation chunks)
+    of 22c's CLI runs; the per-rank batches are the comment's."""
+    from octcubem_tpu_torch.core.config import PRESETS
+    import dataclasses
+
+    # vitl_joint_pretrain at full width: 2 volumes and 8 2D images a rank
+    # (the 2D batch whole, accum_2d 1), 16 synthetic volumes (the 2D SPL
+    # subset's 19 hold the one-rank run's 16), one epoch of two steps
+    pre = dataclasses.asdict(PRESETS["vitl_joint_pretrain"])
+    pre.update(accum_2d=1, epochs=1)
+    cfgs = {}
+    for b, b2 in ((2, 8), (2 * world, 8 * world)):
+        cfgs[b] = _write_json(tmp, f"pre{b}.json",
+                              dict(pre, batch_size=b, batch_size_2d=b2))
+    ret = _write_json(tmp, "ret.json", dict(dataclasses.asdict(
+        PRESETS["octcube_ir"]), accum_freq=2, epochs=1))
+    data = Path(tmp) / "predict"
+    import numpy as np
+    rng = np.random.default_rng(32)
+    for i in range(5):
+        d = data / f"p{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        np.save(d / "vol.npy", (rng.random((48, 256, 256)) * 255).astype(
+            np.float32))
+
+    def pretrain(b, out):
+        return ["--preset", cfgs[b], "--synthetic", "--synthetic_n", "16",
+                "--steps_per_epoch", "2", "--output_dir", out]
+
+    def retclip(b, out):
+        # octcube_ir at full width, 4 pairs a rank x accum_freq 2
+        return ["--preset", ret, "--synthetic", "--synthetic_n", "40",
+                "--batch_size", str(b), "--output_dir", out]
+
+    def predict(out, n_data):
+        return [str(data), "--batch_size", "2", "--n_data", str(n_data),
+                "--out_csv", f"{out}/p.csv", "--dump_embeddings",
+                f"{out}/e.npz"]
+
+    return [
+        ("pretrain", "pretrain", pretrain(2, f"{tmp}/two/pretrain"),
+         pretrain(2 * world, f"{tmp}/one/pretrain"), 1),
+        ("retclip", "retclip", retclip(4, f"{tmp}/two/retclip"),
+         retclip(4 * world, f"{tmp}/one/retclip"), 2),
+        ("predict", "predict", predict(f"{tmp}/two", world),
+         predict(f"{tmp}/one", 1), 1)]
+
+
+def _gloo_rank(rank, world, tmp):
+    """22c's rank: a gloo group with the other rank on cuda:0 (NCCL
+    refuses two ranks on one device), then each CLI in process; what it
+    measured goes to tmp/rank{rank}.json."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from octcubem_tpu_torch.cli import pretrain, predict, retclip
+    from octcubem_tpu_torch.core import multihost
+    from octcubem_tpu_torch.ops import _cuda
+
+    mods = {"pretrain": pretrain, "retclip": retclip, "predict": predict}
+    multihost.initialize(store=dist.FileStore(f"{tmp}/store", world),
+                         world_size=world, rank=rank, local_rank=0,
+                         backend="gloo", device="cuda", timeout_s=300)
+    out = {"backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    try:
+        reduce_ms = []
+        plain_reduce = multihost.all_reduce_mean
+
+        def timed_reduce(*a, **k):
+            t0 = time.perf_counter()
+            res = plain_reduce(*a, **k)
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        multihost.all_reduce_mean = timed_reduce
+        probe = CliProbe(torch, _cuda)
+        for name, mod, argv, _, _ in _gloo_clis(tmp, world):
+            os.makedirs(f"{tmp}/two/{name}", exist_ok=True)
+            reduce_ms.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if name == "predict":
+                _cuda.reset_launches()
+                rows = mods[mod].main(argv)
+                torch.cuda.synchronize()
+                out[name] = {"rows": rows,
+                             "launches": _nonzero(_cuda.launches)}
+            else:
+                ctx = (probe.patch(pretrain) if name == "pretrain"
+                       else _probe_clip(probe))
+                with ctx:
+                    mods[mod].main(argv)
+                steps, _, _ = probe.take()
+                out[name] = {
+                    "losses": [s["out"][0]["loss"].item() for s in steps],
+                    "launches": [s["launches"] for s in steps],
+                    "host_ms": [(steps[i + 1]["t"] - steps[i]["t"]) * 1e3
+                                for i in range(len(steps) - 1)],
+                    "event_ms": [s["ev"][0].elapsed_time(s["ev"][1])
+                                 for s in steps],
+                    "reduce_ms": list(reduce_ms)}
+            out[name]["wall_s"] = time.perf_counter() - t0
+            out[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            dist.barrier()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        multihost.shutdown()
+
+
+def run_gloo_clis(torch, _cuda, smi):
+    """22c: cli/pretrain.py, cli/retclip.py and cli/predict.py on two gloo
+    ranks sharing cuda:0 (spawned, a FileStore, backend="gloo" given
+    explicitly), each against the same CLI on one rank (this process) fed
+    the global batch: per step the launches, the first step's loss, the
+    step time with the gloo all-reduce's host time apart (gloo stages
+    through the host: not NCCL's time), each rank's peak; predict's CSV
+    and embeddings.  Returns the launches per step."""
+    import csv
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from octcubem_tpu_torch.cli import pretrain, predict, retclip
+    from octcubem_tpu_torch.data.loader import Loader
+
+    world = 2
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, world, tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + 400  # they take about a minute
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    print(f"22c: {world} gloo ranks on cuda:0 ran the CLIs in "
+          f"{time.perf_counter() - t0:.1f} s, exit codes {codes}")
+    if codes != [0] * world:
+        raise AssertionError(f"22c: rank exit codes {codes}")
+    ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+             for r in range(world)]
+    print(f"22c: backend {[r['backend'] for r in ranks]}, devices "
+          f"{[r['device'] for r in ranks]}")
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("22c ran on another backend than gloo")
+    seen = {}
+    probe = CliProbe(torch, _cuda)
+    mods = {"pretrain": pretrain, "retclip": retclip, "predict": predict}
+    for name, mod, _, argv1, chunks in _gloo_clis(tmp, world):
+        os.makedirs(f"{tmp}/one/{name}", exist_ok=True)
+        plain = Loader._indices
+        Loader._indices = _global_order(
+            world, lambda ld, c=chunks: c)
+        try:
+            if name == "predict":
+                _cuda.reset_launches()
+                predict.main(argv1)
+                torch.cuda.synchronize()
+                one_launches = _nonzero(_cuda.launches)
+            else:
+                ctx_ = (probe.patch(pretrain) if name == "pretrain"
+                        else _probe_clip(probe))
+                with ctx_:
+                    mods[mod].main(argv1)
+                steps, _, _ = probe.take()
+        finally:
+            Loader._indices = plain
+        if name == "predict":
+            with open(f"{tmp}/one/p.csv") as f:
+                want = list(csv.reader(f))
+            with open(f"{tmp}/two/p.csv") as f:
+                got = list(csv.reader(f))
+            dprob = float(np.abs(
+                np.asarray([r[1:] for r in got[1:]], float)
+                - np.asarray([r[1:] for r in want[1:]], float)).max())
+            demb = float(np.abs(np.load(f"{tmp}/one/e.npz")["embeddings"]
+                                - np.load(f"{tmp}/two/e.npz")["embeddings"])
+                         .max())
+            per_rank = [r[name]["launches"] for r in ranks]
+            print(f"22c cli/predict.py --n_data {world} (batch 2, one volume "
+                  f"a rank a batch, 5 volumes) vs one rank: ids equal "
+                  f"{[r[0] for r in got] == [r[0] for r in want]}, max|d "
+                  f"prob| {dprob:.3e} (tol {TOL_DP_PROB:.2e}), max|d "
+                  f"embedding| {demb:.3e}; launches per rank {per_rank} "
+                  f"(one rank {one_launches}); rows returned on every rank "
+                  f"{all(r[name]['rows'] == got[1:] for r in ranks)}; wall "
+                  f"{[round(r[name]['wall_s'], 1) for r in ranks]} s")
+            if ([r[0] for r in got] != [r[0] for r in want]
+                    or len(got) != 6 or dprob > TOL_DP_PROB
+                    or any(r[name]["rows"] != got[1:] for r in ranks)
+                    or any(c != {"flash_fwd_packed": 24 * 3}
+                           for c in per_rank)):
+                raise AssertionError("22c: cli/predict.py on two ranks")
+            seen[f"predict --n_data {world} per rank"] = [
+                c["flash_fwd_packed"] for c in per_rank]
+            continue
+        one = {"losses": [s["out"][0]["loss"].item() for s in steps],
+               "launches": [s["launches"] for s in steps]}
+        got = ranks[0][name]
+        dloss = abs(got["losses"][0] - one["losses"][0]) / abs(
+            one["losses"][0])
+        what = {"pretrain": "vitl_joint_pretrain at full width, 2 volumes "
+                            "and 8 2D images a rank",
+                "retclip": "octcube_ir at full width, 4 pairs x accum_freq "
+                           "2 a rank"}[name]
+        print(f"22c cli/{name}.py on {world} gloo ranks ({what}) vs one rank "
+              f"on the global batch: losses "
+              f"{[round(v, 6) for v in got['losses']]} vs "
+              f"{[round(v, 6) for v in one['losses']]}, step 1 rel dloss "
+              f"{dloss:.3e} (tol {TOL_DP_LOSS:.1e}); launches per step "
+              f"{got['launches']} (one rank {one['launches']})")
+        for r, rk in enumerate(ranks):
+            res = rk[name]
+            print(f"22c cli/{name}.py rank {r} on {smi}: host ms per step "
+                  f"(issue to next issue) {[round(v, 1) for v in res['host_ms']]}"
+                  f", CUDA events per step {[round(v, 1) for v in res['event_ms']]}"
+                  f" ms; gloo all-reduce of the gradient (host ms, each call; "
+                  f"through the host, not NCCL's time) "
+                  f"{[round(v, 1) for v in res['reduce_ms']]}; peak "
+                  f"{res['peak_gib']:.2f} GiB; wall {res['wall_s']:.1f} s")
+        if (dloss > TOL_DP_LOSS or len(got["losses"]) != 2
+                or any(rk[name]["launches"] != one["launches"]
+                       for rk in ranks)
+                or any(set(c) != {"flash_fwd_packed", "flash_bwd_packed"}
+                       for c in one["launches"])
+                or not all(math.isfinite(v) for v in got["losses"])):
+            raise AssertionError(f"22c: cli/{name}.py on two ranks")
+        for kern in ("flash_fwd_packed", "flash_bwd_packed"):
+            seen[f"cli/{name}.py {world} gloo ranks {kern}"] = [
+                c[kern] for c in got["launches"]]
+    shutil.rmtree(tmp, ignore_errors=True)  # the runs' checkpoints
+    return seen
+
+
+def run_phase22(torch, _cuda, entry_mod, fa, smi, rate):
+    """Phase 22: the multi-rank paths (a)-(c); the shard shapes' kernel
+    rows for (d)."""
+    seen = {}
+    seen["22a one-rank NCCL flash_tp"] = run_tp_one_rank(torch, _cuda,
+                                                         entry_mod)
+    seen["22b n_tp=4 rank bodies"] = run_tp_geometry(torch, _cuda, fa)
+    rows = check_tp_shards(torch, fa, rate)
+    seen["22c gloo ranks on cuda:0"] = run_gloo_clis(torch, _cuda, smi)
+    print(f"phase 22 launches per step: {json.dumps(seen)}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4797,6 +5413,8 @@ def main() -> int:
     phase_done("20: the COEM contrastive path")
     aux_seen, timing_d16 = run_phase21(torch, _cuda, fa, smi, rate)
     phase_done("21: the auxiliary COEM towers")
+    tp_rows = run_phase22(torch, _cuda, entry_mod, fa, smi, rate)
+    phase_done("22: the multi-rank paths")
     per_step = {kern: {**ft_launches[kern], **coem_launches_seen[kern],
                        **aux_seen[kern]}
                 for kern in ft_launches}
@@ -4807,13 +5425,14 @@ def main() -> int:
         "replaces": "octcubem_tpu/ops/flash_attention.py:859",
         "launches": launches,
         "launches_per_step_on": per_step["flash_fwd_packed"],
-        "max_abs_err": err, **timing}, {
+        "max_abs_err": err, **timing,
+        "at_tp_shards": tp_rows["flash_fwd_packed"]}, {
         "name": "flash_bwd_packed", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_bwd_packed.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:961",
         "launches": launches_bwd,
         "launches_per_step_on": per_step["flash_bwd_packed"],
-        **timing_bwd}]
+        **timing_bwd, "at_tp_shards": tp_rows["flash_bwd_packed"]}]
     # (counter, TPU kernel's line, source, launches on its path)
     for kern, counter, line, src, n in (
             ("B3", "flash_fwd_bh_cls", 128, "flash_fwd_bh.cu", b3_launches),
@@ -4845,7 +5464,8 @@ def main() -> int:
             if isinstance(val, float) and not math.isfinite(val):
                 raise AssertionError(f"{k['name']}: {key} is {val}")
         # the SFU's exps are operations too: the line names two kinds
-        for row in (k, k.get("at_head_dim_16", {})):
+        for row in (k, k.get("at_head_dim_16", {}),
+                    *k.get("at_tp_shards", {}).values()):
             if row.get("bound_by") == "exp":
                 row["bound_by"] = "operations"
     print(json.dumps({"kernels": kernels}))

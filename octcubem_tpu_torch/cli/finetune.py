@@ -21,9 +21,16 @@ per-class CSVs, ``confusion_test{fold}*.png``).
 
 Runs on the card (``--device``, default cuda; every ViT attention call
 runs the hand-written kernels, B1 forward and B2 backward) and refuses
-to start without one unless given ``--device cpu``.  One rank: the JAX
-CLI's data-parallel size is 1 here, and ``n_data`` / ``n_fsdp`` above 1
-or a multi-process launch raise NotImplementedError naming ROADMAP A14.
+to start without one unless given ``--device cpu``.  Several cards: one
+process per card (``torchrun --nproc_per_node N -m
+octcubem_tpu_torch.cli.finetune ...``); a rank is the JAX CLI's host with
+one device, ``--batch_size`` is per rank (rounded to the data axis as
+JAX rounds it), the LR scales with ``batch * world`` as JAX's multi-host
+formula does, and the train loader strides over the mesh's data axis
+(``core/mesh.cli_mesh(n_data, n_fsdp)``); the step reduces over the
+mesh (train/finetune_engine.py).  Every rank evaluates the whole val and
+test splits, so the metrics, the best epoch and early stopping are the
+split's and agree on every rank; rank 0 writes the files.
 As in the JAX CLI, the host reads step t-1's loss and finiteness after
 it has issued step t; a non-finite step is reverted on the device
 (train/finetune_engine.py) and counted in the epoch's ``nan_steps``.
@@ -46,10 +53,6 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device, to_device
-
-_A14 = ("is ROADMAP A14 (DDP / FSDP over torch.distributed); the port's "
-        "fine-tuning runs on one rank")
-
 
 class SyntheticCls3D:
     """Seeded synthetic volumes and labels, the JAX CLI's draws."""
@@ -149,29 +152,40 @@ def _tiny_model(cfg, dtype, device):
                              if cfg.variable_joint else None))
 
 
-def run_fold(cfg, make_model, datasets, log, device, fold_tag=""):
+def run_fold(cfg, make_model, datasets, log, device, fold_tag="", mesh=None):
     """One fold: a fresh seeded model, its training epochs and evals ->
-    (BestTracker, the best epoch's test metrics)."""
+    (BestTracker, the best epoch's test metrics).  ``mesh``: the
+    data-parallel mesh (the module docstring)."""
     from ..compat.torch_import import (check_geometry_stamp,
                                        load_reference_weights,
                                        load_torch_checkpoint)
-    from ..core import checkpoint as ckpt_lib
+    from ..core import checkpoint as ckpt_lib, multihost
+    from ..core.mesh import DATA_AXIS, axis_coord
     from ..data import loader as loader_lib
     from ..train import losses, optim, schedules
     from ..train.finetune_engine import (
         BestTracker, evaluate, make_finetune_train_step, make_predict_step,
         write_confusion_matrices, write_metric_csvs)
+    from ..train.mae_engine import replicate_state, shard_batch
     from ..train.train_state import TrainState
     from ..utils.logging import JsonlLogger, MetricLogger, TBWriter
 
     ds_train, ds_val, ds_test = datasets
-    batch = min(cfg.batch_size, len(ds_train))  # one rank: data size 1
-    ld_tr = loader_lib.Loader(ds_train, batch, num_workers=4, seed=cfg.seed)
+    d_idx, n_data = axis_coord(mesh, DATA_AXIS)
+    batch = min(cfg.batch_size, len(ds_train))
+    if len(ds_train) < n_data:
+        raise ValueError(f"train split has {len(ds_train)} items but the "
+                         f"mesh needs a batch divisible by {n_data}")
+    batch = max(n_data, (batch // n_data) * n_data)
+    ld_tr = loader_lib.Loader(ds_train, batch, num_workers=4, seed=cfg.seed,
+                              shard=(d_idx, n_data))
     assert len(ld_tr) > 0, "empty train loader (batch larger than dataset?)"
+    # every rank evaluates the whole split (the module docstring)
     ld_va = loader_lib.Loader(ds_val, batch, shuffle=False, drop_last=False,
-                              num_workers=2)
+                              num_workers=2, shard=(0, 1))
     ld_te = loader_lib.Loader(ds_test, batch, shuffle=False, drop_last=False,
-                              num_workers=2)
+                              num_workers=2, shard=(0, 1))
+    main_rank = multihost.world()[0] == 0
     # variable_joint: the dataset yields (low_res, high_res) pairs; training
     # alternates the two streams through the joint model's resolution
     # dispatch, so both patch embeds train; evaluation takes the high-res
@@ -188,7 +202,9 @@ def run_fold(cfg, make_model, datasets, log, device, fold_tag=""):
         log.info(f"loaded {cfg.finetune_ckpt}; new params: "
                  f"{report['missing']}")
 
-    lr = schedules.scale_base_lr(cfg.blr, batch)
+    # the reference's eff_batch_size = batch * world_size; batch is PER
+    # RANK, as the JAX CLI's is per host
+    lr = schedules.scale_base_lr(cfg.blr, batch * multihost.world()[1])
     steps = max(1, len(ld_tr))
     sched = schedules.warmup_half_cosine(lr, cfg.min_lr, cfg.warmup_epochs,
                                          cfg.epochs, steps)
@@ -197,11 +213,12 @@ def run_fold(cfg, make_model, datasets, log, device, fold_tag=""):
                            num_blocks=getattr(model, "depth", 24),
                            clip_grad=cfg.clip_grad,
                            name_prefix="params.")
-    state = TrainState.create(model, tx, cfg.seed + 1)
+    state = replicate_state(TrainState.create(model, tx, cfg.seed + 1),
+                            mesh)
 
     crit = losses.make_criterion(cfg.task_mode, smoothing=cfg.smoothing,
                                  use_focal=cfg.use_focal)
-    step_fn = make_finetune_train_step(model, tx, crit)
+    step_fn = make_finetune_train_step(model, tx, crit, mesh=mesh)
     predict = make_predict_step(model)
     tracker = BestTracker(patience=cfg.early_stop_patience)
     jsonl = JsonlLogger(cfg.output_dir, f"log{fold_tag}.txt")
@@ -232,8 +249,10 @@ def run_fold(cfg, make_model, datasets, log, device, fold_tag=""):
                 ld_tr, 10, f"Epoch [{epoch}]{fold_tag}", logger=log)):
             if variable_joint:
                 x = x[(epoch + it) % 2]  # alternate low / high-res streams
-            state, m = step_fn(state, to_device(x, device),
-                               to_device(np.asarray(y), device))
+            state, m = step_fn(state,
+                               shard_batch(to_device(x, device), mesh),
+                               shard_batch(to_device(np.asarray(y), device),
+                                           mesh))
             if pending is not None:
                 consume(pending)
             pending = m
@@ -253,10 +272,13 @@ def run_fold(cfg, make_model, datasets, log, device, fold_tag=""):
                                             cfg.task_mode)
             tracker.best_test_metrics = test_metrics
             best_test = test_metrics
-            write_metric_csvs(val_metrics, cfg.output_dir, f"val{fold_tag}")
-            write_metric_csvs(test_metrics, cfg.output_dir, f"test{fold_tag}")
-            write_confusion_matrices(yt, yp, cfg.task_mode, cfg.output_dir,
-                                     f"test{fold_tag}")
+            if main_rank:
+                write_metric_csvs(val_metrics, cfg.output_dir,
+                                  f"val{fold_tag}")
+                write_metric_csvs(test_metrics, cfg.output_dir,
+                                  f"test{fold_tag}")
+                write_confusion_matrices(yt, yp, cfg.task_mode,
+                                         cfg.output_dir, f"test{fold_tag}")
             record["test_auc"] = test_metrics.get("roc", {}).get("macro")
         jsonl.write(record)
         tb.scalar("train_loss", record["train_loss"], epoch + 1)
@@ -309,10 +331,7 @@ def main(argv=None):
     from ..data import patients, transforms
     from ..utils.logging import get_logger
 
-    info = multihost.announce(device)
-    if info["process_count"] > 1:
-        raise NotImplementedError(f"a world size of {info['process_count']} "
-                                  + _A14)
+    multihost.announce(device)
     if args.slivit_dataset and args.preset == "octcube_multitask":
         args.preset = f"slivit_{args.slivit_dataset}"  # canonical preset
     overrides = {k: v for k, v in (
@@ -323,9 +342,9 @@ def main(argv=None):
         ("slivit_dataset", args.slivit_dataset))
         if v is not None}
     cfg = load_config(FinetuneConfig, args.preset, **overrides)
-    for name in ("n_data", "n_fsdp"):
-        if (getattr(cfg, name) or 1) > 1:
-            raise NotImplementedError(f"{name}={getattr(cfg, name)} " + _A14)
+    from ..core.mesh import cli_mesh
+
+    mesh = cli_mesh(cfg.n_data, cfg.n_fsdp, device)
     if args.tiny:
         cfg = dataclasses.replace(
             cfg, num_frames=6, input_size=32, num_classes=6,
@@ -342,8 +361,9 @@ def main(argv=None):
                 else "regression")
     os.makedirs(cfg.output_dir, exist_ok=True)
     log = get_logger("finetune", os.path.join(cfg.output_dir, "out.log"))
-    with open(os.path.join(cfg.output_dir, "args.json"), "w") as f:
-        f.write(to_json(cfg))
+    if multihost.world()[0] == 0:
+        with open(os.path.join(cfg.output_dir, "args.json"), "w") as f:
+            f.write(to_json(cfg))
 
     dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
     if args.tiny:
@@ -414,7 +434,8 @@ def main(argv=None):
     results = []
     for fold, datasets in enumerate(folds):
         tag = f"_fold{fold}" if len(folds) > 1 else ""
-        tracker, _ = run_fold(cfg, make_model, datasets, log, device, tag)
+        tracker, _ = run_fold(cfg, make_model, datasets, log, device, tag,
+                              mesh)
         results.append((tracker.best_auc, tracker.best_epoch))
         log.info(f"fold {fold}: best val AUC {tracker.best_auc:.4f} "
                  f"@ epoch {tracker.best_epoch}")

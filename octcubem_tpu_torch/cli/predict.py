@@ -15,9 +15,16 @@ CLI, with its meaning.  ``--quant int8`` builds the float model, imports
 the checkpoint and quantizes the block projections (ops/quant.py);
 ``--export_aot`` freezes the (logits, embedding) forward into an
 artifact (compat/aot.py) and exits, ``--aot`` serves one (shapes from its
-header).  Runs on the card unless ``--device cpu``; the port serves on
-one device, so ``--n_data`` above 1 raises NotImplementedError (ROADMAP
-A14).
+header).  Runs on the card unless ``--device cpu``.
+
+Data-parallel serving (``--n_data N``, 0 = every rank): one process per
+card (``torchrun --nproc_per_node N -m octcubem_tpu_torch.cli.predict
+... --n_data N``).  As in the JAX CLI ``--batch_size`` is the global batch
+and must divide over the N ranks; global batch k is volumes [k * B,
+(k + 1) * B) and rank r predicts its rows [k * B + r * B / N, ...), its
+tail padded.  Each batch's logits, embeddings and ids are gathered in
+rank order, which is the global order, and rank 0 writes the CSV and the
+embeddings; every rank returns the rows.
 
 As in the JAX CLI the tail batch is padded to the batch size and the
 host reads batch t-1's results only after batch t is issued; each batch
@@ -47,6 +54,19 @@ class WithEmbeddings(torch.nn.Module):
         return self.model(x, return_embeddings=True)
 
 
+class _Rows:
+    """The items of ``dataset`` at ``index``, in that order."""
+
+    def __init__(self, dataset, index):
+        self.dataset, self.index = dataset, index
+
+    def __len__(self):
+        return len(self.index)
+
+    def __getitem__(self, i):
+        return self.dataset[self.index[i]]
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("OCTCube batch inference (PyTorch)")
     parser.add_argument("data_dir")
@@ -73,8 +93,8 @@ def _parser() -> argparse.ArgumentParser:
                         help="serve from an exported artifact instead of "
                              "building the model (shapes from its header)")
     parser.add_argument("--n_data", type=int, default=1,
-                        help="data-parallel serving over N devices (0 = "
-                             "all); above 1 is ROADMAP A14")
+                        help="data-parallel serving over N ranks, one "
+                             "card each (0 = every rank)")
     parser.add_argument("--embed_dim", type=int, default=None)
     parser.add_argument("--depth", type=int, default=None)
     parser.add_argument("--num_heads", type=int, default=None)
@@ -129,12 +149,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     setup_compilation_cache(device=device)
     log = get_logger("predict")
-    n_dev = args.n_data if args.n_data > 0 else (
-        torch.cuda.device_count() if device.type == "cuda" else 1)
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"--n_data {n_dev}: data-parallel serving is ROADMAP A14; the "
-            f"port serves on one device")
+    from ..core import multihost
+
+    multihost.maybe_initialize(device)
+    n_dev = args.n_data if args.n_data > 0 else multihost.world()[1]
     aot_fn = None
     if args.aot:
         from ..compat.aot import load_serving_artifact
@@ -143,10 +161,27 @@ def main(argv=None):
         b, t, s = meta["in_shapes"][0][:3]
         args.batch_size, args.num_frames, args.input_size = b, t, s
         args.nb_classes = meta.get("nb_classes", args.nb_classes)
+        if args.n_data not in (0, 1):
+            raise SystemExit("--aot serves single-device; drop --n_data")
+        n_dev = 1
         log.info(f"serving from AOT artifact {args.aot} "
                  f"(batch {b}, {t}x{s}x{s}, {meta.get('quant')})")
 
+    mesh, rank = None, 0
+    if n_dev > 1 and not args.export_aot:
+        from ..core.mesh import cli_mesh
+
+        if args.batch_size % n_dev:
+            raise SystemExit(
+                f"--batch_size {args.batch_size} must be divisible by "
+                f"the {n_dev}-rank data axis")
+        mesh = cli_mesh(n_data=n_dev, device=device)
+        rank = multihost.world()[0]
+        log.info(f"serving data-parallel over {n_dev} ranks")
+    local_b = args.batch_size // n_dev if mesh is not None else \
+        args.batch_size
     ld = None
+    n_batches = 0
     if not args.export_aot:
         visits = patients.scan_directory(args.data_dir, "*.png")
         if not visits:
@@ -162,13 +197,16 @@ def main(argv=None):
                 else "volume" if first.endswith(".npy") else "frame"),
             max_frames=args.num_frames, transform=val_t,
             return_patient_id=True)
-        ld = loader_lib.Loader(ds, args.batch_size, shuffle=False,
-                               drop_last=False, num_workers=4)
+        n_batches = -(-len(ds) // args.batch_size)
+        if mesh is not None:  # this rank's rows of every global batch
+            ds = _Rows(ds, [i for i in range(len(ds))
+                            if (i % args.batch_size) // local_b == rank])
+        ld = loader_lib.Loader(ds, local_b, shuffle=False, drop_last=False,
+                               num_workers=4, shard=(0, 1))
 
     if args.precision == "fp32":
         torch.backends.cuda.matmul.allow_tf32 = False
-    shape = (args.batch_size, args.num_frames, args.input_size,
-             args.input_size, 1)
+    shape = (local_b, args.num_frames, args.input_size, args.input_size, 1)
     if aot_fn is not None:
         predict = aot_fn
     else:
@@ -204,20 +242,40 @@ def main(argv=None):
         tput.update(len(pids))
         return probs
 
+    def gathered(logits, emb, pids):
+        """The global batch's results in rank order (ids as lists)."""
+        import torch.distributed as dist
+
+        ids = [None] * n_dev
+        dist.all_gather_object(ids, list(pids))
+        keep = torch.cat([torch.arange(len(p)) + r * local_b
+                          for r, p in enumerate(ids)])
+        return (multihost.gather_rows(logits)[keep.to(logits.device)],
+                multihost.gather_rows(emb)[keep.to(emb.device)],
+                [p for part in ids for p in part])
+
     # one batch deep: batch t-1's results are read after batch t is issued
     probs = None
     pending = None
-    for vols, pids, _ in ld:
-        if vols.shape[0] < args.batch_size:  # pad the tail batch
-            pad = np.zeros((args.batch_size - vols.shape[0],) + vols.shape[1:],
+    batches = iter(ld)
+    for _ in range(n_batches):
+        vols, pids, _ = next(batches, (None, [], None))
+        if vols is None:  # a rank with no rows in the tail batch
+            vols = np.zeros(shape, np.float32)
+        if vols.shape[0] < local_b:  # pad the tail batch
+            pad = np.zeros((local_b - vols.shape[0],) + vols.shape[1:],
                            vols.dtype)
             vols = np.concatenate([vols, pad], 0)
         logits, emb = predict(to_device(vols.astype(np.float32), device))
+        if mesh is not None:
+            logits, emb, pids = gathered(logits, emb, pids)
         if pending is not None:
             probs = consume(*pending)
         pending = (logits, emb, pids)
     if pending is not None:
         probs = consume(*pending)
+    if rank != 0:
+        return rows
     with open(args.out_csv, "w", newline="") as f:
         w = csv.writer(f)
         names = (DISEASES if probs.shape[1] == len(DISEASES)

@@ -20,10 +20,26 @@ Data: a directory of patient PNG stacks (data/patients.py convention) or
 runs ``--synthetic`` only).  Runs on the card (``--device``, default
 cuda) and refuses to start without one unless given ``--device cpu``;
 on the card every attention call runs the hand-written kernels (B1
-forward, B2 backward).  The port runs on one rank: there is no mesh,
-so the data-parallel size is 1 and the JAX CLI's batch placement is the
-identity; ``n_sp``, ``n_data`` or ``n_fsdp`` above 1, or a multi-process
-launch, raise NotImplementedError naming ROADMAP A14.
+forward, B2 backward).
+
+Several cards: one process per card, e.g.
+
+    torchrun --standalone --nproc_per_node 4 \
+        -m octcubem_tpu_torch.cli.pretrain --preset vitl_joint_pretrain_sp4
+
+A rank is the JAX CLI's host with one device: ``--batch_size`` is per
+rank, the loaders stride over the mesh's data axis, and the LR scales
+with ``eff_batch = batch * accum_iter * world`` (the JAX multi-host
+formula, which counts the world even where ``n_fsdp`` or ``n_sp`` ranks
+share rows).  The mesh is ``core/mesh.cli_mesh(n_data, n_fsdp, n_sp)``
+over the group (``core/multihost.announce`` joins the launcher's); the
+steps reduce their gradients over it (train/mae_engine.py).  ``n_sp`` > 1
+forces ``attn_impl="flash_sp"`` under ``use_sequence_parallel(mesh, "sp",
+batch_axis="data", shard_stacks=True)``: each stack shards its tokens
+over the sp ranks (B5 / B7 on the card), as the JAX CLI's.  Rank 0 writes
+the files and checkpoints; every rank restores.  The SPL update reads
+this rank's rows (``local_rows``), as the JAX CLI's does, so the ranks'
+hardness states and 2D batches diverge after the first epoch.
 
 Each batch is loaded as numpy by the loader's worker threads and copied
 to the card once, on the main thread, from pinned memory without a
@@ -50,10 +66,6 @@ from ..core.device import resolve_device, to_device
 _GEOMETRY_FIELDS = ("model", "num_heads", "decoder_num_heads",
                     "input_size", "high_res_input_size", "num_frames",
                     "t_patch_size", "pred_t_dim")
-
-_A14 = ("is ROADMAP A14 (DDP / FSDP and sequence parallelism over "
-        "torch.distributed); the port's pretraining runs on one rank")
-
 
 def _check_resume_geometry(cfg, prev_args_json: str) -> None:
     """Validate geometry-critical config fields against a prior run's
@@ -108,18 +120,30 @@ def profile_window(n_steps: int, profile_steps: int) -> int:
     return min(2, max(0, n_steps - profile_steps))
 
 
-def make_2d_step(model, tx):
+def make_2d_step(model, tx, mesh=None):
     """-> step(state, batch) -> (state, loss, per_image): the plain 2D MAE
     update of ``_main_2d`` (mask 0.75, noise from ``state.generator``,
-    the gradient of the mean loss, one AdamW update)."""
+    the gradient of the mean loss, one AdamW update).  ``mesh``: the
+    data-parallel reduction and noise rows of train/mae_engine.py."""
+    from ..core import multihost
+    from ..core.mesh import DATA_AXIS, axis_coord, check_mesh
+
     params = list(model.parameters())
+    d_idx, n_d = axis_coord(mesh, DATA_AXIS)
+    reduce = check_mesh(mesh)
 
     def step(state, batch):
-        noise = torch.rand((batch.shape[0], model.grid ** 2),
+        batch = multihost.local(batch)
+        rows = batch.shape[0]
+        noise = torch.rand((rows * n_d, model.grid ** 2),
                            generator=state.generator, device=batch.device)
+        noise = noise[d_idx * rows:(d_idx + 1) * rows]
         model.train()
         loss, per_image, _, _ = model(batch, 0.75, noise)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        if reduce:
+            grads = multihost.all_reduce_mean(grads)
+            loss = multihost.all_reduce_mean([loss.detach()])[0]
         for p, g in zip(params, grads):
             p.grad = g
         tx.step()
@@ -194,13 +218,11 @@ def main(argv=None):
     from ..core import multihost
 
     info = multihost.announce(device)
-    if info["process_count"] > 1:
-        raise NotImplementedError(f"a world size of {info['process_count']} "
-                                  + _A14)
     if args.mode == "2d":
         return _main_2d(args, device)
 
     from ..core import checkpoint as ckpt_lib
+    from ..core import mesh as meshlib
     from ..core.config import MAEPretrainConfig, load_config, to_json
     from ..data import loader as loader_lib, patients, spl as spl_lib
     from ..data import transforms
@@ -223,9 +245,7 @@ def main(argv=None):
         ("num_heads", args.num_heads),
         ("opt_chain", args.opt_chain)) if v is not None}
     cfg = load_config(MAEPretrainConfig, args.preset, **overrides)
-    for name in ("n_sp", "n_data", "n_fsdp"):
-        if (getattr(cfg, name) or 1) > 1:
-            raise NotImplementedError(f"{name}={getattr(cfg, name)} " + _A14)
+    mesh = meshlib.cli_mesh(cfg.n_data, cfg.n_fsdp, device, cfg.n_sp)
     os.makedirs(cfg.output_dir, exist_ok=True)
     log = get_logger("pretrain", os.path.join(cfg.output_dir, "out.log"))
     # geometry guard BEFORE args.json is overwritten: the param tree is
@@ -238,8 +258,9 @@ def main(argv=None):
         if os.path.basename(os.path.normpath(prev_dir)) == "ckpt":
             prev_dir = os.path.dirname(os.path.normpath(prev_dir))
         _check_resume_geometry(cfg, os.path.join(prev_dir, "args.json"))
-    with open(os.path.join(cfg.output_dir, "args.json"), "w") as f:
-        f.write(to_json(cfg))
+    if multihost.world()[0] == 0:
+        with open(os.path.join(cfg.output_dir, "args.json"), "w") as f:
+            f.write(to_json(cfg))
 
     if args.tiny:
         model_kw = dict(input_size=32, high_res_input_size=64, embed_dim=64,
@@ -256,6 +277,9 @@ def main(argv=None):
                         num_heads=cfg.num_heads,
                         decoder_num_heads=cfg.decoder_num_heads,
                         remat=cfg.remat)
+    attn_impl = cfg.attn_impl
+    if cfg.n_sp > 1 and attn_impl != "flash_sp":
+        attn_impl = "flash_sp"  # n_sp opts the attention into sp
     dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
     # dispatch on cfg.model (base/large/huge constructors, mae3d registry;
     # mirrors the reference's models_mae.__dict__[args.model] dispatch,
@@ -269,7 +293,7 @@ def main(argv=None):
         ctor = mae3d.MaskedAutoencoderViT3D
     t_build = time.time()
     model = mae3d.create_model(ctor, device=device, seed=cfg.seed,
-                               dtype=dtype, attn_impl=cfg.attn_impl,
+                               dtype=dtype, attn_impl=attn_impl,
                                **model_kw)
     log.info(f"model {ctor.__name__} built on {device} in "
              f"{time.time() - t_build:.2f} s")
@@ -312,7 +336,20 @@ def main(argv=None):
             visits=visits, kermany_root=args.kermany_dir, size=hi_size,
             t_patch=model.t_patch_size)
     spl_state = spl_lib.SPLState(getattr(ds2d, "names", []))
-    n_data = 1  # one rank, no mesh
+    d_idx, n_data = meshlib.axis_coord(mesh, meshlib.DATA_AXIS)
+
+    def sp_ctx():
+        # composed dp x sp: the stacks shard their tokens over the mesh's
+        # sp axis with the batch split over 'data' (parallel/sequence.py)
+        import contextlib
+
+        if cfg.n_sp <= 1:
+            return contextlib.nullcontext()
+        from ..parallel.sequence import use_sequence_parallel
+
+        return use_sequence_parallel(mesh, meshlib.SP_AXIS,
+                                     batch_axis=meshlib.DATA_AXIS,
+                                     shard_stacks=True)
 
     def _round_to_mesh(b: int, n_items: int) -> int:
         b = min(b, n_items)  # never a batch larger than the dataset
@@ -336,9 +373,13 @@ def main(argv=None):
         batch2d = batch2d // (accum_2d * n_data) * (accum_2d * n_data)
     ds2d_active = spl_state.subset(ds2d)
     # accum_iter > 1: the loaders serve accum microbatches per step
-    # (the engine averages their gradients into one update)
-    ld3 = loader_lib.Loader(ds3d, batch3d * accum, num_workers=4)
-    ld2 = loader_lib.Loader(ds2d_active, batch2d * accum, num_workers=2)
+    # (the engine averages their gradients into one update); each rank
+    # loads its stride of the data axis (batch sizes are PER RANK)
+    shard = (d_idx, n_data)
+    ld3 = loader_lib.Loader(ds3d, batch3d * accum, num_workers=4,
+                            shard=shard)
+    ld2 = loader_lib.Loader(ds2d_active, batch2d * accum, num_workers=2,
+                            shard=shard)
     loader2_iter = loader_lib.cycle(ld2)
     assert len(ld3) > 0, "empty train loader (batch larger than dataset?)"
     # effective batch spans all ranks: loader batch_size is PER RANK
@@ -353,6 +394,8 @@ def main(argv=None):
     tx = optim.build_adamw(model, sched, cfg.weight_decay,
                            clip_grad=cfg.clip_grad)
     state = TrainState.create(model, tx, seed=cfg.seed + 1)
+    shard_batch, shard_microbatch = (mae_engine.shard_batch,
+                                     mae_engine.shard_microbatch)
 
     # resume-type dispatch (reference main_pretrain…py:457-571, 7 types):
     #   training_new          fresh params (optionally init_ckpt as-is)
@@ -452,10 +495,13 @@ def main(argv=None):
                                     f"all_image_dict-{start_epoch - 1}.pkl")
             if os.path.exists(spl_path):
                 _reload_spl(spl_path, start_epoch)
+    # every rank built and restored the same state; rank 0's is the one
+    # (as the JAX CLI re-places its restored state on the mesh)
+    state = mae_engine.replicate_state(state, mesh)
 
     step_fn = mae_engine.make_mae_train_step(
         model, tx, joint=True, use_premask=cfg.use_premask,
-        accum_iter=accum, model2d=model2d, accum_2d=accum_2d)
+        accum_iter=accum, model2d=model2d, accum_2d=accum_2d, mesh=mesh)
     jsonl = JsonlLogger(cfg.output_dir)
     tb = TBWriter(os.path.join(cfg.output_dir, 'tb'))
 
@@ -468,9 +514,10 @@ def main(argv=None):
         for it, (vols, _, _) in enumerate(ld3):
             b3 = to_device(vols, device)
             gen = torch.Generator(device=device).manual_seed(it)
-            out = eval_fn(b3, generator=gen)
+            with sp_ctx():
+                out = eval_fn(b3, generator=gen)
             losses.append(float(out["loss"]))
-            if it == 0:
+            if it == 0 and multihost.world()[0] == 0:
                 mask_np = multihost.local_rows(out["mask"].float())
                 panels = reconstruction_panels(
                     multihost.local_rows(b3),
@@ -547,18 +594,27 @@ def main(argv=None):
             imgs2d, _ = next(loader2_iter)
             b3 = to_device(vols, device)
             b2 = to_device(imgs2d, device)
+            # this rank's rows placed as the JAX CLI places the global
+            # batch: [accum, micro] with the micro axis sharded
             if accum > 1:
-                b3 = b3.reshape((accum, batch3d) + b3.shape[1:])
-                b2 = b2.reshape((accum, batch2d) + b2.shape[1:])
+                b3 = shard_microbatch(
+                    b3.reshape((accum, batch3d) + b3.shape[1:]), mesh)
+                b2 = shard_microbatch(
+                    b2.reshape((accum, batch2d) + b2.shape[1:]), mesh)
             elif accum_2d > 1:
                 # 2D-branch-only microbatching (remat-free joint fit)
-                b2 = b2.reshape((accum_2d, batch2d // accum_2d)
-                                + b2.shape[1:])
+                b3 = shard_batch(b3, mesh)
+                b2 = shard_microbatch(
+                    b2.reshape((accum_2d, batch2d // accum_2d)
+                               + b2.shape[1:]), mesh)
+            else:
+                b3, b2 = shard_batch(b3, mesh), shard_batch(b2, mesh)
             # the blank-region pre-mask is computed inside the step
             # (use_premask), from the patch embeddings it computes once
-            state, metrics = step_fn(
-                state, b3, mask_ratio=cfg.mask_ratio, batch2d=b2,
-                mask_ratio_2d=round(mask2d, 4))
+            with sp_ctx():
+                state, metrics = step_fn(
+                    state, b3, mask_ratio=cfg.mask_ratio, batch2d=b2,
+                    mask_ratio_2d=round(mask2d, 4))
             if pending is not None:
                 consume(*pending)
             pending = (metrics, fpaths, it)
@@ -570,7 +626,8 @@ def main(argv=None):
         k = schedules.spl_k_schedule(epoch, cfg.spl_k_max, cfg.spl_k_min,
                                      cfg.epochs, cfg.warmup_epochs)
         spl_state.update_spl(k)
-        spl_state.save(cfg.output_dir, epoch)
+        if multihost.world()[0] == 0:
+            spl_state.save(cfg.output_dir, epoch)
         # async: the multi-GB state write overlaps the next epoch (the
         # host copies are staged before it returns)
         t_save = time.time()
@@ -594,7 +651,7 @@ def main(argv=None):
 def _main_2d(args, device):
     """Plain 2D MAE pretraining with per-image SPL hardness tracking
     (OCTCube/main_pretrain_oph_new.py + engine_pretrain.py:96-168)."""
-    from ..core import checkpoint as ckpt_lib, multihost
+    from ..core import checkpoint as ckpt_lib, mesh as meshlib, multihost
     from ..data import loader as loader_lib, spl as spl_lib
     from ..models import mae2d
     from ..train import optim, schedules
@@ -641,14 +698,20 @@ def _main_2d(args, device):
     else:
         ds = Synth2D()
     spl_state = spl_lib.SPLState(ds.names)
-    n_data = 1  # one rank, no mesh
-    batch = max(n_data, ((args.batch_size or 16) // n_data) * n_data)
-    ld = loader_lib.Loader(ds, batch, num_workers=2)
+    mesh = meshlib.cli_mesh(device=device)
+    # the JAX CLI's batch here is per host and rounds to its local data
+    # axis, which is one card a rank
+    batch = args.batch_size or 16
+    ld = loader_lib.Loader(ds, batch, num_workers=2,
+                           shard=meshlib.axis_coord(mesh, meshlib.DATA_AXIS))
     sched = schedules.warmup_half_cosine(1.5e-4 * batch / 256, 0.0, 2,
                                          args.epochs or 10, max(1, len(ld)))
     tx = optim.build_adamw(model, sched, 0.05)
     state = TrainState.create(model, tx, seed=1)
-    step = make_2d_step(model, tx)
+    from ..train.mae_engine import replicate_state
+
+    state = replicate_state(state, mesh)
+    step = make_2d_step(model, tx, mesh)
 
     jsonl = JsonlLogger(out_dir)
     ckpt_dir = os.path.join(out_dir, "ckpt")
@@ -665,7 +728,8 @@ def _main_2d(args, device):
         k = schedules.spl_k_schedule(epoch, total_epochs=args.epochs or 2,
                                      warmup_epochs=1)
         spl_state.update_spl(k)
-        spl_state.save(out_dir, epoch)
+        if multihost.world()[0] == 0:
+            spl_state.save(out_dir, epoch)
         ckpt_lib.save_checkpoint(ckpt_dir, epoch, state, {"epoch": epoch},
                                  keep_last=2, async_save=True)
         jsonl.write({"epoch": epoch,

@@ -22,9 +22,18 @@ int8 towers and ``--aot`` with a frozen artifact (evaluation only);
 
 Runs on the card (``--device``, default cuda: every attention call runs
 B1 forward and B2 backward) and refuses to start without one unless
-given ``--device cpu``.  One rank: ``n_data`` / ``n_fsdp`` above 1 or a
-multi-process launch raise NotImplementedError naming ROADMAP A14.  As in
-the JAX CLI, the host reads step t-1's loss after it has issued step t.
+given ``--device cpu``.  As in the JAX CLI, the host reads step t-1's
+loss after it has issued step t.
+
+Several cards: one process per card (``torchrun --nproc_per_node N -m
+octcubem_tpu_torch.cli.retclip ...``).  A rank is the JAX CLI's host
+with one device: ``--batch_size`` is per rank (rounded to the data axis
+as JAX rounds it), the train loader strides over the mesh's data axis
+(``core/mesh.cli_mesh(n_data, n_fsdp)``), and the CLIP loss spans the
+global batch, its features gathered across ranks with their gradient
+(train/clip_engine.py).  Every rank evaluates the whole held-out split,
+so the retrieval metrics are the split's on every rank; rank 0 writes
+the files and checkpoints.
 """
 
 from __future__ import annotations
@@ -36,10 +45,6 @@ import pickle
 
 import numpy as np
 import torch
-
-_A14 = ("is ROADMAP A14 (DDP / FSDP over torch.distributed); the port's "
-        "contrastive training runs on one rank")
-
 
 class SyntheticPairs:
     """OCT volume + en face image pairs (+ FAF with presence weights),
@@ -186,7 +191,7 @@ def main(argv=None):
     from ..compat.torch_import import (check_geometry_stamp,
                                        load_reference_weights,
                                        load_torch_checkpoint)
-    from ..core import checkpoint as ckpt_lib, multihost
+    from ..core import checkpoint as ckpt_lib, mesh as meshlib, multihost
     from ..core.config import RetClipConfig, load_config, to_json
     from ..core.device import resolve_device, to_device
     from ..data import loader as loader_lib
@@ -197,10 +202,8 @@ def main(argv=None):
                                  Throughput, WandbWriter, get_logger)
 
     device = resolve_device(args.device)
-    info = multihost.announce(device)
-    if info["process_count"] > 1:
-        raise NotImplementedError(f"a world size of {info['process_count']} "
-                                  + _A14)
+    multihost.announce(device)
+    main_rank = multihost.world()[0] == 0
     overrides = {k: v for k, v in (
         ("epochs", args.epochs), ("batch_size", args.batch_size),
         ("output_dir", args.output_dir), ("resume", args.resume))
@@ -212,9 +215,7 @@ def main(argv=None):
     if args.resume_params_only:
         overrides["resume_params_only"] = True
     cfg = load_config(RetClipConfig, args.preset, **overrides)
-    for name in ("n_data", "n_fsdp"):
-        if (getattr(cfg, name) or 1) > 1:
-            raise NotImplementedError(f"{name}={getattr(cfg, name)} " + _A14)
+    mesh = meshlib.cli_mesh(cfg.n_data, cfg.n_fsdp, device)
     os.makedirs(cfg.output_dir, exist_ok=True)
     log = get_logger("retclip", os.path.join(cfg.output_dir, "out.log"))
     dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
@@ -238,8 +239,9 @@ def main(argv=None):
         check_resume_geometry(
             cfg, os.path.join(cfg.output_dir, "params.txt"),
             ("model", "embed_dim", "three_mod", "vision_cfg", "enface_cfg"))
-    with open(os.path.join(cfg.output_dir, "params.txt"), "w") as f:
-        f.write(to_json(cfg))
+    if main_rank:
+        with open(os.path.join(cfg.output_dir, "params.txt"), "w") as f:
+            f.write(to_json(cfg))
 
     frames = vcfg.get("num_frames", 60)
     osize = vcfg.get("img_size", 256)
@@ -276,14 +278,16 @@ def main(argv=None):
         ds_train, ds_val = _split_train_val(ds, val_frac=0.2, seed=cfg.seed)
     log.info(f"train/val pairs: {len(ds_train)}/{len(ds_val)}")
 
-    batch = max(1, cfg.batch_size)  # one rank: data size 1
+    d_idx, n_data = meshlib.axis_coord(mesh, meshlib.DATA_AXIS)
+    batch = max(n_data, (cfg.batch_size // n_data) * n_data)
     # feature-cached accumulation: the loader serves accum_freq chunks a
-    # step, an effective batch of batch * accum_freq
+    # step, an effective batch of batch * accum_freq (per rank)
     accum = max(1, cfg.accum_freq)
     ld = loader_lib.Loader(ds_train, batch * accum, num_workers=4,
-                           seed=cfg.seed)
+                           seed=cfg.seed, shard=(d_idx, n_data))
+    # every rank evaluates the whole held-out split
     ld_eval = loader_lib.Loader(ds_val, batch, shuffle=False,
-                                drop_last=False, num_workers=2)
+                                drop_last=False, num_workers=2, shard=(0, 1))
 
     def dev(a):
         return to_device(np.asarray(a, np.float32), device)
@@ -350,6 +354,8 @@ def main(argv=None):
     state = TrainState.create(model, tx, cfg.seed + 1)
     start_epoch = 0
     ckpt_dir = os.path.join(cfg.output_dir, "ckpt")
+    from ..train.mae_engine import replicate_state, shard_batch, \
+        shard_microbatch
     if cfg.resume == "latest" and ckpt_lib.latest_step(ckpt_dir) is not None:
         if cfg.resume_params_only:
             # params only, a fresh optimizer and epoch: works across
@@ -370,6 +376,8 @@ def main(argv=None):
                     f"with a fresh optimizer.") from e
             start_epoch = (extra or {}).get("epoch", 0) + 1
             log.info(f"resumed from epoch {start_epoch - 1}")
+
+    state = replicate_state(state, mesh)
 
     # ---- the retrieval serving path: int8 encoders / AOT artifacts
     n_feat = 3 if three_mod else 2
@@ -440,12 +448,13 @@ def main(argv=None):
 
     if accum > 1:
         step_fn = (clip_engine.make_clip_accum_train_step_3mod(
-                       model, tx, accum) if three_mod
+                       model, tx, accum, mesh=mesh) if three_mod
                    else clip_engine.make_clip_accum_train_step(
-                       model, tx, accum))
+                       model, tx, accum, mesh=mesh))
     else:
         step_fn = clip_engine.make_clip_train_step(model, tx,
-                                                   three_mod=three_mod)
+                                                   three_mod=three_mod,
+                                                   mesh=mesh)
     jsonl = JsonlLogger(cfg.output_dir, "results.jsonl")
     tb = TBWriter(os.path.join(cfg.output_dir, "tb"))
     wandb_w = WandbWriter(args.wandb, cfg.output_dir,
@@ -467,7 +476,7 @@ def main(argv=None):
             encode_fn=encode_fn)
         metrics, features = result if save else (result, None)
         jsonl.write({"epoch": epoch, **metrics})
-        if save:
+        if save and main_rank:
             # the feature bank for the offline evaluator
             # (cli/retrieval_eval.py), with row-aligned keys and source
             # paths for its panels
@@ -503,8 +512,11 @@ def main(argv=None):
         for items in meter.log_every(ld, 10, f"Epoch [{epoch}]", logger=log):
             b = to_batch(items)
             if accum > 1:
-                b = {k: v.reshape((accum, batch) + v.shape[1:])
-                     for k, v in b.items()}
+                b = shard_microbatch({k: v.reshape((accum, batch)
+                                                   + v.shape[1:])
+                                      for k, v in b.items()}, mesh)
+            else:
+                b = shard_batch(b, mesh)
             state, m = step_fn(state, b)
             if pending is not None:
                 meter.update(loss=float(pending["loss"]))

@@ -27,8 +27,17 @@ Without a manifest the synthetic flow drives the same steps (as in the
 JAX CLI, it takes no ``--init_ckpt``).
 
 The models run in fp32, as the JAX CLI's.  Runs on the card
-(``--device``, default cuda) unless given ``--device cpu``; one rank.  The
-host reads step t-1's loss after it has issued step t.
+(``--device``, default cuda) unless given ``--device cpu``.  The host
+reads step t-1's loss after it has issued step t.
+
+Several cards: one process per card (``torchrun --nproc_per_node N -m
+octcubem_tpu_torch.cli.retclip_finetune ...``).  As in the JAX CLI, whose
+mesh puts every device on the data axis, ``--batch_size`` is the global
+batch rounded to the data axis; every rank draws the same batches and
+keeps its rows [r * B / N, (r + 1) * B / N), and the step takes the
+criterion over the gathered logits and averages the gradient over the
+ranks (train/clip_engine.py), so N ranks train as one.  Every rank
+evaluates the whole split; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -166,11 +175,26 @@ def _optimizer(args, model, vcfg, log):
     return optim.build_adamw(params, args.lr, weight_decay=args.weight_decay)
 
 
-def _train_epoch(step, state, batches):
-    """One epoch of steps -> (state, the mean loss); step t-1's loss is
-    read after step t is issued."""
+def _mesh(device):
+    """-> (mesh or None, this rank's data index, the data size, the main
+    rank's flag): every rank on the data axis, as the JAX CLI's
+    ``make_mesh()``."""
+    from ..core import multihost
+    from ..core.mesh import DATA_AXIS, axis_coord, cli_mesh
+
+    mesh = cli_mesh(device=device)
+    return (mesh, *axis_coord(mesh, DATA_AXIS),
+            multihost.world()[0] == 0)
+
+
+def _train_epoch(step, state, batches, d_idx: int = 0, n_data: int = 1):
+    """One epoch of steps on this rank's rows of each global batch ->
+    (state, the mean loss); step t-1's loss is read after step t is
+    issued."""
     losses, pending = [], None
     for b in batches:
+        rows = next(iter(b.values())).shape[0] // n_data
+        b = {k: v[d_idx * rows:(d_idx + 1) * rows] for k, v in b.items()}
         state, m = step(state, b)
         if pending is not None:
             losses.append(float(pending["loss"]))
@@ -186,11 +210,7 @@ def main(argv=None):
     from ..core.device import resolve_device
 
     device = resolve_device(args.device)
-    info = multihost.announce(device)
-    if info["process_count"] > 1:
-        raise NotImplementedError(
-            f"a world size of {info['process_count']} is ROADMAP A14; the "
-            "port's fine-tuning runs on one rank")
+    multihost.announce(device)
     if args.manifest_csv:
         return _main_manifest(args, device)
     return _main_synthetic(args, device)
@@ -220,7 +240,8 @@ def _main_synthetic(args, device):
         return vol, enf, np.int64(label)
 
     items = [sample(i) for i in range(args.synthetic_n)]
-    batch = max(1, args.batch_size)  # one rank: data size 1
+    mesh, d_idx, n_data, main_rank = _mesh(device)
+    batch = max(n_data, (args.batch_size // n_data) * n_data)
 
     sm = args.single_modality
     if args.three_mod and sm == "enface":
@@ -256,13 +277,14 @@ def _main_synthetic(args, device):
         state = TrainState.create(model, tx, fold + 100)
         step = clip_engine.make_clip_cls_train_step(
             model, tx, losses.softmax_ce, three_mod=args.three_mod,
-            single_modality=sm)
+            single_modality=sm, mesh=mesh)
         predict = clip_engine.make_clip_cls_predict_step(
             model, three_mod=args.three_mod, single_modality=sm)
         best_auc, best_epoch = -1.0, -1
         for epoch in range(args.epochs):
             state, train_loss = _train_epoch(
-                step, state, batches(train_idx, shuffle_seed=(fold, epoch)))
+                step, state, batches(train_idx, shuffle_seed=(fold, epoch)),
+                d_idx, n_data)
             preds, trues = [], []
             for b in batches(val_idx):
                 y = b.pop("label")
@@ -285,8 +307,10 @@ def _main_synthetic(args, device):
         log.info(f"fold {fold}: best AUC {best_auc:.3f} @ {best_epoch}")
         ckpt_lib.wait_for_saves(os.path.join(args.output_dir,
                                              f"ckpt_fold{fold}"))
-    ckpt_registry.save_ckpt_registry(
-        os.path.join(args.output_dir, "cv_registry.json"), registry_entries)
+    if main_rank:
+        ckpt_registry.save_ckpt_registry(
+            os.path.join(args.output_dir, "cv_registry.json"),
+            registry_entries)
     return registry_entries
 
 
@@ -345,7 +369,8 @@ def _main_manifest(args, device):
                  else losses.softmax_ce)
     metric_mode = ("multi_output_regression" if task == "regression"
                    else "multi_cls")
-    batch = max(1, args.batch_size)  # one rank: data size 1
+    mesh, d_idx, n_data, main_rank = _mesh(device)
+    batch = max(n_data, (args.batch_size // n_data) * n_data)
 
     def batches(dataset, rows, mu, sd, shuffle_seed=None, drop_last=True):
         rows = list(rows)
@@ -427,7 +452,8 @@ def _main_manifest(args, device):
         tx = _optimizer(args, model, vcfg, log)
         state = TrainState.create(model, tx, int(fold) + 100)
         step = clip_engine.make_clip_cls_train_step(
-            model, tx, criterion, three_mod=three_mod, single_modality=sm)
+            model, tx, criterion, three_mod=three_mod, single_modality=sm,
+            mesh=mesh)
         predict = clip_engine.make_clip_cls_predict_step(
             model, three_mod=three_mod, single_modality=sm)
 
@@ -436,7 +462,8 @@ def _main_manifest(args, device):
         for epoch in range(args.epochs):
             state, train_loss = _train_epoch(
                 step, state, batches(ds, train_rows, mu, sd,
-                                     shuffle_seed=(fold, epoch)))
+                                     shuffle_seed=(fold, epoch)),
+                d_idx, n_data)
             val_m = eval_rows(predict, ds, val_rows, mu, sd)
             ind_ms = [eval_rows(predict, d, list(range(len(d))), mu, sd)
                       for d in ind_sets]
@@ -469,8 +496,10 @@ def _main_manifest(args, device):
         ckpt_lib.wait_for_saves(os.path.join(args.output_dir,
                                              f"ckpt_fold{fold}"))
 
-    ckpt_registry.save_ckpt_registry(
-        os.path.join(args.output_dir, "cv_registry.json"), registry_entries)
+    if main_rank:
+        ckpt_registry.save_ckpt_registry(
+            os.path.join(args.output_dir, "cv_registry.json"),
+            registry_entries)
     summary = {
         "label_keys": label_keys, "folds": [int(f) for f in folds],
         "best_val": collection["best_val"],
@@ -478,8 +507,10 @@ def _main_manifest(args, device):
         "independent_test_at_best_val":
             collection["independent_test_at_best_val"],
     }
-    with open(os.path.join(args.output_dir, "best_metrics.json"), "w") as f:
-        json.dump(summary, f, indent=2, default=float)
+    if main_rank:
+        with open(os.path.join(args.output_dir, "best_metrics.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=2, default=float)
     log.info("manifest fine-tune complete")
     return summary
 

@@ -16,6 +16,14 @@ when metadata was given.  The JAX package's semantics:
   under a hidden temporary name and moved into place with ``os.replace``.
 
 Files are read with ``weights_only=True``.
+
+In a process group every rank holds the same replicated state: rank 0
+alone writes (and deletes), the others return at once, and every
+reader, ``wait_for_saves`` included, ends at a barrier once rank 0's
+pending write is on disk, so no rank reads a step before it is
+complete.  Every rank restores, and a resume on n ranks is bit-exact as
+on one.  The calls are collective: every rank makes them in the same
+order.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any
 
 import torch
+
+from .multihost import barrier, world
 
 log = logging.getLogger(__name__)
 
@@ -94,6 +104,7 @@ def wait_for_saves(ckpt_dir: str | None = None) -> None:
             futures = [] if fut is None else [fut]
     for fut in futures:
         fut.result()
+    barrier()
 
 
 def _shutdown_writers() -> None:
@@ -120,6 +131,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
         log.warning("checkpoint step %d not saved: %s already holds step %d",
                     step, ckpt_dir, latest)
         return
+    if world()[0] != 0:
+        return
     payload = _host_copy(state)
     if not async_save:
         _write(key, step, payload, extra, keep_last)
@@ -144,10 +157,13 @@ def delete_recent_checkpoints(ckpt_dir: str, n: int) -> list[int]:
     cleanup, so a resume restarts from a state before the divergence)
     -> the deleted steps, newest first."""
     wait_for_saves(ckpt_dir)
-    deleted = []
-    for step in reversed(_steps(ckpt_dir)[-n:] if n > 0 else []):
-        shutil.rmtree(os.path.join(ckpt_dir, str(step)), ignore_errors=True)
-        deleted.append(step)
+    deleted = list(reversed(_steps(ckpt_dir)[-n:] if n > 0 else []))
+    barrier()  # every rank has listed the steps before rank 0 deletes
+    if world()[0] == 0:
+        for step in deleted:
+            shutil.rmtree(os.path.join(ckpt_dir, str(step)),
+                          ignore_errors=True)
+    barrier()
     return deleted
 
 

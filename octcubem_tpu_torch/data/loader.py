@@ -6,7 +6,10 @@ Shuffling is per-epoch deterministic from a seed (the JAX package's
 permutation, so both packages serve the same batches in the same order);
 in a ``torch.distributed`` group each process loads a disjoint stride of
 it, replacing the reference's DistributedSampler
-(main_pretrain…py:364-371).  Workers are threads (ingestion is
+(main_pretrain…py:364-371).  ``shard=(index, count)`` strides over a
+mesh's data axis instead of the world: ranks of one data index (along
+``fsdp`` or ``sp``) load the same rows, as JAX shards the batch over
+``data`` only.  Workers are threads (ingestion is
 numpy/PIL which releases the GIL for the heavy parts).  Batches stay
 numpy; the caller moves them to the device.
 """
@@ -36,7 +39,8 @@ def _collate(samples):
 class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 4, seed: int = 0,
-                 shard_by_process: bool = True):
+                 shard_by_process: bool = True,
+                 shard: tuple[int, int] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -48,7 +52,9 @@ class Loader:
         # seed, hence identical) permutation — the DistributedSampler
         # equivalent (main_pretrain…py:364-371); batch_size is PER RANK.
         self._pidx, self._pcount = 0, 1
-        if shard_by_process:
+        if shard is not None:
+            self._pidx, self._pcount = shard
+        elif shard_by_process:
             from ..core.multihost import world
 
             self._pidx, self._pcount = world()

@@ -33,11 +33,22 @@ records, adds to it a zero tensor that requires grad (the JAX package's
 flax ``perturb``): its gradient is dScore/dActivation even when every
 parameter is frozen, as in serving.  With ``parity="flash"`` the last
 block's point is its MLP branch, the tensor that carries the signal.
+
+The parallel paths.  Under ``attn_impl="flash_tp"`` (parallel/tensor.py)
+``MHA`` and ``Mlp`` hold this rank's shards (``shard_tp_params``):
+``Wqkv`` and ``fc1`` are column-parallel, ``out_proj`` and ``fc2``
+row-parallel with the forward all-reduce, their biases added once after
+it.  Under ``attn_impl="flash_sp"`` the attention takes token shards; a
+``TransformerStack`` run inside ``use_sequence_parallel(...,
+shard_stacks=True)`` takes the global activations, as a JAX model does,
+and shards them on entry and gathers them on exit
+(``parallel/sequence.run_stack_sharded``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -122,15 +133,38 @@ class DropPath(nn.Module):
                        shape=(x.shape[0],) + (1,) * (x.ndim - 1))
 
 
+def _row_parallel(dense: Dense, x, group):
+    """A row-parallel projection: this rank's partial product, summed over
+    the tp group, then the bias once (one rank: the plain projection)."""
+    from ..parallel.tensor import reduce_from_tp
+
+    if dist.get_world_size(group) == 1:
+        return dense(x)
+    dt = dense.compute_dtype
+    y = reduce_from_tp(F.linear(x.to(dt), dense.weight.to(dt)), group)
+    return y if dense.bias is None else y + dense.bias.to(dt)
+
+
 class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2; with ``tp`` (a ``flash_tp`` block's) fc1
+    is column- and fc2 row-parallel over the tp context's group."""
+
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 dtype: torch.dtype = torch.float32, quant: bool = False):
+                 dtype: torch.dtype = torch.float32, quant: bool = False,
+                 tp: bool = False):
         super().__init__()
         dense = QuantDense if quant else Dense
+        self.tp = tp
         self.fc1 = dense(in_dim, hidden_dim, compute_dtype=dtype)
         self.fc2 = dense(hidden_dim, out_dim, compute_dtype=dtype)
 
     def forward(self, x):
+        if self.tp:
+            from ..parallel.tensor import copy_to_tp, tp_group
+
+            group = tp_group()[0]
+            return _row_parallel(self.fc2, F.gelu(self.fc1(
+                copy_to_tp(x, group))), group)
         return self.fc2(F.gelu(self.fc1(x)))  # exact erf GELU
 
 
@@ -148,6 +182,13 @@ class MHA(nn.Module):
         self.out_proj = dense(dim, dim, compute_dtype=dtype)
 
     def forward(self, x):
+        if self.attn_impl == "flash_tp":
+            from ..parallel.tensor import copy_to_tp, tp_group
+
+            group = tp_group()[0]
+            out = multi_head_attention_qkv(self.Wqkv(copy_to_tp(x, group)),
+                                           self.num_heads, impl="flash_tp")
+            return _row_parallel(self.out_proj, out, group)
         qkv = self.Wqkv(x)
         out = multi_head_attention_qkv(qkv, self.num_heads,
                                        impl=self.attn_impl)
@@ -170,7 +211,8 @@ class Block(nn.Module):
         self.mixer = MHA(dim, num_heads, qkv_bias, dtype, attn_impl, quant)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, quant)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, quant,
+                       tp=attn_impl == "flash_tp")
         self.drop_path2 = DropPath(drop_path)
 
     def _norm(self, norm: LayerNorm, x):
@@ -250,6 +292,15 @@ class TransformerStack(nn.ModuleList):
         """-> the final feature, or with ``return_hidden`` the list of
         every block's: its MLP branch under parity="flash" (as the
         final feature is), its hidden state under "standard"."""
+        if len(self) and self[0].mixer.attn_impl == "flash_sp":
+            from ..parallel.sequence import run_stack_sharded, shards_stacks
+
+            if shards_stacks():
+                return run_stack_sharded(
+                    lambda t: self._forward(t, generator, return_hidden), x)
+        return self._forward(x, generator, return_hidden)
+
+    def _forward(self, x, generator, return_hidden):
         m = x
         remat = self.remat and torch.is_grad_enabled()
         if self.capture_cam:

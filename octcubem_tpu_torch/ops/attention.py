@@ -12,8 +12,12 @@ mesh, the axis and the global valid length.  The JAX package pads a
 length the sp degree does not divide inside this dispatch, on its global
 arrays; a rank sees only its shard, so the pad happens where the
 activations are sharded (``shard_sequence``), the context carries the
-valid length, and the caller drops the pad rows.  The head-parallel
-path (``"flash_tp"``) is not ported yet.
+valid length, and the caller drops the pad rows.  ``impl="flash_tp"`` is
+the head-parallel path (parallel/tensor.py): the tensors hold this
+rank's head group (``num_heads`` stays the global count), q, k and v are
+sliced from the fused buffer as in the JAX package, and each rank runs
+its heads through ``flash_attention_packed``; the
+``use_tensor_parallel`` context gives the mesh and the axis.
 """
 
 from __future__ import annotations
@@ -36,11 +40,7 @@ def naive_attention(q, k, v, scale: float | None = None):
 
 
 def _check_impl(impl: str) -> None:
-    if impl == "flash_tp":
-        raise NotImplementedError(
-            "attention impl 'flash_tp' (head-parallel attention with column- "
-            "and row-parallel projections) is not ported yet (ROADMAP A14)")
-    if impl not in ("auto", "flash", "naive", "flash_sp"):
+    if impl not in ("auto", "flash", "naive", "flash_sp", "flash_tp"):
         raise ValueError(f"unknown attention impl {impl!r}")
 
 
@@ -55,8 +55,11 @@ def _sp_attention(q, k, v, scale):
 
 def multi_head_attention(q, k, v, scale=None, impl: str = "auto"):
     """[B, H, N, D] dispatch: ``flash_attention``, the sequence-parallel
-    path or the naive path."""
+    path or the naive path (the head-parallel path is packed only)."""
     _check_impl(impl)
+    if impl == "flash_tp":
+        raise ValueError("impl 'flash_tp' takes the packed layout "
+                         "(multi_head_attention_packed / _qkv)")
     if impl == "naive":
         return naive_attention(q, k, v, scale=scale)
     if impl == "flash_sp":
@@ -70,6 +73,12 @@ def multi_head_attention_packed(q, k, v, num_heads: int, scale=None,
     _check_impl(impl)
     if impl in ("auto", "flash"):
         return flash_attention_packed(q, k, v, num_heads, scale=scale)
+    if impl == "flash_tp":
+        from ..parallel.tensor import current_tp, head_parallel_attention
+
+        mesh, axis = current_tp()
+        return head_parallel_attention(q, k, v, num_heads, mesh, axis,
+                                       scale=scale)
     b, n, hd = q.shape
     d = hd // num_heads
 
@@ -87,7 +96,7 @@ def multi_head_attention_qkv(qkv, num_heads: int, scale=None,
                              impl: str = "auto"):
     """Fused-projection dispatch: qkv [B, N, 3*H*D] straight from Wqkv.
     The flash path reads q/k/v out of the fused buffer in the kernel;
-    the naive and sequence-parallel paths slice and delegate."""
+    the naive, sequence- and head-parallel paths slice and delegate."""
     _check_impl(impl)
     if impl in ("auto", "flash"):
         return flash_attention_packed_qkv(qkv, num_heads, scale=scale)

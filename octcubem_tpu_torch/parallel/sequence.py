@@ -232,6 +232,17 @@ def shard_sequence(x, mesh, axis: str = "sp", dim: int = 2):
 #
 # Everything around the attention (LayerNorm, MLP, projections) is
 # token-wise and runs on the rank's shard as it is.
+#
+# A whole model (cli/pretrain.py with n_sp > 1) runs as the JAX model
+# does, on global activations: under ``shard_stacks=True`` each
+# ``TransformerStack`` with attn_impl="flash_sp" shards its input on
+# entry, runs its blocks on the shard with the stack's own n_valid, and
+# gathers its output on exit (``run_stack_sharded``).  The gather's
+# backward is a reduce-scatter (sum) over the sp group, so the gradient
+# of every parameter, inside the stacks and out, is a partial sum over
+# the sp ranks whose total is sp-degree times the gradient; the mean over
+# all ranks of the mesh (the data-parallel reduction, train/mae_engine.py)
+# is then the exact gradient of the global loss.
 
 _SP_CONTEXT: list[tuple] = []
 
@@ -239,11 +250,14 @@ _SP_CONTEXT: list[tuple] = []
 @contextlib.contextmanager
 def use_sequence_parallel(mesh, axis: str = "sp",
                           batch_axis: str | None = None,
-                          n_valid: int | None = None):
+                          n_valid: int | None = None,
+                          shard_stacks: bool = False):
     """batch_axis: the mesh axis the batch is split over for the composed
     data x sp case (None: every sp group holds the same batch).  n_valid:
-    the global valid length of a padded sequence (None: no pad)."""
-    _SP_CONTEXT.append((mesh, axis, batch_axis, n_valid))
+    the global valid length of a padded sequence (None: no pad).
+    shard_stacks: the stacks take global activations and shard them
+    (the module comment above)."""
+    _SP_CONTEXT.append((mesh, axis, batch_axis, n_valid, shard_stacks))
     try:
         yield
     finally:
@@ -256,4 +270,50 @@ def current_sp() -> tuple:
         raise RuntimeError(
             "attn_impl='flash_sp' requires an active use_sequence_parallel "
             "(mesh, axis) context when the attention runs")
-    return _SP_CONTEXT[-1]
+    return _SP_CONTEXT[-1][:4]
+
+
+def shards_stacks() -> bool:
+    """Whether the innermost context asks the stacks to shard."""
+    return bool(_SP_CONTEXT) and _SP_CONTEXT[-1][4]
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The local token shard [B, n_loc, ...] -> the group's [B, n_sp *
+    n_loc, ...] in rank order by one all_gather; the backward
+    reduce-scatters (sums) the gradient back to the shards."""
+
+    @staticmethod
+    def forward(ctx, x, group, n_sp: int):
+        ctx.group, ctx.n_sp = group, n_sp
+        local = x.transpose(0, 1).contiguous()
+        full = local.new_empty((n_sp * local.shape[0],) + local.shape[1:])
+        dist.all_gather_into_tensor(full, local, group=group)
+        return full.transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.transpose(0, 1).contiguous()
+        local = full.new_empty((full.shape[0] // ctx.n_sp,) + full.shape[1:])
+        dist.reduce_scatter_tensor(local, full, op=dist.ReduceOp.SUM,
+                                   group=ctx.group)
+        return local.transpose(0, 1), None, None
+
+
+def run_stack_sharded(fn, x):
+    """``fn`` (a stack's blocks over token shards) on global activations x
+    [B, N, C]: this rank's shard of x padded to a multiple of the sp
+    degree, ``fn`` under the context with n_valid = N, its output (a
+    tensor, or a list of them) gathered back to [B, N, C]."""
+    mesh, axis, batch_axis, _ = current_sp()
+    group, n_sp, _ = _sp_group(mesh, axis, batch_axis)
+    n = x.shape[1]
+    with use_sequence_parallel(mesh, axis, batch_axis, n_valid=n):
+        out = fn(shard_sequence(x, mesh, axis, dim=1))
+
+    def gather(t):
+        if n_sp == 1:
+            return t
+        return _GatherSeq.apply(t, group, n_sp)[:, :n]
+
+    return [gather(t) for t in out] if isinstance(out, list) else gather(out)

@@ -3,9 +3,23 @@ evaluation steps, the retrieval metrics (counterpart of
 octcubem_tpu/train/clip_engine.py).
 
 Parity targets:
-- ClipLoss (open_clip/loss.py:148-229): symmetric InfoNCE over the batch,
-  logits in fp32.  One rank: the batch is the global batch (a
-  gradient-carrying all_gather across ranks is ROADMAP A14).
+- ClipLoss (open_clip/loss.py:148-229): symmetric InfoNCE over the global
+  batch, logits in fp32.  JAX gets it from global arrays; here, under a
+  data-parallel ``mesh``, each rank's features are gathered across the
+  data axis in rank order by an all_gather that carries gradients
+  (``core/multihost.gather_rows_with_grad``: its backward sums the
+  gradient over the ranks and keeps the rank's rows), and every rank
+  computes the whole global loss.  The tower gradient on a rank is then
+  the data degree times its rows' share, and ``logit_scale``'s is the
+  global one, so the mean over every rank (reduced before the update) is
+  the exact global gradient of both: JAX's semantics, not OpenCLIP's
+  default ``gather_with_grad=False``, which gives the towers 1/W of it.
+  The 3-modality presence weights, the feature-cached bank (every rank's
+  chunk features) and the classification steps' logits are gathered
+  the same way; ``evaluate_retrieval`` gathers the features in global
+  order before the metrics.  No data-parallel step trains a BatchNorm:
+  a ModifiedResNet tower cannot train through these steps in either
+  package, so there is no SyncBatchNorm.
 - ThreeModalityClipLoss (loss.py:232-388): 6 directed CE terms over 3
   pairs, masked by per-sample modality-presence weights; a pair with no
   valid sample contributes 0 (decided on the device: no host read).
@@ -40,6 +54,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import multihost
+from ..core.mesh import check_mesh, data_group
 from .optim import global_norm
 from .train_state import TrainState
 
@@ -89,38 +105,63 @@ def _grad_norm(tx):
                         for p in tx.params])
 
 
-def _update(state: TrainState, tx, loss):
-    """One optimizer step from the params' ``.grad`` -> metrics."""
+class _Gather:
+    """The data-parallel gathers of a step over ``mesh`` (identities
+    without one)."""
+
+    def __init__(self, mesh):
+        self.on = check_mesh(mesh)
+        self.group = data_group(mesh) if self.on else None
+
+    def grad(self, t):
+        return multihost.gather_rows_with_grad(t, self.group) if self.on \
+            else t
+
+    def rows(self, t):
+        return multihost.gather_rows(t, self.group) if self.on else t
+
+
+def _local_batch(batch):
+    return {k: multihost.local(v) for k, v in batch.items()}
+
+
+def _update(state: TrainState, tx, loss, reduce: bool = False):
+    """One optimizer step from the params' ``.grad`` (first their mean
+    over every rank when ``reduce``) -> metrics."""
+    if reduce:
+        grads = multihost.all_reduce_mean([p.grad for p in tx.params])
+        for p, g in zip(tx.params, grads):
+            p.grad = g
     gn = _grad_norm(tx)
     tx.step()
     state.step += 1
     return {"loss": loss.detach(), "grad_norm": gn}
 
 
-def _three_mod_loss(out, batch):
-    img, e1, e2, s0, s1, s2 = out
-    return three_modality_clip_loss(img, e1, e2, s0, s1, s2,
-                                    batch["weight1"], batch["weight2"])
-
-
-def make_clip_train_step(model, tx, three_mod: bool = False):
+def make_clip_train_step(model, tx, three_mod: bool = False, mesh=None):
     """-> step(state, batch) -> (state, {"loss", "grad_norm"}): one
     contrastive step on {'image', 'enface'} (or 'enface1', 'enface2',
-    'weight1', 'weight2' for ``three_mod``), the model in training mode."""
+    'weight1', 'weight2' for ``three_mod``), the model in training mode.
+    ``mesh``: the data-parallel mesh; the loss spans the global batch."""
+    gather = _Gather(mesh)
 
     def step(state: TrainState, batch):
+        batch = _local_batch(batch)
         model.train()
         tx.zero_grad()
         if three_mod:
-            loss = _three_mod_loss(
-                model(batch["image"], batch["enface1"], batch["enface2"],
-                      generator=state.generator), batch)
+            img, e1, e2, *scales = model(batch["image"], batch["enface1"],
+                                         batch["enface2"],
+                                         generator=state.generator)
+            loss = three_modality_clip_loss(
+                gather.grad(img), gather.grad(e1), gather.grad(e2), *scales,
+                gather.rows(batch["weight1"]), gather.rows(batch["weight2"]))
         else:
             img, enf, scale = model(batch["image"], batch["enface"],
                                     generator=state.generator)
-            loss = clip_loss(img, enf, scale)
+            loss = clip_loss(gather.grad(img), gather.grad(enf), scale)
         loss.backward()
-        return state, _update(state, tx, loss)
+        return state, _update(state, tx, loss, gather.on)
 
     return step
 
@@ -139,51 +180,55 @@ def _splice(bank: list, i: int, live):
 
 
 def _accum_step(model, tx, accum_freq: int, encode, n_feat: int,
-                chunk_loss):
+                chunk_loss, mesh=None):
     """The feature-cached accumulation (module docstring): ``encode(batch,
     i, generator)`` -> chunk i's model outputs, the first ``n_feat`` of
-    them features; ``chunk_loss(spliced features, outputs, batch)`` -> the
-    loss over the whole bank."""
+    them features; ``chunk_loss(spliced features, outputs, batch,
+    gather)`` -> the loss over the whole bank.  Under ``mesh`` a chunk is
+    the ranks' chunks i in rank order (``shard_microbatch``'s layout)."""
+    gather = _Gather(mesh)
 
     def step(state: TrainState, batch):
+        batch = _local_batch(batch)
         model.train()
         gen = state.generator
         starts, bank = [], []
         with torch.no_grad():
             for i in range(accum_freq):
                 starts.append(gen.get_state())
-                bank.append(encode(batch, i, gen)[:n_feat])
+                bank.append([gather.rows(f) for f in
+                             encode(batch, i, gen)[:n_feat]])
         after = gen.get_state()
         banks = list(zip(*bank))  # per feature kind, one tensor per chunk
         tx.zero_grad()
         total = None
         for i in range(accum_freq):
             out = encode(batch, i, _replay(gen, starts[i]))
-            full = [_splice(list(b), i, f)
+            full = [_splice(list(b), i, gather.grad(f))
                     for b, f in zip(banks, out[:n_feat])]
-            loss = chunk_loss(full, out, batch)
+            loss = chunk_loss(full, out, batch, gather)
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         gen.set_state(after)
-        return state, _update(state, tx, total / accum_freq)
+        return state, _update(state, tx, total / accum_freq, gather.on)
 
     return step
 
 
-def make_clip_accum_train_step(model, tx, accum_freq: int):
+def make_clip_accum_train_step(model, tx, accum_freq: int, mesh=None):
     """The 2-tower feature-cached accumulation step.  Batch tensors have
     leading dims [accum_freq, chunk, ...]."""
 
     def encode(batch, i, gen):
         return model(batch["image"][i], batch["enface"][i], generator=gen)
 
-    def chunk_loss(full, out, batch):
+    def chunk_loss(full, out, batch, gather):
         return clip_loss(full[0], full[1], out[2])
 
-    return _accum_step(model, tx, accum_freq, encode, 2, chunk_loss)
+    return _accum_step(model, tx, accum_freq, encode, 2, chunk_loss, mesh)
 
 
-def make_clip_accum_train_step_3mod(model, tx, accum_freq: int):
+def make_clip_accum_train_step_3mod(model, tx, accum_freq: int, mesh=None):
     """The 3-modality feature-cached accumulation: the presence weights
     are taken over all chunks, so each chunk's loss is masked over the
     whole effective batch (train_retclip_3modalities.py:31-41).  Batch
@@ -193,12 +238,12 @@ def make_clip_accum_train_step_3mod(model, tx, accum_freq: int):
         return model(batch["image"][i], batch["enface1"][i],
                      batch["enface2"][i], generator=gen)
 
-    def chunk_loss(full, out, batch):
-        return three_modality_clip_loss(
-            *full, *out[3:], batch["weight1"].reshape(-1),
-            batch["weight2"].reshape(-1))
+    def chunk_loss(full, out, batch, gather):
+        w1, w2 = (torch.cat([gather.rows(w) for w in batch[k]])
+                  for k in ("weight1", "weight2"))
+        return three_modality_clip_loss(*full, *out[3:], w1, w2)
 
-    return _accum_step(model, tx, accum_freq, encode, 3, chunk_loss)
+    return _accum_step(model, tx, accum_freq, encode, 3, chunk_loss, mesh)
 
 
 # ------------------------------------------- classification fine-tune steps
@@ -214,20 +259,23 @@ def _cls_forward(model, batch, three_mod, single_modality, generator=None):
 
 
 def make_clip_cls_train_step(model, tx, criterion, three_mod: bool = False,
-                             single_modality: str | None = None):
+                             single_modality: str | None = None, mesh=None):
     """The COEM classification fine-tune step (train_retclip_finetune_
     more_cls_3mod.py train_one_epoch): towers and classification head,
     optionally one modality alone.  batch: {'image', 'enface' |
-    'enface1' + 'enface2', 'label'}."""
+    'enface1' + 'enface2', 'label'}.  ``mesh``: the criterion is taken
+    over the gathered global batch, as in train/finetune_engine.py."""
+    gather = _Gather(mesh)
 
     def step(state: TrainState, batch):
+        batch = _local_batch(batch)
         model.train()
         tx.zero_grad()
         logits = _cls_forward(model, batch, three_mod, single_modality,
                               state.generator)
-        loss = criterion(logits, batch["label"])
+        loss = criterion(gather.grad(logits), gather.rows(batch["label"]))
         loss.backward()
-        return state, _update(state, tx, loss)
+        return state, _update(state, tx, loss, gather.on)
 
     return step
 
@@ -356,7 +404,8 @@ def retrieval_metrics_dup_corrected(img_feat, enf_feat, group_ids) -> dict:
 
 
 def evaluate_retrieval(model, batches, three_mod: bool = False,
-                       return_features: bool = False, encode_fn=None):
+                       return_features: bool = False, encode_fn=None,
+                       mesh=None):
     """Features over a val loader and their retrieval metrics
     (train_retclip.py:243-403); for 3-mod, all 3 pairs
     (train_retclip_3modalities.py:371-392).  ``return_features``: also the
@@ -366,7 +415,11 @@ def evaluate_retrieval(model, batches, three_mod: bool = False,
     ``encode_fn``: an encoder with its weights inside, (img, enf) -> the
     two features (three for 3-mod): a frozen AOT artifact or the int8
     towers (cli/retclip.py --aot / --quant int8); ``model`` is unused
-    then.  The model runs in eval mode with no gradient."""
+    then.  The model runs in eval mode with no gradient.  ``mesh``: each
+    rank encodes its rows, and every batch's features are gathered across
+    the data axis in rank order (the global batch's order) before the
+    metrics, which every rank then computes alike."""
+    gather = _Gather(mesh)
     if encode_fn is None:
         model.eval()
         n_out = 3 if three_mod else 2
@@ -379,9 +432,9 @@ def evaluate_retrieval(model, batches, three_mod: bool = False,
              else ("image", "enface"))
     feats: dict[str, list] = {k: [] for k in names}
     for batch in batches:
-        out = encode_fn(*(batch[k] for k in names))
+        out = encode_fn(*(multihost.local(batch[k]) for k in names))
         for k, v in zip(names, out):
-            feats[k].append(v.detach().float().cpu().numpy())
+            feats[k].append(gather.rows(v.detach().float()).cpu().numpy())
     f = {k: np.concatenate(v) for k, v in feats.items()}
     if three_mod:
         out = {}

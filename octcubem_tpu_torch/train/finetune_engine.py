@@ -16,6 +16,21 @@ The guard lives on the device (``AdamW.step(ok=...)``): the step reads
 nothing back to the host, so the caller may read step t-1's metrics after
 issuing step t, as the JAX CLI does.  ``evaluate`` runs the model in eval
 mode with no gradient.
+
+Data parallelism (``mesh``): each rank holds its rows of the global
+batch.  The criterion is taken over the global batch, as JAX's is: the
+logits are gathered across the data axis with a gradient
+(``core/multihost.gather_rows_with_grad``, whose backward sums over the
+ranks) and the targets without, so the weighted criteria that divide by
+the batch's valid count (``weighted_label_smoothing_ce``,
+``multi_task_loss``) see the global count, and every rank computes the
+same loss.  The gradient is then the mean over every rank, reduced
+before the global norm and AdamW, and the NaN guard's ``ok`` is the
+global loss's, so every rank keeps or reverts together.  Drop-path and
+the dropout head draw their masks for the rank's rows from the
+replicated generator: every rank takes the first B_local rows of a
+global draw, where JAX's rank r would take rows [r * B_local, (r + 1) *
+B_local), so the two agree at rate 0 only.
 """
 
 from __future__ import annotations
@@ -28,24 +43,35 @@ import pickle
 import numpy as np
 import torch
 
+from ..core import multihost
+from ..core.mesh import check_mesh, data_group
 from . import metrics as metrics_lib
 from .optim import global_norm
 from .train_state import TrainState
 
 
-def make_finetune_train_step(model, tx, criterion):
+def make_finetune_train_step(model, tx, criterion, mesh=None):
     """-> step(state, batch, targets) -> (state, {"loss", "grad_norm",
     "finite"}): 0-d tensors on the model's device, read without a host
-    sync.  ``tx`` is ``state.tx``, the AdamW over ``model``'s params."""
+    sync.  ``tx`` is ``state.tx``, the AdamW over ``model``'s params.
+    ``mesh``: the data-parallel mesh (module docstring)."""
     params = list(model.parameters())
+    reduce = check_mesh(mesh)
+    group = data_group(mesh) if reduce else None
 
     def step(state: TrainState, batch, targets):
+        batch, targets = multihost.local(batch), multihost.local(targets)
         model.train()
         out = model(batch, state.generator)
         if isinstance(out, tuple):
             out = out[0]
+        if reduce:
+            out = multihost.gather_rows_with_grad(out, group)
+            targets = multihost.gather_rows(targets, group)
         loss = criterion(out, targets)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        if reduce:
+            grads = multihost.all_reduce_mean(grads)
         for p, g in zip(params, grads):
             p.grad = g
         ok = torch.isfinite(loss)

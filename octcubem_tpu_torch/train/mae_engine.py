@@ -28,12 +28,33 @@ step draws them, one per forward: microbatch by microbatch with
 ``accum_2d`` the 3D batch, then the K 2D microbatches.  A single tensor
 stands for a one-element list.  The parity tests pass the JAX package's
 noise this way.
+
+Data parallelism (``mesh``, a ``core/mesh`` DeviceMesh spanning the
+group).  A rank is JAX's host: the batch it is given is its rows of the
+global batch (``shard_batch`` / ``shard_microbatch``; ranks of one data
+index, along ``fsdp`` or ``sp``, hold the same rows).  The step reduces
+its gradient list explicitly, the mean over every rank of the mesh in
+flat buckets (``core/multihost.all_reduce_mean``), before the global
+norm and AdamW; ``DistributedDataParallel``'s hooks would never fire
+under ``torch.autograd.grad``.  The losses it returns are reduced the same
+way, so every rank logs JAX's global loss; ``frame_losses`` stay this
+rank's rows (JAX's ``local_rows``).  The mean of the ranks' means is the
+global mean because every rank's loss is a mean over equal counts: the
+same number of masked patches per sample at one mask ratio, pre-mask or
+not, in both branches.  The masking noise is JAX's global draw: each
+rank keeps its rows of one (B_global, L) draw from the replicated
+generator, so the generators stay in lockstep and an n-rank step equals
+a one-rank step on the global batch.  Under ``n_sp`` > 1 the stacks
+shard and gather the tokens (parallel/sequence.py); the same mean over
+every rank is then the exact gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import multihost
+from ..core.mesh import DATA_AXIS, axis_coord, check_mesh
 from ..data.premask import compute_premask
 from .optim import global_norm
 from .train_state import TrainState
@@ -55,14 +76,15 @@ def _accumulate(acc, grads, divisor: int = 1):
 def make_mae_train_step(model, tx, joint: bool = False,
                         use_premask: bool = False, accum_iter: int = 1,
                         compute_grad_norm: bool = True, model2d=None,
-                        accum_2d: int = 1):
+                        accum_2d: int = 1, mesh=None):
     """-> step(state, batch3d, mask_ratio=0.9, batch2d=None,
     mask_ratio_2d=0.75, pre_mask=None, noise=None) -> (state, metrics).
 
     Metrics: loss, loss_3d, loss_2d (0 unless joint), frame_losses [B, t]
     and grad_norm (the global norm of the applied gradient, or 0 when
     ``compute_grad_norm`` is False); 0-d tensors on the model's device,
-    read without a host sync."""
+    read without a host sync.  ``mesh``: the data-parallel mesh (module
+    docstring); None runs on this rank alone."""
     if accum_iter < 1 or accum_2d < 1:
         raise ValueError("accum_iter and accum_2d must be >= 1")
     if accum_iter > 1 and accum_2d != 1:
@@ -78,10 +100,13 @@ def make_mae_train_step(model, tx, joint: bool = False,
             raise ValueError("model2d must run over model's own parameter "
                              "objects (MaskedAutoencoderViT3D.with_remat)")
     m2d = model2d if model2d is not None else model
+    d_idx, n_d = axis_coord(mesh, DATA_AXIS)
+    reduce = check_mesh(mesh)
 
     def step(state: TrainState, batch3d, mask_ratio: float = 0.9,
              batch2d=None, mask_ratio_2d: float = 0.75, pre_mask=None,
              noise=None):
+        batch3d, batch2d = multihost.local(batch3d), multihost.local(batch2d)
         if joint and batch2d is None:
             raise ValueError("a joint step needs batch2d")
         if pre_mask is not None and accum_iter > 1:
@@ -94,8 +119,10 @@ def make_mae_train_step(model, tx, joint: bool = False,
                 if not given:
                     raise ValueError("fewer noise tensors than forwards")
                 return given.pop(0)
-            return torch.rand((x.shape[0], model.num_tokens(x)),
-                              generator=state.generator, device=x.device)
+            rows = x.shape[0]
+            noise = torch.rand((rows * n_d, model.num_tokens(x)),
+                               generator=state.generator, device=x.device)
+            return noise[d_idx * rows:(d_idx + 1) * rows]
 
         def loss3d(x):
             pm = pre_mask
@@ -146,6 +173,10 @@ def make_mae_train_step(model, tx, joint: bool = False,
             l3, l2 = l3_sum / accum_iter, l2_sum / accum_iter
         if given:
             raise ValueError(f"{len(given)} noise tensors left unused")
+        if reduce:
+            grads = multihost.all_reduce_mean(grads)
+            l3, l2 = multihost.all_reduce_mean([torch.stack([l3, l2])])[
+                0].unbind(0)
         for p, g in zip(params, grads):
             p.grad = g
         gn = (global_norm([g if g is not None else torch.zeros_like(p)
@@ -158,6 +189,42 @@ def make_mae_train_step(model, tx, joint: bool = False,
         return state, metrics
 
     return step
+
+
+def shard_batch(batch, mesh):
+    """This rank's rows of the global batch as the data-sharded global
+    ``DTensor`` (``core/multihost.global_batch``; a dict or tuple of them
+    leaf by leaf); the steps compute on its local tensor.  No mesh: the
+    batch as it is."""
+    if mesh is None:
+        return batch
+    return multihost.map_tree(
+        lambda _, x: multihost.global_batch(mesh, x, DATA_AXIS), batch)
+
+
+def shard_microbatch(batch, mesh):
+    """An [accum, micro, ...] batch with the MICRO axis sharded over the
+    data axis (accumulation chunks stay whole per rank): dim 1 is this
+    rank's micro shard."""
+    if mesh is None:
+        return batch
+    return multihost.map_tree(
+        lambda _, x: multihost.global_batch(mesh, x, DATA_AXIS,
+                                            micro_axis=True), batch)
+
+
+def replicate_state(state: TrainState, mesh):
+    """Every rank's params, buffers and optimizer moments set to rank 0's
+    (a broadcast, as ``DistributedDataParallel`` starts), in place; the
+    generators are seeded alike.  No mesh: the state as it is."""
+    if mesh is None or multihost.world()[1] == 1:
+        return state
+    tx = state.tx
+    multihost.broadcast_(list(state.params.parameters())
+                         + list(state.params.buffers())
+                         + list(getattr(tx, "mu", [])) + list(
+                             getattr(tx, "nu", [])))
+    return state
 
 
 def make_mae_eval_step(model):

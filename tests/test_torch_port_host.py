@@ -98,7 +98,7 @@ def test_check_resume_geometry_refuses_like_jax(tmp_path, prev, cur):
                                   str(tmp_path / "none.json"), fields)
 
 
-def test_runtime_and_multihost_on_one_rank(monkeypatch):
+def test_runtime_and_multihost_on_one_rank(monkeypatch, tmp_path):
     assert runtime.setup_compilation_cache(device="cpu") is None
     assert runtime.setup_compilation_cache("") is None
     info = multihost.announce("cpu")
@@ -109,13 +109,30 @@ def test_runtime_and_multihost_on_one_rank(monkeypatch):
     assert isinstance(rows, np.ndarray)
     np.testing.assert_array_equal(rows, np.arange(12).reshape(3, 4) * 2)
     np.testing.assert_array_equal(multihost.local_rows(rows), rows)
-    for fn in (multihost.initialize, multihost.put_tree,
-               multihost.global_batch):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn()
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="A14"):
-        multihost.announce("cpu")
+    # initialize / put_tree / global_batch on a one-rank gloo group (their
+    # multi-rank round trips: test_torch_port_multihost.py)
+    import torch.distributed as dist
+    from octcubem_tpu_torch.core.mesh import make_mesh
+
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    info = multihost.initialize(store=store, world_size=1, rank=0,
+                                device="cpu")
+    try:
+        assert (info["process_index"], info["process_count"]) == (0, 1)
+        mesh = make_mesh(device="cpu")
+        g = multihost.global_batch(mesh, t)
+        assert tuple(g.shape) == (3, 4)
+        np.testing.assert_array_equal(multihost.local_rows(g), t.numpy())
+        tree = multihost.put_tree(mesh, {"w": t, "n": 3})
+        assert tree["n"] == 3
+        np.testing.assert_array_equal(tree["w"].full_tensor().numpy(),
+                                      t.numpy())
+        # a launcher's WORLD_SIZE does not re-join a formed group
+        monkeypatch.setenv("WORLD_SIZE", "4")
+        assert multihost.announce("cpu")["process_count"] == 1
+    finally:
+        multihost.shutdown()
+    assert multihost.world() == (0, 1)
 
 
 def test_get_logger_retargets_like_jax(tmp_path):

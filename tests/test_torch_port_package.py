@@ -156,17 +156,40 @@ def test_load_torch_checkpoint(jax_params, tmp_path):
     (dict(capture_cam=True), "A10"),
     (dict(remat=True, capture_cam=True), "A10"),
     (dict(quant=True), "A10"),
-    (dict(attn_impl="flash_tp"), "A14")])
+    pytest.param(dict(attn_impl="flash_tp"), "A14", id="kw3-A14")])
 def test_unported_model_options_raise(kw, item):
     """The options A10 ported build and run (their parity tests are
-    test_torch_port_{saliency,quant}.py); the one still unported, the
-    head-parallel attention, raises naming its item."""
+    test_torch_port_{saliency,quant}.py); the head-parallel attention
+    (A14) runs on a one-rank gloo group's tp mesh and gives the flash
+    model's logits (its multi-rank parity: test_torch_port_tp.py)."""
     model = tvit.create_model(tvit.VisionTransformerST, device="cpu", **KW,
                               **kw)
     x = torch.zeros((1, 6, 32, 32, 1))
-    if item != "A10":
-        with pytest.raises(NotImplementedError, match=item):
+    if item == "A14":
+        import torch.distributed as dist
+        from octcubem_tpu_torch.core import multihost
+        from octcubem_tpu_torch.parallel.tensor import (shard_tp_params,
+                                                        use_tensor_parallel)
+        from torch.distributed.device_mesh import DeviceMesh
+
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            x.shape).astype(np.float32))
+        flash = tvit.create_model(tvit.VisionTransformerST, device="cpu",
+                                  **KW)
+        with pytest.raises(RuntimeError, match="use_tensor_parallel"):
             model(x)
+        tmp = Path(__import__("tempfile").mkdtemp())
+        multihost.initialize(store=dist.FileStore(str(tmp / "s"), 1),
+                             world_size=1, rank=0, device="cpu")
+        try:
+            mesh = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("tp",))
+            shard_tp_params(model, mesh)
+            with torch.no_grad(), use_tensor_parallel(mesh):
+                out = model(x)
+        finally:
+            multihost.shutdown()
+        with torch.no_grad():
+            np.testing.assert_array_equal(out.numpy(), flash(x).numpy())
         return
     with torch.no_grad():
         assert torch.isfinite(model(x)).all()

@@ -144,8 +144,10 @@ def test_aot_artifact_gives_the_live_csv(ckpt, tmp_path):
 
 
 def test_predict_refuses_data_parallel_and_empty_trees(tmp_path):
+    """--n_data 2 needs two ranks (one card each; the multi-rank run:
+    test_torch_port_multihost.py), as JAX's mesh needs two devices."""
     tree = _tree(tmp_path / "data", "npy")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
         tpredict.main([str(tree), "--n_data", "2", "--device", "cpu"] + FLAGS)
     (tmp_path / "empty").mkdir()
     with pytest.raises(ValueError, match="no volumes"):

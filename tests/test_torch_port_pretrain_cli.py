@@ -351,7 +351,9 @@ def test_first_step_loss_equals_the_engine_step(tmp_path):
 
 
 def test_refusals(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="A14"):
+    # the sp4 preset's mesh needs 4 ranks (its 4-rank run:
+    # test_torch_port_dp.py), as JAX's needs 4 devices
+    with pytest.raises(ValueError, match="4 devices, have 1"):
         _run(tmp_path / "sp", "--preset", "vitl_joint_pretrain_sp4")
     assert not (tmp_path / "sp").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

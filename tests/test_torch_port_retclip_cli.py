@@ -183,7 +183,8 @@ def test_multiroot_pkl_and_retrieval_eval(tmp_path):
 def test_refusals(tmp_path, monkeypatch):
     cfg = tmp_path / "dp.json"
     cfg.write_text(json.dumps({"n_data": 2}))
-    with pytest.raises(NotImplementedError, match="A14"):
+    # n_data 2 needs two ranks (their run: test_torch_port_multihost.py)
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
         retclip.main(["--preset", str(cfg), "--device", "cpu",
                       "--synthetic", "--output_dir", str(tmp_path / "dp")])
     assert not (tmp_path / "dp").exists()
