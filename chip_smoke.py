@@ -219,8 +219,27 @@ Phases, each fatal on failure (no phase's error is caught):
      --n_data 2, each against the same CLI on one rank fed the global
      batch (the first loss within TOL_DP_LOSS, the launches per step
      equal, the CSV within TOL_DP_PROB), with each rank's step time, the
-     gloo all-reduce's host time apart, and peak; (d) B1's and B2's
+     gloo all-reduce's host time apart, and peak; since PR 15 also
+     cli/pretrain.py at n_sp 2 on the two ranks (every stack's tokens
+     split over them, B5 / B7 through flash_sp, the gathers' gloo
+     fallback) against one rank on the same batch; (d) B1's and B2's
      entries of the kernels line carry ``at_tp_shards``: the rows of (b).
+ 23. states sharded over fsdp (ROADMAP A15, core/fsdp.py): (a) on a
+     one-rank NCCL group, the ViT-L MAE step on a state placed by
+     shard_state (fsdp_param_spec, data 1 x fsdp 1) against the
+     replicated step: losses bit-equal, grad norms, gradients and
+     params within B2's run-to-run limit, 32 B1 + 32 B2 a step; (b) two
+     gloo ranks sharing cuda:0 on a data 1 x fsdp 2 mesh: the
+     vitl_joint_pretrain step at full width (2 volumes and 8 2D images,
+     accum_2d 1; 22c's geometry) and the octcube_ir CLIP step at 4
+     pairs, each against one rank on the same batch (the first loss
+     within TOL_FSDP_LOSS, the launches per step equal), with each
+     rank's step time in CUDA events, the gathers', reduce-scatters'
+     and all-reduces' host time apart, and its peak; a checkpoint saved
+     by both ranks at step 1, resumed onto fsdp 2 and onto one rank
+     (step 2's loss bit-equal to the uninterrupted run's); (c)
+     entry.dryrun_multichip(4) on four gloo ranks sharing the card: its
+     five legs and the ViT-L-width production leg finite.
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -5045,6 +5064,11 @@ def _gloo_clis(tmp, world):
     for b, b2 in ((2, 8), (2 * world, 8 * world)):
         cfgs[b] = _write_json(tmp, f"pre{b}.json",
                               dict(pre, batch_size=b, batch_size_2d=b2))
+    # the same preset with n_sp = world: both ranks hold the same 2 volumes
+    # and 8 2D images, every stack's tokens split over them
+    cfgs["sp"] = _write_json(tmp, "pre_sp.json", dict(
+        pre, batch_size=2, batch_size_2d=8, n_sp=world,
+        attn_impl="flash_sp"))
     ret = _write_json(tmp, "ret.json", dict(dataclasses.asdict(
         PRESETS["octcube_ir"]), accum_freq=2, epochs=1))
     data = Path(tmp) / "predict"
@@ -5056,9 +5080,9 @@ def _gloo_clis(tmp, world):
         np.save(d / "vol.npy", (rng.random((48, 256, 256)) * 255).astype(
             np.float32))
 
-    def pretrain(b, out):
-        return ["--preset", cfgs[b], "--synthetic", "--synthetic_n", "16",
-                "--steps_per_epoch", "2", "--output_dir", out]
+    def pretrain(b, out, cfg=None):
+        return ["--preset", cfg or cfgs[b], "--synthetic", "--synthetic_n",
+                "16", "--steps_per_epoch", "2", "--output_dir", out]
 
     def retclip(b, out):
         # octcube_ir at full width, 4 pairs a rank x accum_freq 2
@@ -5076,7 +5100,10 @@ def _gloo_clis(tmp, world):
         ("retclip", "retclip", retclip(4, f"{tmp}/two/retclip"),
          retclip(4 * world, f"{tmp}/one/retclip"), 2),
         ("predict", "predict", predict(f"{tmp}/two", world),
-         predict(f"{tmp}/one", 1), 1)]
+         predict(f"{tmp}/one", 1), 1),
+        ("pretrain_sp", "pretrain",
+         pretrain(2, f"{tmp}/two/pretrain_sp", cfgs["sp"]),
+         pretrain(2, f"{tmp}/one/pretrain_sp"), 1)]
 
 
 def _gloo_rank(rank, world, tmp):
@@ -5121,7 +5148,7 @@ def _gloo_rank(rank, world, tmp):
                 out[name] = {"rows": rows,
                              "launches": _nonzero(_cuda.launches)}
             else:
-                ctx = (probe.patch(pretrain) if name == "pretrain"
+                ctx = (probe.patch(pretrain) if mod == "pretrain"
                        else _probe_clip(probe))
                 with ctx:
                     mods[mod].main(argv)
@@ -5191,9 +5218,10 @@ def run_gloo_clis(torch, _cuda, smi):
     mods = {"pretrain": pretrain, "retclip": retclip, "predict": predict}
     for name, mod, _, argv1, chunks in _gloo_clis(tmp, world):
         os.makedirs(f"{tmp}/one/{name}", exist_ok=True)
+        sp = name == "pretrain_sp"  # one data index: the ranks' batch
         plain = Loader._indices
         Loader._indices = _global_order(
-            world, lambda ld, c=chunks: c)
+            1 if sp else world, lambda ld, c=chunks: c)
         try:
             if name == "predict":
                 _cuda.reset_launches()
@@ -5201,7 +5229,7 @@ def run_gloo_clis(torch, _cuda, smi):
                 torch.cuda.synchronize()
                 one_launches = _nonzero(_cuda.launches)
             else:
-                ctx_ = (probe.patch(pretrain) if name == "pretrain"
+                ctx_ = (probe.patch(pretrain) if mod == "pretrain"
                         else _probe_clip(probe))
                 with ctx_:
                     mods[mod].main(argv1)
@@ -5245,7 +5273,10 @@ def run_gloo_clis(torch, _cuda, smi):
         what = {"pretrain": "vitl_joint_pretrain at full width, 2 volumes "
                             "and 8 2D images a rank",
                 "retclip": "octcube_ir at full width, 4 pairs x accum_freq "
-                           "2 a rank"}[name]
+                           "2 a rank",
+                "pretrain_sp": f"vitl_joint_pretrain at n_sp {world}, the "
+                               f"same 2 volumes and 8 2D images on each "
+                               f"rank, flash_sp (B5 / B7)"}[name]
         print(f"22c cli/{name}.py on {world} gloo ranks ({what}) vs one rank "
               f"on the global batch: losses "
               f"{[round(v, 6) for v in got['losses']]} vs "
@@ -5261,14 +5292,18 @@ def run_gloo_clis(torch, _cuda, smi):
                   f"through the host, not NCCL's time) "
                   f"{[round(v, 1) for v in res['reduce_ms']]}; peak "
                   f"{res['peak_gib']:.2f} GiB; wall {res['wall_s']:.1f} s")
+        # under sp each attention call is one B5 and one B7 launch where
+        # one rank's is one B1 and one B2
+        want = ([{"flash_fwd_bh": c["flash_fwd_packed"],
+                  "flash_bwd_bh": c["flash_bwd_packed"]}
+                 for c in one["launches"]] if sp else one["launches"])
         if (dloss > TOL_DP_LOSS or len(got["losses"]) != 2
-                or any(rk[name]["launches"] != one["launches"]
-                       for rk in ranks)
+                or any(rk[name]["launches"] != want for rk in ranks)
                 or any(set(c) != {"flash_fwd_packed", "flash_bwd_packed"}
                        for c in one["launches"])
                 or not all(math.isfinite(v) for v in got["losses"])):
             raise AssertionError(f"22c: cli/{name}.py on two ranks")
-        for kern in ("flash_fwd_packed", "flash_bwd_packed"):
+        for kern in want[0]:
             seen[f"cli/{name}.py {world} gloo ranks {kern}"] = [
                 c[kern] for c in got["launches"]]
     shutil.rmtree(tmp, ignore_errors=True)  # the runs' checkpoints
@@ -5286,6 +5321,444 @@ def run_phase22(torch, _cuda, entry_mod, fa, smi, rate):
     seen["22c gloo ranks on cuda:0"] = run_gloo_clis(torch, _cuda, smi)
     print(f"phase 22 launches per step: {json.dumps(seen)}")
     return rows
+
+
+# ------------------------------------ phase 23: fsdp-sharded states (A15)
+
+# 23b's first loss against one rank's on the same batch: the fsdp ranks
+# run the forward on whole weights gathered from their chunks, equal to
+# one rank's, so any difference is the sharding's
+TOL_FSDP_LOSS = 1e-4
+
+
+class _Collectives:
+    """Host milliseconds of each call to core/multihost's all_gather (the
+    fsdp gathers), reduce_scatter (their backward) and all_reduce_mean
+    (the whole leaves' reduction), recorded while installed."""
+
+    NAMES = ("all_gather", "reduce_scatter", "all_reduce_mean")
+
+    def __init__(self, multihost):
+        self.multihost, self.ms = multihost, {n: [] for n in self.NAMES}
+        self.saved = {n: getattr(multihost, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(multihost, n, self._timed(fn, self.ms[n]))
+
+    @staticmethod
+    def _timed(fn, into):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def take(self) -> dict:
+        out = {n: [len(v), sum(v)] for n, v in self.ms.items()}
+        for v in self.ms.values():
+            v.clear()
+        return out
+
+    def restore(self):
+        for n, fn in self.saved.items():
+            setattr(self.multihost, n, fn)
+
+
+def _timed_step(torch, _cuda, step, state, *args, **kw):
+    """One step with the launches (counters set to 0 just before it), its
+    CUDA-event and host ms and the peak since the reset."""
+    _cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    ev[0].record()
+    state, m = step(state, *args, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return state, m, {
+        "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+        "launches": _nonzero(_cuda.launches),
+        "event_ms": ev[0].elapsed_time(ev[1]),
+        "host_ms": (time.perf_counter() - t0) * 1e3,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _last_mlp(names) -> list:
+    """The last decoder block's MLP weights among ``names``: sharded by
+    fsdp_param_spec at the MAE's decoder width, and below every B2 of the
+    backward, so their gradients are exact across runs."""
+    last = max(int(n.split(".")[1]) for n in names
+               if n.startswith("decoder_blocks."))
+    return [f"decoder_blocks.{last}.mlp.{fc}.weight" for fc in ("fc1", "fc2")]
+
+
+def run_fsdp_one_rank(torch, _cuda, entry_mod):
+    """23a: the ViT-L MAE step (60x256x256, mask 0.90, batch 4, decoder 16
+    x 32) on a one-rank NCCL group, its state placed by
+    core/fsdp.shard_state (fsdp_param_spec on a data 1 x fsdp 1 mesh),
+    against the replicated step from the same state, two steps each (the
+    first at LR 0 moves no param): both losses bit-equal; the last
+    decoder block's MLP weights (sharded leaves whose gradient no B2
+    reaches) bit-equal in gradient and after step 2's update; the grad
+    norms within B2's run-to-run limit (B2 sums dq in varying order, so
+    every gradient below an attention differs between any two runs; the
+    worst leaf is printed); 32 B1 + 32 B2 a step."""
+    import torch.distributed as dist
+
+    from octcubem_tpu_torch.core import fsdp, multihost
+    from octcubem_tpu_torch.core.mesh import make_mesh
+    from octcubem_tpu_torch.train import mae_engine
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp1_")
+    multihost.initialize(store=dist.FileStore(f"{tmp}/store", 1),
+                         world_size=1, rank=0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError("the one-rank group is not NCCL")
+        mesh = make_mesh(1, 1, device="cuda")
+        runs = {}
+        for sharded in (False, True):
+            step, state, x = entry_mod.train_entry(batch=4)
+            if sharded:
+                fsdp.shard_state(state, mesh)
+                step = mae_engine.make_mae_train_step(
+                    state.params, state.tx, mesh=mesh)
+            rows = []
+            for _ in range(2):
+                state, _, row = _timed_step(torch, _cuda, step, state, x,
+                                            mask_ratio=0.9)
+                rows.append(row)
+            runs[sharded] = (rows, _leaf_grads(state.params),
+                             {n: p.detach().clone() for n, p in
+                              state.params.named_parameters()},
+                             len(state.shards.dims) if sharded else 0,
+                             state.tx.lr(1))
+            del step, state, x
+            torch.cuda.empty_cache()
+        (rep, g_rep, p_rep, _, lr), (got, g_got, p_got, n_sh, _) = (
+            runs[False], runs[True])
+        losses_equal = all(a["loss"] == b["loss"] for a, b in zip(got, rep))
+        dgn = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                  for a, b in zip(got, rep))
+        free = _last_mlp(p_rep)
+        free_equal = all(torch.equal(g_got[n], g_rep[n])
+                         and torch.equal(p_got[n], p_rep[n]) for n in free)
+        worst, leaf = max(((g_got[n] - g_rep[n]).abs().max().item()
+                           / g_rep[n].abs().max().item(), n) for n in g_rep)
+        dparam = max((p_got[n] - p_rep[n]).abs().max().item() for n in p_rep)
+        print(f"23a fsdp_param_spec on a one-rank NCCL group ({n_sh} leaves "
+              f"placed sharded): losses {[r['loss'] for r in got]} vs "
+              f"replicated {[r['loss'] for r in rep]} (bit-equal "
+              f"{losses_equal}); {free} gradients and params after step 2 "
+              f"bit-equal {free_equal}; max rel d grad_norm {dgn:.3e} (tol "
+              f"{TOL_RUN_TO_RUN:.1e}); B2's run-to-run spread: step 2's "
+              f"worst leaf {leaf} rel {worst:.3e}, max|d param| {dparam:.3e}"
+              f" (LR {lr:.3e}); launches per step "
+              f"{[r['launches'] for r in got]}, event ms "
+              f"{[round(r['event_ms'], 1) for r in got]} vs "
+              f"{[round(r['event_ms'], 1) for r in rep]}")
+        want = {"flash_fwd_packed": 32, "flash_bwd_packed": 32}
+        if (not losses_equal or not free_equal or dgn > TOL_RUN_TO_RUN
+                or n_sh == 0 or any(n not in g_got for n in free)
+                or any(r["launches"] != want for r in got + rep)):
+            raise AssertionError("23a: the fsdp-placed step")
+        return {"23a MAE step, fsdp 1": [r["launches"] for r in got]}
+    finally:
+        multihost.shutdown()
+
+
+def _fsdp_rank(rank, world, tmp):
+    """23b's rank: a gloo group with the other rank on cuda:0, mesh data 1
+    x fsdp 2; the vitl_joint_pretrain step (2 volumes and 8 2D images,
+    accum_2d 1) three times on a state placed by shard_state, a sharded
+    checkpoint at step 1 resumed onto fsdp 2 for steps 2-3, then the
+    octcube_ir CLIP step at 4 pairs; what it measured goes to
+    tmp/fsdp{rank}.json, its chunks of ``_last_mlp`` after step 2 (the
+    first update at a non-zero LR) to tmp/mlp{rank}_{run,resumed}.pt."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from octcubem_tpu_torch import entry as entry_mod
+    from octcubem_tpu_torch.core import checkpoint, fsdp, multihost
+    from octcubem_tpu_torch.core.mesh import make_mesh
+    from octcubem_tpu_torch.ops import _cuda
+    from octcubem_tpu_torch.train import clip_engine, mae_engine
+
+    multihost.initialize(store=dist.FileStore(f"{tmp}/store", world),
+                         world_size=world, rank=rank, local_rank=0,
+                         backend="gloo", device="cuda", timeout_s=300)
+    coll = _Collectives(multihost)
+    out = {"backend": dist.get_backend()}
+    try:
+        mesh = make_mesh(1, world, device="cuda")
+
+        def joint():
+            step, state, x = entry_mod.train_entry(joint=True, batch=2,
+                                                   batch2d=8)
+            x2 = step.keywords["batch2d"]
+            fsdp.shard_state(state, mesh)
+            step = mae_engine.make_mae_train_step(state.params, state.tx,
+                                                  joint=True, mesh=mesh)
+            return step, state, x, x2
+
+        step, state, x, x2 = joint()
+        shards = state.shards
+        mlp = _last_mlp(shards.dims)
+        out["mlp_dims"] = {n: shards.dims[n] for n in mlp}
+
+        def save_mlp(tag):
+            params = dict(state.params.named_parameters())
+            torch.save({n: params[n].detach().cpu() for n in mlp},
+                       f"{tmp}/mlp{rank}_{tag}.pt")
+
+        out["sharded_leaves"] = len(shards.dims)
+        out["sharded_elems"] = shards.n * sum(p.numel()
+                                              for p, _, _ in shards._params)
+        out["local_elems"] = sum(p.numel() for p in state.params.parameters())
+        coll.take()
+        rows = []
+        for i in range(3):
+            state, _, row = _timed_step(torch, _cuda, step, state, x, 0.9,
+                                        batch2d=x2, mask_ratio_2d=0.75)
+            row["collectives"] = coll.take()
+            rows.append(row)
+            if i == 1:
+                save_mlp("run")
+            if i == 0:  # every rank gathers, rank 0 writes; then wait
+                t0 = time.perf_counter()
+                checkpoint.save_checkpoint(f"{tmp}/ckpt", 1, state)
+                multihost.barrier()
+                out["save_s"] = time.perf_counter() - t0
+                out["save_collectives"] = coll.take()
+        out["joint"] = rows
+        del step, state
+        torch.cuda.empty_cache()
+        step, state, x, x2 = joint()
+        checkpoint.restore_checkpoint(f"{tmp}/ckpt", state)
+        out["restored_step"] = state.step
+        out["resumed"] = []
+        for i in range(2):
+            state, _, row = _timed_step(torch, _cuda, step, state, x, 0.9,
+                                        batch2d=x2, mask_ratio_2d=0.75)
+            out["resumed"].append(row)
+            if i == 0:
+                save_mlp("resumed")
+        del step, state, x, x2
+        torch.cuda.empty_cache()
+
+        model, tx, cstate, _ = _coem_state(torch, COEM_CONFIG, 0)
+        fsdp.shard_state(cstate, mesh)
+        out["clip_sharded_leaves"] = len(cstate.shards.dims)
+        cstep = clip_engine.make_clip_train_step(model, tx, mesh=mesh)
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        batch = {k: v[0] for k, v in _coem_batch(torch, gen, 1, 4).items()}
+        coll.take()
+        rows = []
+        for _ in range(2):
+            cstate, _, row = _timed_step(torch, _cuda, cstep, cstate, batch)
+            row["collectives"] = coll.take()
+            rows.append(row)
+        out["clip"] = rows
+        with open(f"{tmp}/fsdp{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        coll.restore()
+        multihost.shutdown()
+
+
+def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
+    """23b: two gloo ranks sharing cuda:0 on a data 1 x fsdp 2 mesh
+    (``_fsdp_rank``), each against one rank (this process) on the same
+    batch: the joint step's and the CLIP step's losses within
+    TOL_FSDP_LOSS (the joint's step 3 and the CLIP's step 2 come after an
+    update at a non-zero LR), their launches per step equal; the
+    checkpoint saved by both ranks at step 1 and resumed onto one rank
+    here.  The joint's schedule puts step 1 at LR 0, so step 2's loss is
+    bit-equal in every run, uninterrupted or resumed on either mesh, and
+    step 2 is the first update: after it each rank's chunk of the
+    ``_last_mlp`` weights, uninterrupted and resumed onto fsdp 2, is
+    bit-equal to its block of one rank's whole weight, uninterrupted and
+    resumed (AdamW on the chunk, the moments restored and the block the
+    reduce-scatter keeps), and step 3's losses are within TOL_FSDP_LOSS
+    of one rank's uninterrupted one.  Prints each rank's step time in CUDA
+    events with the gathers', reduce-scatters' and all-reduces' host ms
+    apart, and its peak."""
+    import torch.multiprocessing as mp
+
+    from octcubem_tpu_torch.core import checkpoint
+    from octcubem_tpu_torch.train import clip_engine
+
+    world = 2
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_fsdp_rank, args=(r, world, tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + 400
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    print(f"23b: {world} gloo ranks on cuda:0 (data 1 x fsdp {world}) in "
+          f"{time.perf_counter() - t0:.1f} s, exit codes {codes}")
+    if codes != [0] * world:
+        raise AssertionError(f"23b: rank exit codes {codes}")
+    ranks = [json.loads(Path(f"{tmp}/fsdp{r}.json").read_text())
+             for r in range(world)]
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("23b ran on another backend than gloo")
+
+    # one rank on the same batch, then the sharded checkpoint resumed here
+    step, state, x = entry_mod.train_entry(joint=True, batch=2, batch2d=8)
+    mlp = _last_mlp(dict(state.params.named_parameters()))
+
+    def whole_mlp():
+        params = dict(state.params.named_parameters())
+        return {n: params[n].detach().cpu() for n in mlp}
+
+    runs = {}
+    for tag, n_steps in (("run", 3), ("resumed", 2)):
+        if tag == "resumed":
+            checkpoint.restore_checkpoint(f"{tmp}/ckpt", state)
+        rows = []
+        for i in range(n_steps):
+            state, _, row = _timed_step(torch, _cuda, step, state, x,
+                                        mask_ratio=0.9)
+            rows.append(row)
+            if i == n_steps - 2:
+                runs[tag] = (rows, whole_mlp())
+    (one_rows, one_mlp), (one_resumed, one_mlp_resumed) = (
+        runs["run"], runs["resumed"])
+    del step, state, x
+    torch.cuda.empty_cache()
+    model, tx, cstate, _ = _coem_state(torch, COEM_CONFIG, 0)
+    cstep = clip_engine.make_clip_train_step(model, tx)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    batch = {k: v[0] for k, v in _coem_batch(torch, gen, 1, 4).items()}
+    one_clip = []
+    for _ in range(2):
+        cstate, _, row = _timed_step(torch, _cuda, cstep, cstate, batch)
+        one_clip.append(row)
+    del model, tx, cstate, cstep, batch
+    torch.cuda.empty_cache()
+    # each rank's chunk after step 2 against its block of one rank's
+    mlp_equal = {}
+    for tag, want in (("run", one_mlp), ("resumed", one_mlp_resumed)):
+        for r in range(world):
+            got = torch.load(f"{tmp}/mlp{r}_{tag}.pt")
+            mlp_equal[f"{tag} rank {r}"] = all(
+                torch.equal(got[n], want[n].chunk(
+                    world, ranks[r]["mlp_dims"][n])[r]) for n in mlp)
+    mlp_equal["one rank resumed vs uninterrupted"] = all(
+        torch.equal(one_mlp[n], one_mlp_resumed[n]) for n in mlp)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    r0 = ranks[0]
+    whole = r0["local_elems"] + r0["sharded_elems"] * (world - 1) // world
+    print(f"23b fsdp_param_spec shards {r0['sharded_leaves']} leaves of "
+          f"{r0['sharded_elems']} params of {whole} "
+          f"({r0['sharded_elems'] / whole:.3f}); a rank holds "
+          f"{r0['local_elems']}; octcube_ir {r0['clip_sharded_leaves']} "
+          f"leaves")
+    seen, bad = {}, []
+    for name, one_steps, what in (
+            ("joint", one_rows, "vitl_joint_pretrain at full width, 2 "
+                                "volumes and 8 2D images, accum_2d 1"),
+            ("clip", one_clip, "octcube_ir CLIP step, 4 pairs, lock 9")):
+        got = [r[name] for r in ranks]
+        one_row = one_steps[0]
+        dloss = max(abs(s["loss"] - o["loss"]) / abs(o["loss"])
+                    for g in got for s, o in zip(g, one_steps))
+        print(f"23b {name} ({what}) on {world} fsdp ranks vs one rank: "
+              f"losses {[[s['loss'] for s in g] for g in got]} vs "
+              f"{[s['loss'] for s in one_steps]}, max rel dloss {dloss:.3e} "
+              f"(tol {TOL_FSDP_LOSS:.0e}); launches per step "
+              f"{[s['launches'] for s in got[0]]} (one rank "
+              f"{one_row['launches']})")
+        for r, g in enumerate(got):
+            print(f"23b {name} rank {r} on {smi}: CUDA events per step "
+                  f"{[round(s['event_ms'], 1) for s in g]} ms, host "
+                  f"{[round(s['host_ms'], 1) for s in g]} ms; host ms (calls)"
+                  f" of the gathers "
+                  f"{[(round(s['collectives']['all_gather'][1], 1), s['collectives']['all_gather'][0]) for s in g]}"
+                  f", reduce-scatters "
+                  f"{[(round(s['collectives']['reduce_scatter'][1], 1), s['collectives']['reduce_scatter'][0]) for s in g]}"
+                  f", whole-leaf all-reduces "
+                  f"{[(round(s['collectives']['all_reduce_mean'][1], 1), s['collectives']['all_reduce_mean'][0]) for s in g]}"
+                  f" (gloo through the host, not NCCL's time); peak "
+                  f"{[round(s['peak_gib'], 2) for s in g]} GiB (one rank "
+                  f"{one_row['peak_gib']:.2f}; 22c's CLI {12.87} GiB)")
+        if (dloss > TOL_FSDP_LOSS
+                or any(s["launches"] != one_row["launches"]
+                       for g in got for s in g)
+                or not all(math.isfinite(s["loss"]) and math.isfinite(
+                    s["grad_norm"]) for g in got for s in g)):
+            bad.append(name)
+        for kern in ("flash_fwd_packed", "flash_bwd_packed"):
+            seen[f"23b {name} fsdp 2 {kern}"] = [
+                s["launches"].get(kern, 0) for s in got[0]]
+    step2 = ([r["joint"][1]["loss"] for r in ranks]
+             + [r["resumed"][0]["loss"] for r in ranks]
+             + [one_rows[1]["loss"], one_resumed[0]["loss"]])
+    step3 = ([r["joint"][2]["loss"] for r in ranks]
+             + [r["resumed"][1]["loss"] for r in ranks]
+             + [one_resumed[1]["loss"]])
+    d3 = max(abs(v - one_rows[2]["loss"]) / abs(one_rows[2]["loss"])
+             for v in step3)
+    print(f"23b checkpoint: saved by both ranks at step 1 in "
+          f"{[round(r['save_s'], 1) for r in ranks]} s (gathers: host ms, "
+          f"calls {[r['save_collectives']['all_gather'][::-1] for r in ranks]}"
+          f"); one rank's resumed step: peak {one_resumed[0]['peak_gib']:.2f}"
+          f" GiB, {one_resumed[0]['event_ms']:.1f} ms (restored step "
+          f"{[r['restored_step'] for r in ranks]}); step 2 losses (fsdp "
+          f"uninterrupted, resumed onto fsdp 2, one rank uninterrupted, "
+          f"resumed onto one rank) {step2}; step 3 losses {step3} vs one "
+          f"rank's uninterrupted {one_rows[2]['loss']}, max rel {d3:.3e} "
+          f"(tol {TOL_FSDP_LOSS:.0e}); {mlp} after step 2 (the first "
+          f"update at a non-zero LR) bit-equal to one rank's block: "
+          f"{mlp_equal}; step 2 grad norms "
+          f"{[r['joint'][1]['grad_norm'] for r in ranks]}, "
+          f"{[r['resumed'][0]['grad_norm'] for r in ranks]}, "
+          f"{one_resumed[0]['grad_norm']} (B2's dq order: within "
+          f"{TOL_RUN_TO_RUN:.1e})")
+    gn = ranks[0]["joint"][1]["grad_norm"]
+    if (any(v != step2[0] for v in step2) or d3 > TOL_FSDP_LOSS
+            or not all(mlp_equal.values())
+            or any(r["restored_step"] != 1 for r in ranks)
+            or any(abs(r["resumed"][0]["grad_norm"] - gn)
+                   > TOL_RUN_TO_RUN * gn for r in ranks)
+            or abs(one_resumed[0]["grad_norm"] - gn) > TOL_RUN_TO_RUN * gn):
+        bad.append("checkpoint")
+    if bad:
+        raise AssertionError(f"23b: {bad}")
+    return seen
+
+
+def run_phase23(torch, _cuda, entry_mod, smi):
+    """Phase 23: states sharded over fsdp (a)-(b), then
+    entry.dryrun_multichip(4) on four gloo ranks sharing the card (c)."""
+    seen = {"23a": run_fsdp_one_rank(torch, _cuda, entry_mod)}
+    seen["23b"] = run_fsdp_gloo(torch, _cuda, entry_mod, smi)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines = entry_mod.dryrun_multichip(4)
+    print(f"23c: dryrun_multichip(4) on {smi}: {len(lines)} lines in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # NCCL takes one card a rank; with fewer than four the ranks share
+    want = ("4 cards, one a rank, backend nccl"
+            if torch.cuda.device_count() >= 4 else "gloo ranks sharing")
+    if want not in lines[0] or len(lines) != 8:
+        raise AssertionError(f"23c: dryrun_multichip(4), want {want!r} in "
+                             f"{lines[0]!r}")
+    print(f"phase 23 launches per step: {json.dumps(seen)}")
 
 
 def main() -> int:
@@ -5415,6 +5888,8 @@ def main() -> int:
     phase_done("21: the auxiliary COEM towers")
     tp_rows = run_phase22(torch, _cuda, entry_mod, fa, smi, rate)
     phase_done("22: the multi-rank paths")
+    run_phase23(torch, _cuda, entry_mod, smi)
+    phase_done("23: fsdp-sharded states, dryrun_multichip(4)")
     per_step = {kern: {**ft_launches[kern], **coem_launches_seen[kern],
                        **aux_seen[kern]}
                 for kern in ft_launches}

@@ -250,8 +250,8 @@ def main(argv=None):
         dist.all_gather_object(ids, list(pids))
         keep = torch.cat([torch.arange(len(p)) + r * local_b
                           for r, p in enumerate(ids)])
-        return (multihost.gather_rows(logits)[keep.to(logits.device)],
-                multihost.gather_rows(emb)[keep.to(emb.device)],
+        return (multihost.all_gather(logits)[keep.to(logits.device)],
+                multihost.all_gather(emb)[keep.to(emb.device)],
                 [p for part in ids for p in part])
 
     # one batch deep: batch t-1's results are read after batch t is issued

@@ -17,13 +17,16 @@ when metadata was given.  The JAX package's semantics:
 
 Files are read with ``weights_only=True``.
 
-In a process group every rank holds the same replicated state: rank 0
-alone writes (and deletes), the others return at once, and every
-reader, ``wait_for_saves`` included, ends at a barrier once rank 0's
-pending write is on disk, so no rank reads a step before it is
-complete.  Every rank restores, and a resume on n ranks is bit-exact as
-on one.  The calls are collective: every rank makes them in the same
-order.
+In a process group rank 0 alone writes (and deletes), and every reader,
+``wait_for_saves`` included, ends at a barrier once rank 0's pending
+write is on disk, so no rank reads a step before it is complete.  A
+replicated state is rank 0's to copy, and the other ranks return at
+once; a state sharded over fsdp (``core/fsdp.py``) is saved whole: every
+rank takes part in gathering each sharded leaf, and rank 0 keeps the
+host copies.  Every rank restores; a sharded state cuts the whole
+tensors to its own chunks, so a run resumes on another fsdp degree or
+on one rank, and a resume is bit-exact as on one rank.  The calls are
+collective: every rank makes them in the same order.
 """
 
 from __future__ import annotations
@@ -131,9 +134,13 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
         log.warning("checkpoint step %d not saved: %s already holds step %d",
                     step, ckpt_dir, latest)
         return
-    if world()[0] != 0:
+    rank = world()[0]
+    if getattr(state, "shards", None) is not None:
+        payload = state.shards.host_state_dict(state, keep=rank == 0)
+    elif rank == 0:
+        payload = _host_copy(state)
+    if rank != 0:
         return
-    payload = _host_copy(state)
     if not async_save:
         _write(key, step, payload, extra, keep_last)
         return

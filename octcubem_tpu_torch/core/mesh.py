@@ -15,8 +15,9 @@ tensor dim (``()`` replicates); ``placements`` turns it into the
 ``DTensor`` placements of a ``DeviceMesh``.  ``batch_sharding`` and
 ``replicated`` are those placements for a batch and for a replicated
 tensor, and ``fsdp_param_spec`` is JAX's size policy on the port's
-reference-layout weights.  As in the JAX CLIs, no CLI applies it: they
-replicate their params.
+reference-layout weights, which ``core/fsdp.shard_state`` applies to a
+train state.  As in the JAX CLIs, no CLI applies it: they replicate
+their params.
 """
 
 from __future__ import annotations
@@ -101,6 +102,13 @@ def data_group(mesh: DeviceMesh):
     """The process group of this rank's data axis: the ranks whose rows
     make up the global batch."""
     return mesh.get_group(DATA_AXIS)
+
+
+def fsdp_group(mesh: DeviceMesh):
+    """The process group of this rank's fsdp axis: the ranks of one data
+    index, which hold the same rows and one chunk each of every sharded
+    parameter (``core/fsdp.py``)."""
+    return mesh.get_group(FSDP_AXIS)
 
 
 def placements(mesh: DeviceMesh, spec: tuple = ()) -> list:

@@ -19,12 +19,18 @@ Collectives.  The engines reduce explicitly, not through
 ``DistributedDataParallel``'s hooks, which ``torch.autograd.grad`` (the
 MAE and fine-tune steps' out-of-place gradients) never fires:
 ``all_reduce_mean`` sums a list of tensors in flat buckets and divides by
-the group's size (gloo has no AVG); ``gather_rows`` concatenates the
-ranks' rows in rank order, and ``GatherRows`` does so with a gradient
-(its backward sums the gradient over the ranks and keeps this rank's
-rows).  The gloo backend takes CUDA tensors only in all_reduce,
-broadcast and barrier, so on gloo a gather of CUDA tensors is an
-all_reduce of a zero-padded buffer; bf16 travels through gloo as fp32.
+the group's size (gloo has no AVG); ``all_gather`` concatenates the
+ranks' tensors along a dim in rank order and ``reduce_scatter`` keeps
+this rank's block of their sum (along a dim other than 0 both return a
+strided view, which the consumer copies where it needs rows); ``all_gather_with_grad`` is the gather
+whose backward is that reduce-scatter (every rank's loss reads every
+block), which the CLIP loss's features, the sequence-parallel stacks and
+the fsdp-sharded params (``core/fsdp.py``) go through.  The gloo backend
+takes CUDA tensors only in all_reduce, broadcast and barrier, so on gloo
+a gather of CUDA tensors is an all_reduce of a zero-padded buffer and a
+reduce-scatter an all_reduce of the whole tensor, of which the rank
+keeps its block; NCCL and gloo on the CPU run the real collectives.
+bf16 travels through gloo as fp32.
 """
 
 from __future__ import annotations
@@ -272,38 +278,59 @@ def _gather_flat(t: torch.Tensor, group, n: int, r: int) -> torch.Tensor:
     return buf.view((n,) + t.shape)
 
 
-def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
-    """The ranks' ``t`` concatenated along dim 0 in rank order (no
+def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in rank order (no
     gradient)."""
     n = _size(group)
     if n == 1:
         return t
+    moved = t.detach().movedim(dim, 0)
+    out = _gather_flat(moved, group, n, dist.get_rank(group))
+    out = out.reshape((n * moved.shape[0],) + moved.shape[1:]).to(t.dtype)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` (``t.chunk(n, dim)[rank]``) of the
+    sum over the group's ranks of ``t``."""
+    n = _size(group)
+    if n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} ranks")
     r = dist.get_rank(group)
-    out = _gather_flat(t.detach(), group, n, r)
-    return out.reshape((n * t.shape[0],) + t.shape[1:]).to(t.dtype)
+    full = _wire(t.movedim(dim, 0).contiguous(), group)
+    if dist.get_backend(group) == "gloo" and full.is_cuda:
+        full = full.clone() if full.data_ptr() == t.data_ptr() else full
+        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
+        out = full.chunk(n)[r]
+    else:
+        out = full.new_empty((full.shape[0] // n,) + full.shape[1:])
+        dist.reduce_scatter_tensor(out, full, op=dist.ReduceOp.SUM,
+                                   group=group)
+    return out.to(t.dtype).movedim(0, dim)
 
 
-class GatherRows(torch.autograd.Function):
-    """``gather_rows`` with a gradient: the backward sums the gathered
-    rows' gradient over the ranks (every rank's loss reads every row) and
-    returns this rank's block, the all_gather's transpose."""
+class _AllGather(torch.autograd.Function):
+    """``all_gather`` with a gradient: the backward is its transpose, the
+    reduce-scatter (sum) of the gathered tensor's gradient."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group, ctx.rows = group, t.shape[0]
-        return gather_rows(t, group)
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        r = dist.get_rank(ctx.group)
-        g = all_reduce_sum(g.contiguous(), ctx.group)
-        return g[r * ctx.rows:(r + 1) * ctx.rows], None
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
-def gather_rows_with_grad(t: torch.Tensor, group=None) -> torch.Tensor:
+def all_gather_with_grad(t: torch.Tensor, group=None,
+                         dim: int = 0) -> torch.Tensor:
     if _size(group) == 1:
         return t
-    return GatherRows.apply(t, group)
+    return _AllGather.apply(t, group, dim)
 
 
 def broadcast_(tensors, src: int = 0, group=None) -> None:

@@ -2,11 +2,14 @@
 octcubem_tpu/parallel/): the mesh and its placements (``core/mesh.py``),
 batch and state placement for data parallelism (``shard_batch``,
 ``replicate_state``; the engines reduce their gradients explicitly, see
-``core/multihost.py``), sequence-parallel attention (``sequence``,
+``core/multihost.py``), the optional parameter and optimizer-state
+sharding over fsdp for ViT-H+ headroom (``shard_state``,
+``core/fsdp.py``), sequence-parallel attention (``sequence``,
 attn_impl="flash_sp") and head-parallel attention (``tensor``,
 attn_impl="flash_tp").  The CLIP loss gathers features across ranks in
 ``train/clip_engine.py``."""
 
+from ..core.fsdp import shard_state  # noqa: F401
 from ..core.mesh import (DATA_AXIS, FSDP_AXIS, SP_AXIS,  # noqa: F401
                          batch_sharding, fsdp_param_spec, make_mesh,
                          replicated)

@@ -28,9 +28,11 @@ explicit:
   is the ranks that share it.
 
 Backward: the gather's transpose is a reduce-scatter (sum) of dk/dv over
-the sp group, written out as a ``torch.autograd.Function``; JAX derives
-it from ``all_gather``.  The ring's backward re-rotates k/v with their
-gradient accumulators, as the JAX custom VJP does.
+the sp group (``core/multihost.all_gather_with_grad``, which gloo ranks
+on a card also run); JAX derives it from ``all_gather``.  The ring's
+backward re-rotates k/v with their gradient accumulators, as the JAX
+custom VJP does; gloo sends CPU tensors only, so a ring of gloo ranks on
+a card stages its blocks through the host.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..core.multihost import all_gather_with_grad
 from ..ops.flash_attention import (_delta_bh, bwd_bh, flash_attention_rect,
                                    fwd_bh)
 
@@ -60,30 +63,17 @@ def _sp_group(mesh, axis: str, batch_axis: str | None = None):
     return group, dist.get_world_size(group), dist.get_rank(group)
 
 
-class _GatherKV(torch.autograd.Function):
+def _gather_kv(k, v, group):
     """The local k, v [B, H, n_loc, D] -> the group's full k, v
-    [B, H, n_sp * n_loc, D] in rank order, by one all_gather of both;
-    the backward reduce-scatters (sums) dk, dv back to their shards.  The
-    gathered rows lie sequence-major ([N, 2, B, H, D] memory), so the
-    [B, H, N, D] views reach the kernels with no copy."""
-
-    @staticmethod
-    def forward(ctx, k, v, group, n_sp: int):
-        ctx.group, ctx.n_sp = group, n_sp
-        local = torch.stack([k, v]).permute(3, 0, 1, 2, 4).contiguous()
-        full = local.new_empty((n_sp * local.shape[0],) + local.shape[1:])
-        dist.all_gather_into_tensor(full, local, group=group)
-        kf, vf = full.permute(1, 2, 3, 0, 4).unbind(0)
-        return kf, vf
-
-    @staticmethod
-    def backward(ctx, dk, dv):
-        full = torch.stack([dk, dv]).permute(3, 0, 1, 2, 4).contiguous()
-        local = full.new_empty((full.shape[0] // ctx.n_sp,) + full.shape[1:])
-        dist.reduce_scatter_tensor(local, full, op=dist.ReduceOp.SUM,
-                                   group=ctx.group)
-        dkl, dvl = local.permute(1, 2, 3, 0, 4).unbind(0)
-        return dkl, dvl, None, None
+    [B, H, n_sp * n_loc, D] in rank order, by one all_gather of both
+    (``core/multihost.all_gather_with_grad``: the backward reduce-scatters
+    dk, dv back to their shards).  The gathered rows lie sequence-major
+    ([N, 2, B, H, D] memory), so the [B, H, N, D] views reach the kernels
+    with no copy."""
+    local = torch.stack([k, v]).permute(3, 0, 1, 2, 4)
+    full = all_gather_with_grad(local, group)
+    kf, vf = full.permute(1, 2, 3, 0, 4).unbind(0)
+    return kf, vf
 
 
 def sequence_parallel_attention(q, k, v, mesh, axis: str = "sp",
@@ -111,7 +101,7 @@ def sequence_parallel_attention(q, k, v, mesh, axis: str = "sp",
         keep = (rows < n_valid)[:, None]
         k = torch.where(keep, k, 0)
         v = torch.where(keep, v, 0)
-    kf, vf = _GatherKV.apply(k, v, group, n_sp)
+    kf, vf = _gather_kv(k, v, group)
     return flash_attention_rect(q, kf, vf, scale=scale, no_max=no_max,
                                 kv_valid=n_valid)
 
@@ -125,13 +115,14 @@ def _rotate(tensors, group, n_sp: int, r: int):
         return list(tensors)
     nxt = dist.get_global_rank(group, (r + 1) % n_sp)
     prv = dist.get_global_rank(group, (r - 1) % n_sp)
-    send = [t.contiguous() for t in tensors]
+    host = dist.get_backend(group) == "gloo" and tensors[0].is_cuda
+    send = [(t.cpu() if host else t).contiguous() for t in tensors]
     recv = [torch.empty_like(t) for t in send]
     ops = ([dist.P2POp(dist.isend, t, nxt, group) for t in send]
            + [dist.P2POp(dist.irecv, t, prv, group) for t in recv])
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return recv
+    return [r.to(t.device) for r, t in zip(recv, tensors)] if host else recv
 
 
 class _RingAttention(torch.autograd.Function):
@@ -278,28 +269,6 @@ def shards_stacks() -> bool:
     return bool(_SP_CONTEXT) and _SP_CONTEXT[-1][4]
 
 
-class _GatherSeq(torch.autograd.Function):
-    """The local token shard [B, n_loc, ...] -> the group's [B, n_sp *
-    n_loc, ...] in rank order by one all_gather; the backward
-    reduce-scatters (sums) the gradient back to the shards."""
-
-    @staticmethod
-    def forward(ctx, x, group, n_sp: int):
-        ctx.group, ctx.n_sp = group, n_sp
-        local = x.transpose(0, 1).contiguous()
-        full = local.new_empty((n_sp * local.shape[0],) + local.shape[1:])
-        dist.all_gather_into_tensor(full, local, group=group)
-        return full.transpose(0, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        full = g.transpose(0, 1).contiguous()
-        local = full.new_empty((full.shape[0] // ctx.n_sp,) + full.shape[1:])
-        dist.reduce_scatter_tensor(local, full, op=dist.ReduceOp.SUM,
-                                   group=ctx.group)
-        return local.transpose(0, 1), None, None
-
-
 def run_stack_sharded(fn, x):
     """``fn`` (a stack's blocks over token shards) on global activations x
     [B, N, C]: this rank's shard of x padded to a multiple of the sp
@@ -314,6 +283,6 @@ def run_stack_sharded(fn, x):
     def gather(t):
         if n_sp == 1:
             return t
-        return _GatherSeq.apply(t, group, n_sp)[:, :n]
+        return all_gather_with_grad(t, group, dim=1)[:, :n]
 
     return [gather(t) for t in out] if isinstance(out, list) else gather(out)

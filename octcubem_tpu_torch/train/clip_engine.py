@@ -7,7 +7,7 @@ Parity targets:
   batch, logits in fp32.  JAX gets it from global arrays; here, under a
   data-parallel ``mesh``, each rank's features are gathered across the
   data axis in rank order by an all_gather that carries gradients
-  (``core/multihost.gather_rows_with_grad``: its backward sums the
+  (``core/multihost.all_gather_with_grad``: its backward sums the
   gradient over the ranks and keeps the rank's rows), and every rank
   computes the whole global loss.  The tower gradient on a rank is then
   the data degree times its rows' share, and ``logit_scale``'s is the
@@ -37,6 +37,13 @@ Parity targets:
   (train_retclip.py:409-425), and the duplicate-corrected variant
   (:427-469).
 
+A state sharded over fsdp (``core/fsdp.shard_state``) trains through
+every step here, the accumulation included: the forwards and backwards
+run inside ``fsdp.gathered`` (each sharded param read whole, gathered
+once per step, its chunk's gradient reduce-scattered by every
+``backward``), and ``_update`` takes the mean over the mesh and the
+global norm.  ``logit_scale`` is 0-d, so the size policy replicates it.
+
 LiT locking lives in the params (``optim.make_partition``): the steps
 differentiate the optimizer's params only (``tx.params``), so a frozen
 prefix builds no backward and holds no moments; under the zero-scale
@@ -54,9 +61,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core import multihost
+from ..core import fsdp, multihost
 from ..core.mesh import check_mesh, data_group
-from .optim import global_norm
+from .optim import grad_norm
 from .train_state import TrainState
 
 
@@ -100,11 +107,6 @@ def three_modality_clip_loss(img, enf1, enf2, scale, scale1, scale2, w1, w2):
 
 # ------------------------------------------------------------- train steps
 
-def _grad_norm(tx):
-    return global_norm([p.grad if p.grad is not None else torch.zeros_like(p)
-                        for p in tx.params])
-
-
 class _Gather:
     """The data-parallel gathers of a step over ``mesh`` (identities
     without one)."""
@@ -114,11 +116,11 @@ class _Gather:
         self.group = data_group(mesh) if self.on else None
 
     def grad(self, t):
-        return multihost.gather_rows_with_grad(t, self.group) if self.on \
+        return multihost.all_gather_with_grad(t, self.group) if self.on \
             else t
 
     def rows(self, t):
-        return multihost.gather_rows(t, self.group) if self.on else t
+        return multihost.all_gather(t, self.group) if self.on else t
 
 
 def _local_batch(batch):
@@ -127,12 +129,12 @@ def _local_batch(batch):
 
 def _update(state: TrainState, tx, loss, reduce: bool = False):
     """One optimizer step from the params' ``.grad`` (first their mean
-    over every rank when ``reduce``) -> metrics."""
-    if reduce:
-        grads = multihost.all_reduce_mean([p.grad for p in tx.params])
-        for p, g in zip(tx.params, grads):
-            p.grad = g
-    gn = _grad_norm(tx)
+    over every rank when ``reduce`` or on a sharded state) -> metrics."""
+    grads = fsdp.mean_grads(state, tx.params, [p.grad for p in tx.params],
+                            reduce)
+    for p, g in zip(tx.params, grads):
+        p.grad = g
+    gn = grad_norm(tx.params, grads, state.shards)
     tx.step()
     state.step += 1
     return {"loss": loss.detach(), "grad_norm": gn}
@@ -149,18 +151,20 @@ def make_clip_train_step(model, tx, three_mod: bool = False, mesh=None):
         batch = _local_batch(batch)
         model.train()
         tx.zero_grad()
-        if three_mod:
-            img, e1, e2, *scales = model(batch["image"], batch["enface1"],
-                                         batch["enface2"],
-                                         generator=state.generator)
-            loss = three_modality_clip_loss(
-                gather.grad(img), gather.grad(e1), gather.grad(e2), *scales,
-                gather.rows(batch["weight1"]), gather.rows(batch["weight2"]))
-        else:
-            img, enf, scale = model(batch["image"], batch["enface"],
-                                    generator=state.generator)
-            loss = clip_loss(gather.grad(img), gather.grad(enf), scale)
-        loss.backward()
+        with fsdp.gathered(state, mesh):
+            if three_mod:
+                img, e1, e2, *scales = model(
+                    batch["image"], batch["enface1"], batch["enface2"],
+                    generator=state.generator)
+                loss = three_modality_clip_loss(
+                    gather.grad(img), gather.grad(e1), gather.grad(e2),
+                    *scales, gather.rows(batch["weight1"]),
+                    gather.rows(batch["weight2"]))
+            else:
+                img, enf, scale = model(batch["image"], batch["enface"],
+                                        generator=state.generator)
+                loss = clip_loss(gather.grad(img), gather.grad(enf), scale)
+            loss.backward()
         return state, _update(state, tx, loss, gather.on)
 
     return step
@@ -191,7 +195,12 @@ def _accum_step(model, tx, accum_freq: int, encode, n_feat: int,
     def step(state: TrainState, batch):
         batch = _local_batch(batch)
         model.train()
-        gen = state.generator
+        with fsdp.gathered(state, mesh):
+            total = passes(state.generator, batch)
+        return state, _update(state, tx, total / accum_freq, gather.on)
+
+    def passes(gen, batch):
+        """Both passes -> the summed chunk losses; the gradient in .grad."""
         starts, bank = [], []
         with torch.no_grad():
             for i in range(accum_freq):
@@ -210,7 +219,7 @@ def _accum_step(model, tx, accum_freq: int, encode, n_feat: int,
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         gen.set_state(after)
-        return state, _update(state, tx, total / accum_freq, gather.on)
+        return total
 
     return step
 
@@ -271,10 +280,12 @@ def make_clip_cls_train_step(model, tx, criterion, three_mod: bool = False,
         batch = _local_batch(batch)
         model.train()
         tx.zero_grad()
-        logits = _cls_forward(model, batch, three_mod, single_modality,
-                              state.generator)
-        loss = criterion(gather.grad(logits), gather.rows(batch["label"]))
-        loss.backward()
+        with fsdp.gathered(state, mesh):
+            logits = _cls_forward(model, batch, three_mod, single_modality,
+                                  state.generator)
+            loss = criterion(gather.grad(logits),
+                             gather.rows(batch["label"]))
+            loss.backward()
         return state, _update(state, tx, loss, gather.on)
 
     return step

@@ -20,7 +20,7 @@ mode with no gradient.
 Data parallelism (``mesh``): each rank holds its rows of the global
 batch.  The criterion is taken over the global batch, as JAX's is: the
 logits are gathered across the data axis with a gradient
-(``core/multihost.gather_rows_with_grad``, whose backward sums over the
+(``core/multihost.all_gather_with_grad``, whose backward sums over the
 ranks) and the targets without, so the weighted criteria that divide by
 the batch's valid count (``weighted_label_smoothing_ce``,
 ``multi_task_loss``) see the global count, and every rank computes the
@@ -30,7 +30,10 @@ global loss's, so every rank keeps or reverts together.  Drop-path and
 the dropout head draw their masks for the rank's rows from the
 replicated generator: every rank takes the first B_local rows of a
 global draw, where JAX's rank r would take rows [r * B_local, (r + 1) *
-B_local), so the two agree at rate 0 only.
+B_local), so the two agree at rate 0 only.  A state sharded over fsdp
+(``core/fsdp.shard_state``) runs the forward and backward inside
+``fsdp.gathered``; the loss, and so ``ok``, is the global one on every
+rank, so the ranks keep or revert their chunks together.
 """
 
 from __future__ import annotations
@@ -43,10 +46,10 @@ import pickle
 import numpy as np
 import torch
 
-from ..core import multihost
+from ..core import fsdp, multihost
 from ..core.mesh import check_mesh, data_group
 from . import metrics as metrics_lib
-from .optim import global_norm
+from .optim import grad_norm
 from .train_state import TrainState
 
 
@@ -62,21 +65,20 @@ def make_finetune_train_step(model, tx, criterion, mesh=None):
     def step(state: TrainState, batch, targets):
         batch, targets = multihost.local(batch), multihost.local(targets)
         model.train()
-        out = model(batch, state.generator)
-        if isinstance(out, tuple):
-            out = out[0]
-        if reduce:
-            out = multihost.gather_rows_with_grad(out, group)
-            targets = multihost.gather_rows(targets, group)
-        loss = criterion(out, targets)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        if reduce:
-            grads = multihost.all_reduce_mean(grads)
+        with fsdp.gathered(state, mesh):
+            out = model(batch, state.generator)
+            if isinstance(out, tuple):
+                out = out[0]
+            if reduce:
+                out = multihost.all_gather_with_grad(out, group)
+                targets = multihost.all_gather(targets, group)
+            loss = criterion(out, targets)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = fsdp.mean_grads(state, params, grads, reduce)
         for p, g in zip(params, grads):
             p.grad = g
         ok = torch.isfinite(loss)
-        gn = global_norm([g if g is not None else torch.zeros_like(p)
-                          for p, g in zip(params, grads)])
+        gn = grad_norm(params, grads, state.shards)
         tx.step(ok=ok)
         if not torch.is_tensor(state.step):
             state.step = torch.tensor(int(state.step), device=loss.device)

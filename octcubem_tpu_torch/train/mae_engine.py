@@ -47,16 +47,26 @@ generator, so the generators stay in lockstep and an n-rank step equals
 a one-rank step on the global batch.  Under ``n_sp`` > 1 the stacks
 shard and gather the tokens (parallel/sequence.py); the same mean over
 every rank is then the exact gradient.
+
+A state sharded over the mesh's ``fsdp`` axis (``core/fsdp.shard_state``,
+JAX's ``put_tree(mesh, state, fsdp_param_spec)``) trains through the same
+step: its forwards and backwards run inside ``fsdp.gathered``, where each
+sharded param reads as its whole tensor, gathered once per step (the
+3D batch, the 2D batch, every microbatch and ``model2d``'s remat
+recompute all read it), and its chunk's gradient comes back
+reduce-scattered; ``fsdp.mean_grads`` takes the mean over the mesh and
+``grad_norm`` the global gradient's norm, and AdamW updates each rank's
+chunks.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core import multihost
+from ..core import fsdp, multihost
 from ..core.mesh import DATA_AXIS, axis_coord, check_mesh
 from ..data.premask import compute_premask
-from .optim import global_norm
+from .optim import grad_norm
 from .train_state import TrainState
 
 
@@ -140,6 +150,26 @@ def make_mae_train_step(model, tx, joint: bool = False,
 
         model.train()
         m2d.train()
+        with fsdp.gathered(state, mesh):
+            grads, l3, l2, fls = fwd_bwd(batch3d, batch2d, loss3d, loss2d)
+        if given:
+            raise ValueError(f"{len(given)} noise tensors left unused")
+        grads = fsdp.mean_grads(state, params, grads, reduce)
+        if reduce:
+            l3, l2 = multihost.all_reduce_mean([torch.stack([l3, l2])])[
+                0].unbind(0)
+        for p, g in zip(params, grads):
+            p.grad = g
+        gn = (grad_norm(params, grads, state.shards) if compute_grad_norm
+              else torch.zeros((), device=batch3d.device))
+        tx.step()
+        state.step += 1
+        metrics = {"loss": l3 + l2, "loss_3d": l3, "loss_2d": l2,
+                   "frame_losses": torch.cat(fls, dim=0), "grad_norm": gn}
+        return state, metrics
+
+    def fwd_bwd(batch3d, batch2d, loss3d, loss2d):
+        """The step's losses and gradient list, before any reduction."""
         zero = torch.zeros((), device=batch3d.device)
         if accum_2d > 1:
             l3, fl = loss3d(batch3d)
@@ -171,22 +201,7 @@ def make_mae_train_step(model, tx, joint: bool = False,
                 l2_sum = l2_sum + l2.detach()
                 fls.append(fl.detach())
             l3, l2 = l3_sum / accum_iter, l2_sum / accum_iter
-        if given:
-            raise ValueError(f"{len(given)} noise tensors left unused")
-        if reduce:
-            grads = multihost.all_reduce_mean(grads)
-            l3, l2 = multihost.all_reduce_mean([torch.stack([l3, l2])])[
-                0].unbind(0)
-        for p, g in zip(params, grads):
-            p.grad = g
-        gn = (global_norm([g if g is not None else torch.zeros_like(p)
-                           for p, g in zip(params, grads)])
-              if compute_grad_norm else zero)
-        tx.step()
-        state.step += 1
-        metrics = {"loss": l3 + l2, "loss_3d": l3, "loss_2d": l2,
-                   "frame_losses": torch.cat(fls, dim=0), "grad_norm": gn}
-        return state, metrics
+        return grads, l3, l2, fls
 
     return step
 
@@ -216,7 +231,8 @@ def shard_microbatch(batch, mesh):
 def replicate_state(state: TrainState, mesh):
     """Every rank's params, buffers and optimizer moments set to rank 0's
     (a broadcast, as ``DistributedDataParallel`` starts), in place; the
-    generators are seeded alike.  No mesh: the state as it is."""
+    generators are seeded alike.  No mesh: the state as it is.
+    ``core/fsdp.shard_state`` shards a state over the mesh instead."""
     if mesh is None or multihost.world()[1] == 1:
         return state
     tx = state.tx

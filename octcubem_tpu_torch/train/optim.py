@@ -18,6 +18,11 @@ takes a zero gradient, as JAX gives it one: its count, moments and
 weight decay still advance (``torch.optim`` would skip it).  Each stage
 is one multi-tensor (``torch._foreach_*``) op over all params.
 
+On a state sharded over fsdp (``core/fsdp.py``) the params, ``mu`` and
+``nu`` of a sharded leaf are this rank's chunks, on which every stage
+above is elementwise; the clip's norm is the global gradient's
+(``global_norm``).
+
 ``step(ok=...)`` is the fine-tune step's NaN guard on the device (JAX's
 ``jnp.where(ok, new, old)`` over the whole state): the update is computed
 out of place and kept only where the 0-d bool ``ok`` holds, so a
@@ -43,6 +48,8 @@ from typing import Callable, Mapping
 
 import torch
 from torch import nn
+
+from ..core.multihost import all_reduce_sum
 
 _NO_DECAY = ("pos_embed", "cls_token", "mask_token")
 
@@ -142,12 +149,39 @@ def scale_by_tree(tx: "AdamW", scales: Mapping[str, float]) -> "AdamW":
     return tx
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors (fp32), one 0-d tensor."""
-    tensors = [t.float() for t in tensors]
+def global_norm(tensors, sharded=None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, one fp32 0-d tensor.
+    Each tensor's norm accumulates in fp64: the CPU's fp32 norm of a
+    ViT-L weight's 4 M entries is 1e-4 off.  ``sharded``: per tensor,
+    whether it is this rank's chunk of a leaf sharded over ``group``
+    (fsdp, ``core/fsdp.py``): the chunks' sum of squares is summed over
+    the group's ranks and every whole tensor is counted once, so every
+    rank gets the norm of the global gradient."""
     if not tensors:
         return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    sharded = sharded or [False] * len(tensors)
+
+    def squares(ts):  # the sum of squares, one fp64 0-d tensor
+        norms = torch._foreach_norm([t.float() for t in ts], 2,
+                                    dtype=torch.float64)
+        return torch.stack(norms).square().sum()
+
+    whole = [t for t, s in zip(tensors, sharded) if not s]
+    chunks = [t for t, s in zip(tensors, sharded) if s]
+    total = squares(whole) if whole else 0.0
+    if chunks:
+        total = total + all_reduce_sum(squares(chunks), group)
+    return total.sqrt().float()
+
+
+def grad_norm(params, grads, shards=None) -> torch.Tensor:
+    """``global_norm`` of a step's gradients over ``params`` (None taken
+    as zeros); ``shards``: the state's fsdp layout, or None."""
+    grads = [g if g is not None else torch.zeros_like(p)
+             for p, g in zip(params, grads)]
+    if shards is None:
+        return global_norm(grads)
+    return global_norm(grads, shards.mask(params), shards.group)
 
 
 class AdamW:
@@ -177,6 +211,7 @@ class AdamW:
                        else [float(scales[n]) for n in self.names])
         self.mu_dtype = mu_dtype
         self.count = 0
+        self.shards = None  # the fsdp layout of a sharded state (core/fsdp)
         self._lr_table = None
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -217,7 +252,7 @@ class AdamW:
                  for p in self.params]
         grads = [g.float() for g in grads]
         if self.clip_grad is not None:
-            gn = global_norm(grads)
+            gn = grad_norm(self.params, grads, self.shards)
             factor = torch.where(gn < self.clip_grad, torch.ones_like(gn),
                                  self.clip_grad / gn)
             grads = torch._foreach_mul(grads, factor)

@@ -9,7 +9,7 @@ module; JAX is imported in the test process only.  Cases:
 - ``global_batch`` / ``local_rows`` / ``put_tree`` round trips, the
   placements against JAX's shard shapes (``fsdp_param_spec`` on a
   (data 1, fsdp 2) mesh);
-- ``all_reduce_mean``, ``gather_rows`` and ``GatherRows``' gradient;
+- ``all_reduce_mean``, ``all_gather`` and ``all_gather_with_grad``' gradient;
 - ``core/checkpoint``: rank 0 writes, both ranks restore bit for bit;
 - ``cli/pretrain.py`` (``--tiny --synthetic``, data parallel),
   ``cli/finetune.py`` (``--tiny --synthetic``), ``cli/predict.py
@@ -181,7 +181,7 @@ def _rank_main(rank, port, tmp, data_tree, out_dir):
         t = torch.tensor([1.0, 2.0]) * (rank + 1)
         res["mean"] = multihost.all_reduce_mean([t, None, t[:1]])[0].numpy()
         x = torch.full((2, 3), float(rank), requires_grad=True)
-        gathered = multihost.gather_rows_with_grad(x)
+        gathered = multihost.all_gather_with_grad(x)
         (gathered * torch.arange(4.0)[:, None]).sum().backward()
         res["gather"] = gathered.detach().numpy()
         res["gather_grad"] = x.grad.numpy()
@@ -324,8 +324,8 @@ def test_global_batch_and_put_tree_round_trip(ranks):
 
 
 def test_collectives(ranks):
-    """all_reduce_mean is the mean over ranks; gather_rows concatenates in
-    rank order; GatherRows hands each rank the gradient of its rows
+    """all_reduce_mean is the mean over ranks; all_gather concatenates in
+    rank order; all_gather_with_grad hands each rank the gradient of its rows
     summed over the ranks' (identical) losses."""
     results, _, _ = ranks
     for r, res in enumerate(results):
