@@ -1,0 +1,8 @@
+"""samples_per_s: volumes completed over the whole window per second of
+the window (host clock)."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.window_rate(run, "samples")
