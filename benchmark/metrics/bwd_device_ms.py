@@ -1,0 +1,10 @@
+"""bwd_device_ms.<cell kind> (layer: train step): device ms a profiled
+step of the events launched inside the program's
+``octcube.<engine>.backward`` ranges, which the program opens on the
+thread that runs the backward."""
+
+from harness import spans
+
+
+def read(run):
+    return spans.device_ms(run, "backward")

@@ -1,0 +1,9 @@
+"""update_device_ms.<cell kind> (layer: train step): device ms a
+profiled step of the events launched inside the program's
+``octcube.<engine>.update`` ranges."""
+
+from harness import spans
+
+
+def read(run):
+    return spans.device_ms(run, "update")

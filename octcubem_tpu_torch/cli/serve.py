@@ -12,7 +12,15 @@ Endpoints:
                   /255) or, with the query ?raw=0, a preprocessed
                   [num_frames, S, S] float volume.  Response:
                   {"probs": [[p_disease...]], "diseases": [...],
-                   "latency_ms": ...}
+                   "latency_ms": ..., "queue_ms": ..., "predict_ms": ...}
+
+``latency_ms`` runs from the request's turn at the lock to the logits on
+the host: ``queue_ms`` waiting for the lock (the requests before it)
+plus ``predict_ms`` (the copy to the device, the forward and the copy
+back).  Each request is one ``utils/profiling.step("serve")`` with the
+phases ``parse`` (reading the body, ``np.load``), ``transform``,
+``queue``, ``predict`` and ``respond``; the server logs one line a
+request with them.
 
 Requests run one at a time at batch 1 behind a lock; the model is built
 with seeded random weights and, from ``--ckpt``, the JAX server's import
@@ -38,12 +46,16 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 DISEASES = ["DME", "AMD", "POAG", "EPM", "DR", "VD", "RAO_RVO", "RNV"]
 
 # request-body cap: a raw in-house volume is 61x512x1024 fp64 ~ 256 MB;
 # anything past that is a stray upload, not a scan: reject before
 # buffering it into host RAM (413)
 MAX_BODY_BYTES = 512 * 1024 * 1024
+PHASES = ("parse", "transform", "queue", "predict", "respond")
+log = logging.getLogger("octcubem_tpu_torch.serve")
 
 
 def _predictor(fn, device):
@@ -113,6 +125,7 @@ def make_handler(predict, meta, val_transform, lock):
 
     class Handler(BaseHTTPRequestHandler):
         def _json(self, code: int, obj: dict):
+            self.status = code
             body = json.dumps(obj).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
@@ -130,58 +143,97 @@ def make_handler(predict, meta, val_transform, lock):
                 self._json(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):
+            self.status = None
+            with profiling.step("serve") as rec:
+                self._predict(rec["phases"])
+            ph = rec["phases"]
+            log.info("POST %s %s in %.2f ms: %s", self.path, self.status,
+                     rec["seconds"] * 1e3, " ".join(
+                         f"{k} {ph[k] * 1e3:.2f}" for k in PHASES
+                         if k in ph))
+
+        def _predict(self, phases: dict):
             if not self.path.startswith("/predict"):
                 self._json(404, {"error": f"no route {self.path}"})
                 return
+            with profiling.phase("parse"):
+                vol = self._read_volume()
+            if vol is None:
+                return
+            try:
+                with profiling.phase("transform"):
+                    x = self._model_input(vol)
+                if x is None:
+                    return
+                t0 = time.time()
+                with profiling.phase("queue"):
+                    lock.acquire()
+                try:
+                    with profiling.phase("predict"):
+                        logits = predict(x)
+                finally:
+                    lock.release()
+                ms = (time.time() - t0) * 1000
+                with profiling.phase("respond"):
+                    self._respond(logits, ms, phases)
+            except Exception as e:  # surface, don't kill the server
+                self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def _read_volume(self):
+            """The request's [T, H, W] volume, or None once an error has
+            been answered."""
             try:
                 n = int(self.headers.get("Content-Length", 0))
             except (TypeError, ValueError):
                 self._json(400, {"error": "bad Content-Length"})
-                return
+                return None
             if n <= 0:
                 # rfile.read(-1) would buffer until EOF: the unbounded
                 # read the cap exists to prevent
                 self._json(400, {"error": "missing/invalid Content-Length"})
-                return
+                return None
             if n > MAX_BODY_BYTES:
                 self._json(413, {"error": f"body {n} bytes exceeds limit "
                                           f"{MAX_BODY_BYTES}"})
-                return
+                return None
             try:
                 vol = np.load(io.BytesIO(self.rfile.read(n)),
                               allow_pickle=False)
             except Exception as e:
                 self._json(400, {"error": f"bad .npy body: {e}"})
-                return
+                return None
             if vol.ndim != 3:
                 self._json(400, {"error": f"expected [T, H, W], got "
                                           f"{list(vol.shape)}"})
-                return
+                return None
+            return vol
+
+        def _model_input(self, vol):
+            """The batch the model takes, or None once an error has been
+            answered."""
             raw = "raw=0" not in (self.path.split("?", 1) + [""])[1]
-            try:
-                v = vol.astype(np.float32)
-                if raw:
-                    v = val_transform(v) / 255.0
-                elif v.shape != (nf, size, size):
-                    self._json(400, {"error": f"preprocessed volume must be "
-                                              f"{[nf, size, size]}, got "
-                                              f"{list(v.shape)}"})
-                    return
-                x = np.zeros((batch, nf, size, size, 1), np.float32)
-                x[0] = v[..., None]
-                t0 = time.time()
-                with lock:
-                    logits = predict(x)
-                ms = (time.time() - t0) * 1000
-                logits = logits[:1].reshape(1, -1, 2)
-                e = np.exp(logits - logits.max(-1, keepdims=True))
-                probs = (e / e.sum(-1, keepdims=True))[:, :, 1]
-                names = (DISEASES if probs.shape[1] == len(DISEASES)
-                         else [f"class_{i}" for i in range(probs.shape[1])])
-                self._json(200, {"probs": probs.tolist(), "diseases": names,
-                                 "latency_ms": round(ms, 2)})
-            except Exception as e:  # surface, don't kill the server
-                self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            v = vol.astype(np.float32)
+            if raw:
+                v = val_transform(v) / 255.0
+            elif v.shape != (nf, size, size):
+                self._json(400, {"error": f"preprocessed volume must be "
+                                          f"{[nf, size, size]}, got "
+                                          f"{list(v.shape)}"})
+                return None
+            x = np.zeros((batch, nf, size, size, 1), np.float32)
+            x[0] = v[..., None]
+            return x
+
+        def _respond(self, logits, ms: float, phases: dict):
+            logits = logits[:1].reshape(1, -1, 2)
+            e = np.exp(logits - logits.max(-1, keepdims=True))
+            probs = (e / e.sum(-1, keepdims=True))[:, :, 1]
+            names = (DISEASES if probs.shape[1] == len(DISEASES)
+                     else [f"class_{i}" for i in range(probs.shape[1])])
+            self._json(200, {"probs": probs.tolist(), "diseases": names,
+                             "latency_ms": round(ms, 2),
+                             "queue_ms": round(phases["queue"] * 1e3, 2),
+                             "predict_ms": round(phases["predict"] * 1e3, 2)})
 
     return Handler
 
@@ -215,7 +267,6 @@ def main(argv=None, started_event=None, server_box=None):
     from ..data.transforms import create_3d_transforms
 
     setup_compilation_cache(device=resolve_device(args.device))
-    log = logging.getLogger("octcubem_tpu_torch.serve")
     predict, meta = build_predictor(args)
     _, val_t = create_3d_transforms(meta["input_size"], meta["num_frames"],
                                     RandFlipd_prob=0)

@@ -18,12 +18,18 @@ rank's head group (``num_heads`` stays the global count), q, k and v are
 sliced from the fused buffer as in the JAX package, and each rank runs
 its heads through ``flash_attention_packed``; the
 ``use_tensor_parallel`` context gives the mesh and the axis.
+
+While a ``torch.profiler`` session records, ``multi_head_attention_qkv``
+(the op every ViT block calls) runs inside ``octcube.attn.fwd`` and its
+backward inside ``octcube.attn.bwd``, and counts each call's shape into
+the open step's record (``utils/profiling.attention``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .flash_attention import (flash_attention, flash_attention_packed,
                               flash_attention_packed_qkv)
 
@@ -98,6 +104,13 @@ def multi_head_attention_qkv(qkv, num_heads: int, scale=None,
     The flash path reads q/k/v out of the fused buffer in the kernel;
     the naive, sequence- and head-parallel paths slice and delegate."""
     _check_impl(impl)
+    if profiling.recording():
+        return profiling.attention(_qkv_attention, qkv, num_heads, scale,
+                                   impl)
+    return _qkv_attention(qkv, num_heads, scale, impl)
+
+
+def _qkv_attention(qkv, num_heads: int, scale, impl: str):
     if impl in ("auto", "flash"):
         return flash_attention_packed_qkv(qkv, num_heads, scale=scale)
     hd = qkv.shape[-1] // 3

@@ -34,11 +34,14 @@ def _device_us(evt) -> float:
 def kernel_rows(prof):
     """(name, count, device us) of the device-side events (kernels and
     copies), by device time.  Host ranges are left out: a custom autograd
-    Function's range also carries the time of the kernels it launches."""
+    Function's range also carries the time of the kernels it launches;
+    so are user ranges (the program's ``octcube.*`` spans), which the
+    profiler also projects onto the device's timeline."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU]
+            if e.device_type != DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)]
     return sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
 
 

@@ -12,12 +12,16 @@ a remat model2d with ``--remat-2d``).
 Prints the card's name and power limit, the wall time per step (host
 clock around steps that end in a synchronize), the device-busy time per
 step (the sum of kernel times: one stream, so they do not overlap), the
-idle share 1 - busy / wall, the kernel time per step by group (the flash
-kernels, GEMMs, the optimizer's multi-tensor passes, ...), and the
-kernels by device time per step.  The packed kernels (B1, B2) and the
-[B, H, N, D] ones (B3-B5, B7) share their function names; the head_dim
-template argument tells them apart on these paths: 80 is ViT-H's
-encoder (B5, B7), every other head_dim the packed kernels.
+idle share 1 - busy / wall, the step's phases from the program's spans
+(utils/profiling.py: forward, backward, update and its adamw part;
+host ms, the median of the timed steps' records, and device ms a step,
+the kernels launched inside the phase's ``octcube.mae.*`` ranges), the
+kernel time per step by group (the flash kernels, GEMMs, the optimizer's
+multi-tensor passes, ...), and the kernels by device time per step.
+The packed kernels (B1, B2) and the [B, H, N, D] ones (B3-B5, B7) share
+their function names; the head_dim template argument tells them apart
+on these paths: 80 is ViT-H's encoder (B5, B7), every other head_dim the
+packed kernels.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ def main(argv=None) -> int:
 
     from ..entry import train_entry
     from ..models import mae3d
+    from ..utils import profiling
 
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -90,11 +95,13 @@ def main(argv=None) -> int:
         state, _ = step(state, x, mask_ratio=0.9)
     torch.cuda.synchronize()
 
+    seen = profiling.last_seq()
     t0 = time.perf_counter()
     for _ in range(args.iters):
         state, _ = step(state, x, mask_ratio=0.9)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    host = profiling.phase_medians_ms(profiling.records_since(seen))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.iters):
@@ -118,6 +125,12 @@ def main(argv=None) -> int:
                       "wall_ms_per_step": wall_ms,
                       "device_busy_ms_per_step": busy_ms,
                       "idle_share": 1.0 - busy_ms / wall_ms}))
+    device = profiling.range_device_ms(prof)
+    print("--- phases (host ms: median of the timed steps; device ms a step)")
+    for ph, ms in host.items():
+        dev = device.get(f"octcube.mae.{ph}", 0.0) / args.iters
+        print(f"{ms:9.4f} host  {dev:9.4f} device  {ph}")
+    print("--- kernel groups")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"{ms:9.4f} ms/step  {count:6d}/step  {name}")
     print("--- kernels")

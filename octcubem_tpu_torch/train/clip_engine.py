@@ -50,6 +50,13 @@ prefix builds no backward and holds no moments; under the zero-scale
 fallback every param is differentiated.  The steps read nothing back to
 the host: their metrics are 0-d tensors on the model's device, and the
 caller reads step t-1's after it has issued step t.
+
+Each train step is one ``utils/profiling.step("clip")`` with the phases
+``forward`` (the towers and the loss; in the accumulation the cached
+no-grad pass, which also runs in the range ``octcube.clip.cached``, and
+each chunk's re-forward, splice and loss), ``backward`` (each
+``loss.backward()``) and ``update`` (``_update``: ``reduce`` where the
+step reduces, the norm, ``adamw``).
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ import torch.nn.functional as F
 
 from ..core import fsdp, multihost
 from ..core.mesh import check_mesh, data_group
+from ..utils import profiling
 from .optim import grad_norm
 from .train_state import TrainState
 
@@ -130,14 +138,23 @@ def _local_batch(batch):
 def _update(state: TrainState, tx, loss, reduce: bool = False):
     """One optimizer step from the params' ``.grad`` (first their mean
     over every rank when ``reduce`` or on a sharded state) -> metrics."""
-    grads = fsdp.mean_grads(state, tx.params, [p.grad for p in tx.params],
-                            reduce)
-    for p, g in zip(tx.params, grads):
-        p.grad = g
-    gn = grad_norm(tx.params, grads, state.shards)
-    tx.step()
-    state.step += 1
+    with profiling.phase("update"):
+        with profiling.phase("reduce",
+                             on=reduce or state.shards is not None):
+            grads = fsdp.mean_grads(state, tx.params,
+                                    [p.grad for p in tx.params], reduce)
+        for p, g in zip(tx.params, grads):
+            p.grad = g
+        gn = grad_norm(tx.params, grads, state.shards)
+        tx.step()
+        state.step += 1
     return {"loss": loss.detach(), "grad_norm": gn}
+
+
+def _backward(loss) -> None:
+    """``loss.backward()`` in the step's backward phase."""
+    with profiling.phase("backward", span=False):
+        profiling.backward(loss).backward()
 
 
 def make_clip_train_step(model, tx, three_mod: bool = False, mesh=None):
@@ -147,24 +164,27 @@ def make_clip_train_step(model, tx, three_mod: bool = False, mesh=None):
     ``mesh``: the data-parallel mesh; the loss spans the global batch."""
     gather = _Gather(mesh)
 
+    @profiling.stepped("clip")
     def step(state: TrainState, batch):
         batch = _local_batch(batch)
         model.train()
         tx.zero_grad()
         with fsdp.gathered(state, mesh):
-            if three_mod:
-                img, e1, e2, *scales = model(
-                    batch["image"], batch["enface1"], batch["enface2"],
-                    generator=state.generator)
-                loss = three_modality_clip_loss(
-                    gather.grad(img), gather.grad(e1), gather.grad(e2),
-                    *scales, gather.rows(batch["weight1"]),
-                    gather.rows(batch["weight2"]))
-            else:
-                img, enf, scale = model(batch["image"], batch["enface"],
-                                        generator=state.generator)
-                loss = clip_loss(gather.grad(img), gather.grad(enf), scale)
-            loss.backward()
+            with profiling.phase("forward"):
+                if three_mod:
+                    img, e1, e2, *scales = model(
+                        batch["image"], batch["enface1"], batch["enface2"],
+                        generator=state.generator)
+                    loss = three_modality_clip_loss(
+                        gather.grad(img), gather.grad(e1), gather.grad(e2),
+                        *scales, gather.rows(batch["weight1"]),
+                        gather.rows(batch["weight2"]))
+                else:
+                    img, enf, scale = model(batch["image"], batch["enface"],
+                                            generator=state.generator)
+                    loss = clip_loss(gather.grad(img), gather.grad(enf),
+                                     scale)
+            _backward(loss)
         return state, _update(state, tx, loss, gather.on)
 
     return step
@@ -192,6 +212,7 @@ def _accum_step(model, tx, accum_freq: int, encode, n_feat: int,
     the ranks' chunks i in rank order (``shard_microbatch``'s layout)."""
     gather = _Gather(mesh)
 
+    @profiling.stepped("clip")
     def step(state: TrainState, batch):
         batch = _local_batch(batch)
         model.train()
@@ -202,7 +223,8 @@ def _accum_step(model, tx, accum_freq: int, encode, n_feat: int,
     def passes(gen, batch):
         """Both passes -> the summed chunk losses; the gradient in .grad."""
         starts, bank = [], []
-        with torch.no_grad():
+        with profiling.phase("forward"), profiling.span("cached"), \
+                torch.no_grad():
             for i in range(accum_freq):
                 starts.append(gen.get_state())
                 bank.append([gather.rows(f) for f in
@@ -212,11 +234,12 @@ def _accum_step(model, tx, accum_freq: int, encode, n_feat: int,
         tx.zero_grad()
         total = None
         for i in range(accum_freq):
-            out = encode(batch, i, _replay(gen, starts[i]))
-            full = [_splice(list(b), i, gather.grad(f))
-                    for b, f in zip(banks, out[:n_feat])]
-            loss = chunk_loss(full, out, batch, gather)
-            loss.backward()
+            with profiling.phase("forward"):
+                out = encode(batch, i, _replay(gen, starts[i]))
+                full = [_splice(list(b), i, gather.grad(f))
+                        for b, f in zip(banks, out[:n_feat])]
+                loss = chunk_loss(full, out, batch, gather)
+            _backward(loss)
             total = loss.detach() if total is None else total + loss.detach()
         gen.set_state(after)
         return total
@@ -276,16 +299,18 @@ def make_clip_cls_train_step(model, tx, criterion, three_mod: bool = False,
     over the gathered global batch, as in train/finetune_engine.py."""
     gather = _Gather(mesh)
 
+    @profiling.stepped("clip")
     def step(state: TrainState, batch):
         batch = _local_batch(batch)
         model.train()
         tx.zero_grad()
         with fsdp.gathered(state, mesh):
-            logits = _cls_forward(model, batch, three_mod, single_modality,
-                                  state.generator)
-            loss = criterion(gather.grad(logits),
-                             gather.rows(batch["label"]))
-            loss.backward()
+            with profiling.phase("forward"):
+                logits = _cls_forward(model, batch, three_mod,
+                                      single_modality, state.generator)
+                loss = criterion(gather.grad(logits),
+                                 gather.rows(batch["label"]))
+            _backward(loss)
         return state, _update(state, tx, loss, gather.on)
 
     return step

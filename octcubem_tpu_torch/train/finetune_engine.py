@@ -34,6 +34,10 @@ B_local), so the two agree at rate 0 only.  A state sharded over fsdp
 (``core/fsdp.shard_state``) runs the forward and backward inside
 ``fsdp.gathered``; the loss, and so ``ok``, is the global one on every
 rank, so the ranks keep or revert their chunks together.
+
+Each train step is one ``utils/profiling.step("finetune")`` with the
+phases ``forward``, ``backward`` and ``update`` (``reduce`` where the step
+reduces, the norm, ``adamw``, the guarded count).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 
 from ..core import fsdp, multihost
 from ..core.mesh import check_mesh, data_group
+from ..utils import profiling
 from . import metrics as metrics_lib
 from .optim import grad_norm
 from .train_state import TrainState
@@ -62,27 +67,34 @@ def make_finetune_train_step(model, tx, criterion, mesh=None):
     reduce = check_mesh(mesh)
     group = data_group(mesh) if reduce else None
 
+    @profiling.stepped("finetune")
     def step(state: TrainState, batch, targets):
         batch, targets = multihost.local(batch), multihost.local(targets)
         model.train()
         with fsdp.gathered(state, mesh):
-            out = model(batch, state.generator)
-            if isinstance(out, tuple):
-                out = out[0]
-            if reduce:
-                out = multihost.all_gather_with_grad(out, group)
-                targets = multihost.all_gather(targets, group)
-            loss = criterion(out, targets)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = fsdp.mean_grads(state, params, grads, reduce)
-        for p, g in zip(params, grads):
-            p.grad = g
-        ok = torch.isfinite(loss)
-        gn = grad_norm(params, grads, state.shards)
-        tx.step(ok=ok)
-        if not torch.is_tensor(state.step):
-            state.step = torch.tensor(int(state.step), device=loss.device)
-        state.step = torch.where(ok, state.step + 1, state.step)
+            with profiling.phase("forward"):
+                out = model(batch, state.generator)
+                if isinstance(out, tuple):
+                    out = out[0]
+                if reduce:
+                    out = multihost.all_gather_with_grad(out, group)
+                    targets = multihost.all_gather(targets, group)
+                loss = criterion(out, targets)
+            with profiling.phase("backward", span=False):
+                grads = torch.autograd.grad(profiling.backward(loss), params,
+                                            allow_unused=True)
+        with profiling.phase("update"):
+            with profiling.phase("reduce",
+                                 on=reduce or state.shards is not None):
+                grads = fsdp.mean_grads(state, params, grads, reduce)
+            for p, g in zip(params, grads):
+                p.grad = g
+            ok = torch.isfinite(loss)
+            gn = grad_norm(params, grads, state.shards)
+            tx.step(ok=ok)
+            if not torch.is_tensor(state.step):
+                state.step = torch.tensor(int(state.step), device=loss.device)
+            state.step = torch.where(ok, state.step + 1, state.step)
         return state, {"loss": loss.detach(), "grad_norm": gn, "finite": ok}
 
     return step

@@ -57,6 +57,12 @@ recompute all read it), and its chunk's gradient comes back
 reduce-scattered; ``fsdp.mean_grads`` takes the mean over the mesh and
 ``grad_norm`` the global gradient's norm, and AdamW updates each rank's
 chunks.
+
+Each call is one ``utils/profiling.step("mae")`` with the phases
+``forward`` (every loss3d / loss2d call, with its noise draw and
+pre-mask), ``backward`` (every ``autograd.grad``) and ``update``
+(``reduce``, where the step reduces: the gradient mean and the loss
+all-reduce; the norm; ``adamw``).
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ import torch
 from ..core import fsdp, multihost
 from ..core.mesh import DATA_AXIS, axis_coord, check_mesh
 from ..data.premask import compute_premask
+from ..utils import profiling
 from .optim import grad_norm
 from .train_state import TrainState
 
@@ -81,6 +88,14 @@ def _accumulate(acc, grads, divisor: int = 1):
         return list(grads)
     return [b if a is None else a if b is None else a + b
             for a, b in zip(acc, grads)]
+
+
+def _grad(loss, params):
+    """The gradient of ``loss`` over ``params``, in the step's backward
+    phase."""
+    with profiling.phase("backward", span=False):
+        return torch.autograd.grad(profiling.backward(loss), params,
+                                   allow_unused=True)
 
 
 def make_mae_train_step(model, tx, joint: bool = False,
@@ -113,6 +128,7 @@ def make_mae_train_step(model, tx, joint: bool = False,
     d_idx, n_d = axis_coord(mesh, DATA_AXIS)
     reduce = check_mesh(mesh)
 
+    @profiling.stepped("mae")
     def step(state: TrainState, batch3d, mask_ratio: float = 0.9,
              batch2d=None, mask_ratio_2d: float = 0.75, pre_mask=None,
              noise=None):
@@ -135,18 +151,20 @@ def make_mae_train_step(model, tx, joint: bool = False,
             return noise[d_idx * rows:(d_idx + 1) * rows]
 
         def loss3d(x):
-            pm = pre_mask
-            if use_premask and pm is None:
-                with torch.no_grad():
-                    feat = model.forward_patch_embed(x)
-                pm = compute_premask(feat, model.t_grid, model.grid)
-            loss, fl, _, _ = model(x, mask_ratio, draw(x), pre_mask=pm,
-                                   generator=state.generator)
-            return loss, fl
+            with profiling.phase("forward"):
+                pm = pre_mask
+                if use_premask and pm is None:
+                    with torch.no_grad():
+                        feat = model.forward_patch_embed(x)
+                    pm = compute_premask(feat, model.t_grid, model.grid)
+                loss, fl, _, _ = model(x, mask_ratio, draw(x), pre_mask=pm,
+                                       generator=state.generator)
+                return loss, fl
 
         def loss2d(x):
-            return m2d(x, mask_ratio_2d, draw(x),
-                       generator=state.generator)[0]
+            with profiling.phase("forward"):
+                return m2d(x, mask_ratio_2d, draw(x),
+                           generator=state.generator)[0]
 
         model.train()
         m2d.train()
@@ -154,16 +172,19 @@ def make_mae_train_step(model, tx, joint: bool = False,
             grads, l3, l2, fls = fwd_bwd(batch3d, batch2d, loss3d, loss2d)
         if given:
             raise ValueError(f"{len(given)} noise tensors left unused")
-        grads = fsdp.mean_grads(state, params, grads, reduce)
-        if reduce:
-            l3, l2 = multihost.all_reduce_mean([torch.stack([l3, l2])])[
-                0].unbind(0)
-        for p, g in zip(params, grads):
-            p.grad = g
-        gn = (grad_norm(params, grads, state.shards) if compute_grad_norm
-              else torch.zeros((), device=batch3d.device))
-        tx.step()
-        state.step += 1
+        with profiling.phase("update"):
+            with profiling.phase("reduce",
+                                 on=reduce or state.shards is not None):
+                grads = fsdp.mean_grads(state, params, grads, reduce)
+                if reduce:
+                    l3, l2 = multihost.all_reduce_mean(
+                        [torch.stack([l3, l2])])[0].unbind(0)
+            for p, g in zip(params, grads):
+                p.grad = g
+            gn = (grad_norm(params, grads, state.shards) if compute_grad_norm
+                  else torch.zeros((), device=batch3d.device))
+            tx.step()
+            state.step += 1
         metrics = {"loss": l3 + l2, "loss_3d": l3, "loss_2d": l2,
                    "frame_losses": torch.cat(fls, dim=0), "grad_norm": gn}
         return state, metrics
@@ -173,13 +194,11 @@ def make_mae_train_step(model, tx, joint: bool = False,
         zero = torch.zeros((), device=batch3d.device)
         if accum_2d > 1:
             l3, fl = loss3d(batch3d)
-            grads = _accumulate(None, torch.autograd.grad(
-                l3, params, allow_unused=True))
+            grads = _accumulate(None, _grad(l3, params))
             l2_sum = zero
             for k in range(accum_2d):
                 l2 = loss2d(batch2d[k])
-                grads = _accumulate(grads, torch.autograd.grad(
-                    l2, params, allow_unused=True), accum_2d)
+                grads = _accumulate(grads, _grad(l2, params), accum_2d)
                 l2_sum = l2_sum + l2.detach()
             l3, l2, fls = l3.detach(), l2_sum / accum_2d, [fl.detach()]
         else:
@@ -195,8 +214,8 @@ def make_mae_train_step(model, tx, joint: bool = False,
                 if joint:
                     l2 = loss2d(b2)
                     total = total + l2
-                grads = _accumulate(grads, torch.autograd.grad(
-                    total / accum_iter, params, allow_unused=True))
+                grads = _accumulate(grads, _grad(total / accum_iter,
+                                                 params))
                 l3_sum = l3_sum + l3.detach()
                 l2_sum = l2_sum + l2.detach()
                 fls.append(fl.detach())

@@ -50,6 +50,7 @@ import torch
 from torch import nn
 
 from ..core.multihost import all_reduce_sum
+from ..utils import profiling
 
 _NO_DECAY = ("pos_embed", "cls_token", "mask_token")
 
@@ -261,24 +262,27 @@ class AdamW:
     @torch.no_grad()
     def step(self, ok: torch.Tensor | None = None) -> None:
         """One update from the params' ``.grad`` (None taken as zeros);
-        with ``ok``, gated on it on the device (module docstring)."""
-        if ok is not None:
-            return self._gated_step(ok)
-        grads = self._grads()
-        lr = self.lr(self.count)  # the schedule's step: pre-increment
-        self.count += 1           # bias correction: post-increment
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
-        mu = ([m.float() for m in self.mu] if self.mu_dtype is not None
-              else self.mu)
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        u = self._direction(mu, self.nu, c1, c2)
-        torch._foreach_add_(self.params, u, alpha=-lr)
-        if self.mu_dtype is not None:
-            torch._foreach_copy_(self.mu, mu)
+        with ``ok``, gated on it on the device (module docstring).  Runs
+        in the open step's ``adamw`` phase (utils/profiling.py)."""
+        with profiling.phase("adamw"):
+            if ok is not None:
+                return self._gated_step(ok)
+            grads = self._grads()
+            lr = self.lr(self.count)  # the schedule's step: pre-increment
+            self.count += 1           # bias correction: post-increment
+            c1 = 1.0 - self.b1 ** self.count
+            c2 = 1.0 - self.b2 ** self.count
+            mu = ([m.float() for m in self.mu] if self.mu_dtype is not None
+                  else self.mu)
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+            torch._foreach_mul_(self.nu, self.b2)
+            torch._foreach_addcmul_(self.nu, grads, grads,
+                                    value=1.0 - self.b2)
+            u = self._direction(mu, self.nu, c1, c2)
+            torch._foreach_add_(self.params, u, alpha=-lr)
+            if self.mu_dtype is not None:
+                torch._foreach_copy_(self.mu, mu)
 
     def _direction(self, mu, nu, c1, c2) -> list[torch.Tensor]:
         """The update before the LR: (mu / c1) / (sqrt(nu / c2) + eps),

@@ -118,8 +118,14 @@ class MetricLogger:
     def log_every(self, iterable: Iterable, print_freq: int, header: str = "",
                   total: int | None = None, logger=None):
         """Iterate with iter-time / data-time / ETA logging
-        (misc.py:132-177)."""
+        (misc.py:132-177); a line also gives the median host ms of each
+        train-step phase (forward, backward, update and, inside it,
+        reduce and adamw) since the last line, from the program's step
+        records (utils/profiling.py), when steps ran."""
+        from . import profiling
+
         log = (logger.info if logger else print) if is_master() else (lambda *a: None)
+        seen = profiling.last_seq()
         i = 0
         if total is None:
             total = len(iterable) if hasattr(iterable, "__len__") else None
@@ -132,13 +138,19 @@ class MetricLogger:
             yield obj
             iter_time.update(time.time() - end)
             if i % print_freq == 0 or (total and i == total - 1):
+                recs = profiling.records_since(seen)
+                phases = "".join(
+                    f" {k}: {ms:.1f}ms" for k, ms in
+                    profiling.phase_medians_ms(recs).items())
+                seen = recs[-1]["seq"] if recs else seen
                 if total:
                     eta = iter_time.global_avg * (total - i)
                     eta_str = str(datetime.timedelta(seconds=int(eta)))
                     log(f"{header} [{i}/{total}] eta: {eta_str} {self} "
-                        f"time: {iter_time} data: {data_time}")
+                        f"time: {iter_time} data: {data_time}{phases}")
                 else:
-                    log(f"{header} [{i}] {self} time: {iter_time} data: {data_time}")
+                    log(f"{header} [{i}] {self} time: {iter_time} "
+                        f"data: {data_time}{phases}")
             i += 1
             end = time.time()
         dt = time.time() - start
@@ -222,34 +234,6 @@ class WandbWriter:
         if self.run is not None:
             self.run.finish()
             self.run = None
-
-
-def device_memory_stats() -> dict:
-    """Per-device memory telemetry from ``torch.cuda.memory_stats()`` —
-    replaces the reference's gpu_mem_usage/cpu_mem_usage meters
-    (custom_util/misc.py:633-657).  Bytes held by tensors now and at the
-    peak since the last ``torch.cuda.reset_peak_memory_stats()``."""
-    import torch
-
-    out = {}
-    if torch.cuda.is_available():
-        for i in range(torch.cuda.device_count()):
-            stats = torch.cuda.memory_stats(i)
-            if stats:
-                out[f"cuda:{i}"] = {
-                    "bytes_in_use_MB": round(stats.get(
-                        "allocated_bytes.all.current", 0) / 1e6, 1),
-                    "peak_bytes_MB": round(stats.get(
-                        "allocated_bytes.all.peak", 0) / 1e6, 1),
-                }
-    try:
-        import psutil
-
-        out["host_rss_MB"] = round(
-            psutil.Process().memory_info().rss / 1e6, 1)
-    except Exception:
-        pass
-    return out
 
 
 class Throughput:

@@ -137,6 +137,7 @@ def _rank_main(rank, store_path, data, out_dir):
     from octcubem_tpu_torch.train import finetune_engine, losses, optim
     from octcubem_tpu_torch.train import mae_engine, schedules
     from octcubem_tpu_torch.train.train_state import TrainState
+    from octcubem_tpu_torch.utils import profiling
 
     torch.set_num_threads(1)
     multihost.initialize(store=dist.FileStore(store_path, WORLD),
@@ -165,6 +166,8 @@ def _rank_main(rank, store_path, data, out_dir):
                 for k in ("loss", "loss_3d", "loss_2d", "grad_norm",
                           "frame_losses"):
                     res[f"{name}/{i}/{k}"] = m[k].numpy()
+                res[f"{name}/{i}/phases"] = np.array(
+                    sorted(profiling.RECORDS[-1]["phases"]))
             res.update({f"{name}/param/{k}": p.detach().numpy()
                         for k, p in tm.named_parameters()})
 
@@ -210,6 +213,8 @@ def _rank_main(rank, store_path, data, out_dir):
             fstate, m = fstep(fstate, torch.from_numpy(x[rank:rank + 1]),
                               torch.from_numpy(y[rank:rank + 1]))
             res[f"ft/{i}/loss"] = m["loss"].numpy()
+            res[f"ft/{i}/phases"] = np.array(
+                sorted(profiling.RECORDS[-1]["phases"]))
             res[f"ft/{i}/finite"] = m["finite"].numpy()
             res.update({f"ft/{i}/param/{k}": p.detach().numpy().copy()
                         for k, p in fm.named_parameters()})
@@ -412,6 +417,20 @@ def test_data_parallel_mae_steps_match_jax(ranks, case):
             np.testing.assert_allclose(res[f"{case}/{i}/frame_losses"], want,
                                        **TOL_METRIC)
         _params_close(res, final, f"{case}/param/")
+
+
+def test_data_parallel_steps_record_the_reduce_phase(ranks):
+    """A step over a reducing mesh records its gradient reduction as the
+    ``reduce`` phase inside ``update``, beside forward, backward and
+    AdamW's, on every rank (utils/profiling.py)."""
+    _, results, _, _ = ranks
+    want = ["adamw", "backward", "forward", "reduce", "update"]
+    for res in results:
+        for name, *_ in DP_CASES:
+            for i in range(2):
+                assert res[f"{name}/{i}/phases"].tolist() == want
+        for i in range(len(FT_STEPS)):
+            assert res[f"ft/{i}/phases"].tolist() == want
 
 
 def test_data_parallel_noise_is_the_global_draw(ranks):

@@ -1,8 +1,8 @@
 """The card scripts' pieces that run without a card (CPU): the forward
 bound of ``scripts/time_kernels.py``, the variant edits of
 ``scripts/ablate_fwd.py`` against the forward body as it is, the
-kernel groups of ``scripts/profile_step.py``, and
-``scripts/ft_naive_spread.py``'s refusal without a card."""
+kernel groups of ``scripts/profile_step.py`` and the kernel rows they
+sum, and ``scripts/ft_naive_spread.py``'s refusal without a card."""
 
 import pytest
 
@@ -67,6 +67,29 @@ def test_step_profile_groups_each_flash_body(name, group):
     """Both forward bodies (the Hopper one and the mma.sync one) and the
     backward land in the flash groups, not among "other elementwise"."""
     assert profile_step.group_of(name) == group
+
+
+def test_kernel_rows_leave_out_host_and_user_ranges():
+    """Only device kernels and copies are rows: not host ops, and not the
+    program's ``octcube.*`` ranges, which the profiler also puts on the
+    device's timeline (they would count a step's time twice)."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    from octcubem_tpu_torch.scripts.profile_forward import kernel_rows
+
+    def evt(key, dev, us, user=False):
+        return NS(key=key, count=2, device_type=dev,
+                  self_device_time_total=us, is_user_annotation=user)
+
+    prof = NS(key_averages=lambda: [
+        evt("aten::mm", DeviceType.CPU, 0.0),
+        evt("octcube.mae.step", DeviceType.CUDA, 900.0, user=True),
+        evt("gemm_kernel", DeviceType.CUDA, 40.0),
+        evt("Memcpy HtoD", DeviceType.CUDA, 60.0)])
+    assert kernel_rows(prof) == [("Memcpy HtoD", 2, 60.0),
+                                 ("gemm_kernel", 2, 40.0)]
 
 
 def test_ft_naive_spread_needs_a_card(monkeypatch, capsys):
