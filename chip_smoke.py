@@ -5398,7 +5398,11 @@ def run_fsdp_one_rank(torch, _cuda, entry_mod):
     x 32) on a one-rank NCCL group, its state placed by
     core/fsdp.shard_state (fsdp_param_spec on a data 1 x fsdp 1 mesh),
     against the replicated step from the same state, two steps each (the
-    first at LR 0 moves no param): both losses bit-equal; the last
+    first at LR 0 moves no param).  The replicated step replays its
+    captured CUDA graph from its second call (train/step_graph.py), with
+    the AdamW count on the card; the sharded state, which runs eagerly,
+    is given its count on the card too, so both run one update's
+    arithmetic.  Both losses bit-equal; the last
     decoder block's MLP weights (sharded leaves whose gradient no B2
     reaches) bit-equal in gradient and after step 2's update; the grad
     norms within B2's run-to-run limit (B2 sums dq in varying order, so
@@ -5422,6 +5426,7 @@ def run_fsdp_one_rank(torch, _cuda, entry_mod):
             step, state, x = entry_mod.train_entry(batch=4)
             if sharded:
                 fsdp.shard_state(state, mesh)
+                state.tx.count_on_device(x.device)
                 step = mae_engine.make_mae_train_step(
                     state.params, state.tx, mesh=mesh)
             rows = []
@@ -5499,6 +5504,9 @@ def _fsdp_rank(rank, world, tmp):
                                                    batch2d=8)
             x2 = step.keywords["batch2d"]
             fsdp.shard_state(state, mesh)
+            # one rank replays its graph with the count on the card; the
+            # same update arithmetic here (a restore keeps it there)
+            state.tx.count_on_device(x.device)
             step = mae_engine.make_mae_train_step(state.params, state.tx,
                                                   joint=True, mesh=mesh)
             return step, state, x, x2

@@ -230,9 +230,17 @@ class Block(nn.Module):
 
 def _checkpointed(blk: Block, x, generator: torch.Generator | None):
     """``blk(x, generator)`` under non-reentrant checkpoint, its drop-path
-    draws replayed in the recompute (see the module docstring)."""
-    if generator is None:
+    draws replayed in the recompute (see the module docstring).  A block
+    that draws nothing (no drop path, or eval mode) gets no generator and
+    no copy of it; one that draws refuses a CUDA graph's capture
+    (train/step_graph.py), where no generator can be made, before it
+    touches anything."""
+    draws = blk.training and (blk.drop_path1.rate or blk.drop_path2.rate)
+    if generator is None or not draws:
         return checkpoint(blk, x, None, use_reentrant=False)
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a checkpointed block with drop path cannot be "
+                           "captured: its recompute needs a new generator")
     start = generator.get_state()
     copies = []
 

@@ -10,12 +10,16 @@ a remat model2d with ``--remat-2d``).
         [--iters 3] [--top 20]
 
 Prints the card's name and power limit, the wall time per step (host
-clock around steps that end in a synchronize), the device-busy time per
-step (the sum of kernel times: one stream, so they do not overlap), the
-idle share 1 - busy / wall, the step's phases from the program's spans
-(utils/profiling.py: forward, backward, update and its adamw part;
-host ms, the median of the timed steps' records, and device ms a step,
-the kernels launched inside the phase's ``octcube.mae.*`` ranges), the
+clock around steps that end in a synchronize; after its first two calls
+the step replays its captured CUDA graph, train/step_graph.py), the
+device-busy time per step (the sum of kernel times: one stream, so they
+do not overlap) of the profiled steps, which run eagerly, and of the
+same graph replayed under the profiler (kernel intervals alone: a
+replay opens no range), the idle share 1 - busy / wall, the step's
+phases from the program's spans (utils/profiling.py: forward, backward,
+update and its adamw part, device ms a step, the kernels launched
+inside the phase's ``octcube.mae.*`` ranges of the profiled steps; the
+timed replays' host ms in ``replay``), the
 kernel time per step by group (the flash kernels, GEMMs, the optimizer's
 multi-tensor passes, ...), and the kernels by device time per step.
 The packed kernels (B1, B2) and the [B, H, N, D] ones (B3-B5, B7) share
@@ -101,7 +105,8 @@ def main(argv=None) -> int:
         state, _ = step(state, x, mask_ratio=0.9)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
-    host = profiling.phase_medians_ms(profiling.records_since(seen))
+    host = profiling.phase_medians_ms(profiling.records_since(seen),
+                                      profiling.TRAIN_PHASES + ("replay",))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.iters):
@@ -109,6 +114,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     kernels = kernel_rows(prof)
     busy_ms = sum(r[2] for r in kernels) / 1e3 / args.iters
+    graph = getattr(step, "func", step).graphs.last
+    replay_busy_ms = None
+    if graph is not None:
+        with profile(activities=[ProfilerActivity.CUDA]) as rprof:
+            for _ in range(args.iters):
+                graph.graph.replay()
+            torch.cuda.synchronize()
+        replay_busy_ms = (sum(r[2] for r in kernel_rows(rprof)) / 1e3
+                          / args.iters)
     groups: dict[str, list[float]] = {}
     for key, count, us in kernels:
         g = groups.setdefault(group_of(key), [0.0, 0])
@@ -124,12 +138,15 @@ def main(argv=None) -> int:
                       "remat_2d": args.remat_2d,
                       "wall_ms_per_step": wall_ms,
                       "device_busy_ms_per_step": busy_ms,
+                      "replay_busy_ms_per_step": replay_busy_ms,
                       "idle_share": 1.0 - busy_ms / wall_ms}))
     device = profiling.range_device_ms(prof)
-    print("--- phases (host ms: median of the timed steps; device ms a step)")
-    for ph, ms in host.items():
+    print("--- phases (host ms: median of the timed steps; device ms a "
+          "profiled step)")
+    for ph in dict.fromkeys(list(host) + list(profiling.TRAIN_PHASES)):
         dev = device.get(f"octcube.mae.{ph}", 0.0) / args.iters
-        print(f"{ms:9.4f} host  {dev:9.4f} device  {ph}")
+        print(f"{host.get(ph, float('nan')):9.4f} host  {dev:9.4f} device  "
+              f"{ph}")
     print("--- kernel groups")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"{ms:9.4f} ms/step  {count:6d}/step  {name}")

@@ -58,11 +58,19 @@ reduce-scattered; ``fsdp.mean_grads`` takes the mean over the mesh and
 ``grad_norm`` the global gradient's norm, and AdamW updates each rank's
 chunks.
 
-Each call is one ``utils/profiling.step("mae")`` with the phases
-``forward`` (every loss3d / loss2d call, with its noise draw and
-pre-mask), ``backward`` (every ``autograd.grad``) and ``update``
-(``reduce``, where the step reduces: the gradient mean and the loss
-all-reduce; the norm; ``adamw``).
+On one rank on the card the step replays one captured CUDA graph of
+itself (``train/step_graph.py``): each key of the inputs' shapes, the
+mask ratios and whether noise is given runs its first call eagerly, its
+second captured, and every later one as a replay; a multi-rank mesh, a
+sharded state, the CPU, a step that a profiler records and a model
+that checkpoints a block with drop path run eagerly.
+
+Each call is one ``utils/profiling.step("mae")`` whose ``path`` says how
+it ran.  An eager, warm-up or capture step has the phases ``forward``
+(every loss3d / loss2d call, with its noise draw and pre-mask),
+``backward`` (every ``autograd.grad``) and ``update`` (``reduce``, where
+the step reduces: the gradient mean and the loss all-reduce; the norm;
+``adamw``); a replay has the one phase ``replay``.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from ..core import fsdp, multihost
 from ..core.mesh import DATA_AXIS, axis_coord, check_mesh
 from ..data.premask import compute_premask
 from ..utils import profiling
+from . import step_graph
 from .optim import grad_norm
 from .train_state import TrainState
 
@@ -109,7 +118,8 @@ def make_mae_train_step(model, tx, joint: bool = False,
     and grad_norm (the global norm of the applied gradient, or 0 when
     ``compute_grad_norm`` is False); 0-d tensors on the model's device,
     read without a host sync.  ``mesh``: the data-parallel mesh (module
-    docstring); None runs on this rank alone."""
+    docstring); None runs on this rank alone.  ``step.graphs`` is the
+    step's ``step_graph.StepGraphs``."""
     if accum_iter < 1 or accum_2d < 1:
         raise ValueError("accum_iter and accum_2d must be >= 1")
     if accum_iter > 1 and accum_2d != 1:
@@ -127,12 +137,31 @@ def make_mae_train_step(model, tx, joint: bool = False,
     m2d = model2d if model2d is not None else model
     d_idx, n_d = axis_coord(mesh, DATA_AXIS)
     reduce = check_mesh(mesh)
+    graphs = step_graph.StepGraphs(params, tx)
+    capturable = step_graph.capturable(model, m2d)
 
-    @profiling.stepped("mae")
     def step(state: TrainState, batch3d, mask_ratio: float = 0.9,
              batch2d=None, mask_ratio_2d: float = 0.75, pre_mask=None,
              noise=None):
-        batch3d, batch2d = multihost.local(batch3d), multihost.local(batch2d)
+        with profiling.step("mae") as rec:
+            batch3d = multihost.local(batch3d)
+            inputs = {"batch3d": batch3d, "batch2d": multihost.local(batch2d),
+                      "pre_mask": pre_mask, "noise": noise}
+
+            def run(state, x):
+                return body(state, mask_ratio=mask_ratio,
+                            mask_ratio_2d=mask_ratio_2d, **x)
+
+            if not (capturable and step_graph.engages(
+                    batch3d.device, mesh, state.shards)):
+                return run(state, inputs)
+            key = (mask_ratio, mask_ratio_2d, step_graph.signature(inputs))
+            return graphs(rec, key, run, state, inputs)
+
+    step.graphs = graphs
+
+    def body(state, batch3d, mask_ratio, batch2d, mask_ratio_2d, pre_mask,
+             noise):
         if joint and batch2d is None:
             raise ValueError("a joint step needs batch2d")
         if pre_mask is not None and accum_iter > 1:

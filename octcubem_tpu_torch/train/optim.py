@@ -30,7 +30,15 @@ non-finite loss leaves the params, both moments and the count as they
 were, and the host reads nothing.  On that path the count is a 0-d
 tensor on the params' device and the LR is read at it from a table of
 the schedule over its ``total_steps`` (the last entry past the end).
-Without ``ok`` the update is the host-count one above, unchanged.
+Without ``ok`` the update is in place, at an ``int`` count with the LR
+and bias corrections as host floats, or at a 0-d tensor count
+(``count_on_device``: the form a step captured into a CUDA graph
+replays, ``train/step_graph.py``) with them read on the card and the
+count advanced in its own tensor.  Every path runs one update body
+(``_update``): the LR is folded into the first moment's scale and the
+decoupled decay is the factor ``1 - lr * weight_decay * scale`` on the
+decayed params (``torch.optim.AdamW``'s form), one pass fewer than
+adding the decay to the update.
 
 LiT locking (the COEM towers): ``lit_lock_scales`` gives each param 1.0
 or 0.0 by the reference lock() groups; ``make_partition`` freezes the
@@ -214,6 +222,7 @@ class AdamW:
         self.count = 0
         self.shards = None  # the fsdp layout of a sharded state (core/fsdp)
         self._lr_table = None
+        self._count = None  # the device count ``count_on_device`` keeps
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
@@ -226,7 +235,8 @@ class AdamW:
     @torch.no_grad()
     def load_state_dict(self, state: Mapping) -> None:
         """Copy a ``state_dict()`` into this optimizer's tensors in place;
-        names, shapes and dtypes must match."""
+        names, shapes and dtypes must match.  A count held on the device
+        stays there, written in place."""
         for key in ("mu", "nu"):
             got = state[key]
             if set(got) != set(self.names):
@@ -238,7 +248,10 @@ class AdamW:
                         f"{key}[{name}]: {tuple(src.shape)} {src.dtype} != "
                         f"{tuple(t.shape)} {t.dtype}")
                 t.copy_(src)
-        self.count = int(state["count"])
+        if torch.is_tensor(self.count):  # kept on the device, in place
+            self.count.fill_(int(state["count"]))
+        else:
+            self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -260,18 +273,45 @@ class AdamW:
         return grads
 
     @torch.no_grad()
+    def count_on_device(self, device) -> torch.Tensor:
+        """The count as a 0-d tensor on ``device``, the same tensor from
+        call to call (a captured step reads it by its address): a count
+        that a restore or the gated step rebound is written into it.
+        Builds the LR table too, so a capture copies nothing from the
+        host."""
+        t = self._count
+        if t is None or t.device != torch.device(device):
+            t = self._count = torch.zeros((), dtype=torch.int64,
+                                          device=device)
+            t.fill_(int(self.count))
+        elif self.count is not t:
+            if torch.is_tensor(self.count):
+                t.copy_(self.count)
+            else:
+                t.fill_(int(self.count))
+        self.count = t
+        self._lr_values(t.device)
+        return t
+
+    @torch.no_grad()
     def step(self, ok: torch.Tensor | None = None) -> None:
         """One update from the params' ``.grad`` (None taken as zeros);
-        with ``ok``, gated on it on the device (module docstring).  Runs
-        in the open step's ``adamw`` phase (utils/profiling.py)."""
+        with ``ok``, gated on it on the device; with a tensor count, at
+        that count on the device (module docstring).  Runs in the open
+        step's ``adamw`` phase (utils/profiling.py)."""
         with profiling.phase("adamw"):
             if ok is not None:
                 return self._gated_step(ok)
             grads = self._grads()
-            lr = self.lr(self.count)  # the schedule's step: pre-increment
-            self.count += 1           # bias correction: post-increment
-            c1 = 1.0 - self.b1 ** self.count
-            c2 = 1.0 - self.b2 ** self.count
+            if torch.is_tensor(self.count):
+                lr = self._device_lr(self.count).float()
+                self.count.add_(1)
+                c1, c2 = self._corrections(self.count)
+            else:
+                lr = self.lr(self.count)  # the schedule's: pre-increment
+                self.count += 1           # bias correction: post-increment
+                c1 = 1.0 - self.b1 ** self.count
+                c2 = 1.0 - self.b2 ** self.count
             mu = ([m.float() for m in self.mu] if self.mu_dtype is not None
                   else self.mu)
             torch._foreach_mul_(mu, self.b1)
@@ -279,62 +319,79 @@ class AdamW:
             torch._foreach_mul_(self.nu, self.b2)
             torch._foreach_addcmul_(self.nu, grads, grads,
                                     value=1.0 - self.b2)
-            u = self._direction(mu, self.nu, c1, c2)
-            torch._foreach_add_(self.params, u, alpha=-lr)
+            self._update(self.params, mu, self.nu, lr, c1, c2)
             if self.mu_dtype is not None:
                 torch._foreach_copy_(self.mu, mu)
 
-    def _direction(self, mu, nu, c1, c2) -> list[torch.Tensor]:
-        """The update before the LR: (mu / c1) / (sqrt(nu / c2) + eps),
-        plus the decoupled weight decay, times the layer scales."""
+    def _update(self, params, mu, nu, lr, c1, c2) -> None:
+        """``params`` in place: p * (1 - lr * wd * s) - lr * s * (mu / c1) /
+        (sqrt(nu / c2) + eps), s the layer scale, the decay on the masked
+        params only (the module docstring's order, with the LR folded
+        into the first moment's scale and the decay as a factor).  ``lr``,
+        ``c1``, ``c2``: floats, or fp32 0-d tensors on the device."""
         denom = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        u = torch._foreach_div(mu, c1)
+        u = torch._foreach_mul(mu, -lr / c1)
         torch._foreach_div_(u, denom)
-        if self.weight_decay and self.decayed:
-            torch._foreach_add_([u[i] for i in self.decayed],
-                                [self.params[i] for i in self.decayed],
-                                alpha=self.weight_decay)
         if self.scales is not None:
             torch._foreach_mul_(u, self.scales)
-        return u
+        if self.weight_decay and self.decayed:
+            groups: dict[float, list] = {}
+            for i in self.decayed:
+                s = 1.0 if self.scales is None else self.scales[i]
+                groups.setdefault(s, []).append(params[i])
+            for s, ps in groups.items():
+                torch._foreach_mul_(ps, 1.0 - lr * (self.weight_decay * s))
+        torch._foreach_add_(params, u)
 
-    def _device_lr(self, count: torch.Tensor) -> torch.Tensor:
-        """The schedule at a device count, from a table of steps 0 ..
-        ``total_steps`` built once; a schedule without ``total_steps`` is
-        refused (a table it cannot size would freeze or skew the LR)."""
-        if not callable(self.learning_rate):
-            return torch.tensor(float(self.learning_rate),
-                                dtype=torch.float64, device=count.device)
-        total = getattr(self.learning_rate, "total_steps", None)
-        if total is None:
-            raise ValueError("step(ok=...) needs a float LR or a schedule "
-                             "with total_steps (train/schedules.py)")
-        if self._lr_table is None or self._lr_table.device != count.device:
+    def _lr_values(self, device) -> torch.Tensor:
+        """The schedule over steps 0 .. ``total_steps`` (one entry for a
+        float LR) on ``device``, built once; a schedule without
+        ``total_steps`` is refused (a table it cannot size would freeze or
+        skew the LR)."""
+        total = 0
+        if callable(self.learning_rate):
+            total = getattr(self.learning_rate, "total_steps", None)
+            if total is None:
+                raise ValueError("a device count needs a float LR or a "
+                                 "schedule with total_steps "
+                                 "(train/schedules.py)")
+        device = torch.device(device)
+        if self._lr_table is None or self._lr_table.device != device:
             self._lr_table = torch.tensor(
                 [self.lr(i) for i in range(int(total) + 1)],
-                dtype=torch.float64, device=count.device)
+                dtype=torch.float64, device=device)
+        return self._lr_table
+
+    def _device_lr(self, count: torch.Tensor) -> torch.Tensor:
+        """The schedule at a device count, from ``_lr_values`` (the last
+        entry past its end)."""
+        table = self._lr_values(count.device)
         # index_select, not [count]: a 0-d index is read back to the host
-        idx = count.clamp(max=self._lr_table.numel() - 1).reshape(1)
-        return self._lr_table.index_select(0, idx)[0]
+        idx = count.clamp(max=table.numel() - 1).reshape(1)
+        return table.index_select(0, idx)[0]
+
+    def _corrections(self, count: torch.Tensor):
+        """The bias corrections (1 - b1^count, 1 - b2^count) at a device
+        count, fp32 0-d tensors."""
+        return ((1.0 - torch.pow(self.b1, count.double())).float(),
+                (1.0 - torch.pow(self.b2, count.double())).float())
 
     def _gated_step(self, ok: torch.Tensor) -> None:
         dev = self.params[0].device
         if not torch.is_tensor(self.count):
             self.count = torch.tensor(int(self.count), device=dev)
         grads = self._grads()
-        lr = self._device_lr(self.count)
+        lr = self._device_lr(self.count).float()
         count = self.count + 1
-        c1 = (1.0 - torch.pow(self.b1, count.double())).float()
-        c2 = (1.0 - torch.pow(self.b2, count.double())).float()
+        c1, c2 = self._corrections(count)
         mu = torch._foreach_mul([m.float() for m in self.mu], self.b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         nu = torch._foreach_mul(self.nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        u = self._direction(mu, nu, c1, c2)
-        torch._foreach_mul_(u, (-lr).float())
-        new = torch._foreach_add(self.params, u)
+        new = [p.clone() for p in self.params]
+        self._update(new, mu, nu, lr, c1, c2)
         for old, upd in ((self.params, new), (self.mu, mu), (self.nu, nu)):
             for o, n in zip(old, upd):
                 torch.where(ok, n.to(o.dtype), o, out=o)

@@ -16,8 +16,12 @@ Chrome trace.
 Step records and spans.  ``step(engine)`` wraps one call of an engine's
 step (or one served request) and ``phase(name)`` a part of it; on the
 step's exit ``{"engine", "phases": {name: host seconds}, "seconds",
-"profiled", "seq"}`` joins ``RECORDS``, the last ``MAX_RECORDS`` steps of
-the process.  Phases may nest (``update`` holds ``reduce`` and
+"profiled", "path", "seq"}`` joins ``RECORDS``, the last ``MAX_RECORDS``
+steps of the process.  ``path`` is ``eager`` unless the step says
+otherwise: a step replayed from a captured CUDA graph
+(``train/step_graph.py``) is ``replay``, its first two calls ``warmup``
+and ``capture``, and the capture's record holds ``pool_bytes``, the
+graph's private memory pool.  Phases may nest (``update`` holds ``reduce`` and
 ``adamw``); outside a step a phase does nothing.  Host time is
 ``perf_counter_ns`` and is always taken.  While a ``torch.profiler``
 session records (the one check is ``_profiler_enabled``), the step and
@@ -148,7 +152,7 @@ class step:
         traced = recording()
         self.outer = getattr(_local, "rec", None)
         self.rec = rec = {"engine": self.engine, "phases": {},
-                          "profiled": traced}
+                          "profiled": traced, "path": "eager"}
         self.rf = _range(f"octcube.{self.engine}.step") if traced else None
         _local.rec = rec
         self.t0 = time.perf_counter_ns()

@@ -144,6 +144,19 @@ def test_step_record_phases_and_no_spans_untraced(name, monkeypatch):
     assert "attn_fwd" not in rec and "attn_bwd" not in rec
 
 
+@pytest.mark.parametrize("name", list(STEPS))
+def test_step_records_carry_the_path(name):
+    """Every engine's record says how the step ran: ``eager`` on the CPU,
+    where no step replays a captured graph (train/step_graph.py)."""
+    engine, make, kind = STEPS[name]
+    call, state = make(kind)
+    before = profiling.last_seq()
+    call(state)
+    recs = profiling.records_since(before)
+    assert [(r["engine"], r["path"]) for r in recs] == [(engine, "eager")]
+    assert "pool_bytes" not in recs[0]
+
+
 def test_records_nest_and_the_deque_is_bounded(monkeypatch):
     monkeypatch.setattr(profiling, "RECORDS", collections.deque(maxlen=3))
     with profiling.phase("forward"):   # no open step: nothing kept

@@ -105,14 +105,18 @@ def _nest(flat):
     return tree
 
 
+@pytest.mark.parametrize("on_device", [False, True])
 @pytest.mark.parametrize("chain,mu_bf16", [(False, False), (True, False),
                                            (False, True)])
-def test_adamw_matches_optax(chain, mu_bf16):
+def test_adamw_matches_optax(chain, mu_bf16, on_device):
     """Three updates with a decaying LR: fused (no clip, no layer decay)
     against build_fused_adamw, with mu stored in fp32 or bf16, and the
     chain (clip 1.0, layer decay 0.75) against optax's chain; the second
     update's gradients are small, so the clip holds on updates 1 and 3.  A leaf with no
     gradient: zeros in JAX, None in the port; both still decay it.
+    ``on_device``: the port's count is a 0-d tensor (``count_on_device``,
+    the form a captured step replays), the LR read from its table of the
+    schedule and the bias corrections computed on the device.
     Tolerance: the JAX fused-vs-chain test's own (1e-6 relative)."""
     rng = np.random.default_rng(0)
     vals = {name: rng.standard_normal(shape).astype(np.float32)
@@ -120,7 +124,10 @@ def test_adamw_matches_optax(chain, mu_bf16):
     jparams = _nest({path: jnp.asarray(vals[name]) for path, name, _ in LEAVES})
     tparams = {name: torch.nn.Parameter(torch.from_numpy(vals[name].copy()))
                for name in vals}
-    sched = lambda step: 1e-2 / (1 + 0.1 * step)  # noqa: E731
+    def sched(step):
+        return 1e-2 / (1 + 0.1 * step)
+
+    sched.total_steps = 5  # the device count's LR table: steps 0 .. 5
     if chain:
         tx_j = jopt.build_adamw(jparams, sched, 0.05, layer_decay=0.75,
                                 num_blocks=2, clip_grad=1.0)
@@ -132,6 +139,8 @@ def test_adamw_matches_optax(chain, mu_bf16):
         tx_t = topt.build_fused_adamw(
             tparams, sched, 0.05, mu_dtype=torch.bfloat16 if mu_bf16 else None)
     s_j = tx_j.init(jparams)
+    if on_device:
+        count = tx_t.count_on_device("cpu")
     for i, gscale in enumerate((3.0, 0.01, 3.0)):
         g = {name: gscale * np.random.default_rng(10 + i).standard_normal(
             v.shape).astype(np.float32) for name, v in vals.items()}
@@ -152,6 +161,8 @@ def test_adamw_matches_optax(chain, mu_bf16):
                                        err_msg=f"update {i + 1} {name}")
     assert not np.allclose(tparams[NO_GRAD].detach().numpy(), vals[NO_GRAD])
     assert tx_t.count == 3
+    if on_device:
+        assert tx_t.count is count
     if mu_bf16:
         assert tx_t.mu[0].dtype == torch.bfloat16
         mu_ref = _by_port_name(s_j.mu)
@@ -340,3 +351,107 @@ def test_train_step_draws_noise_from_the_state_generator():
     teng.make_mae_train_step(tm, tx, joint=True, accum_2d=2)
     with pytest.raises(ValueError, match="exclusive"):
         teng.make_mae_train_step(tm, tx, joint=True, accum_2d=2, accum_iter=2)
+
+
+# ------------------------------------------- the step's CUDA graph (CPU)
+
+def test_adamw_device_count_matches_the_host_count():
+    """The update at a device count (``count_on_device``: the LR table
+    and bias corrections read on the device, the LR folded into the first
+    moment's scale, the decay as a factor on the params) against the
+    host-count update over 5 steps of warmup_half_cosine, with weight
+    decay and layer scales; a restore writes the count into the same
+    device tensor, and so does ``count_on_device`` after a rebinding."""
+    torch.manual_seed(0)
+    a = torch.nn.Sequential(torch.nn.Linear(8, 6), torch.nn.LayerNorm(6),
+                            torch.nn.Linear(6, 3))
+    b = torch.nn.Sequential(torch.nn.Linear(8, 6), torch.nn.LayerNorm(6),
+                            torch.nn.Linear(6, 3))
+    b.load_state_dict(a.state_dict())
+    sched = tsched.warmup_half_cosine(1e-2, 1e-4, 1, 3, 2)
+    scales = {n: 0.4 + 0.2 * i for i, (n, _) in
+              enumerate(a.named_parameters())}
+    ta = topt.AdamW(a, sched, 0.05, scales=scales)
+    tb = topt.AdamW(b, sched, 0.05, scales=scales)
+    count = tb.count_on_device("cpu")
+    for i in range(5):
+        for m in (a, b):
+            g = torch.Generator().manual_seed(i)
+            for p in m.parameters():
+                p.grad = torch.randn(p.shape, generator=g)
+        ta.step()
+        tb.step()
+        assert tb.count is count
+        for p, q in zip(a.parameters(), b.parameters()):
+            torch.testing.assert_close(q, p, rtol=1e-6, atol=1e-7)
+    assert ta.count == int(tb.count) == 5
+    for m, n in zip(ta.mu + ta.nu, tb.mu + tb.nu):
+        torch.testing.assert_close(n, m, rtol=1e-6, atol=1e-9)
+    tb.count.fill_(0)
+    tb.load_state_dict(ta.state_dict())  # kept on the device, in place
+    assert tb.count is count and int(count) == 5
+    tb.count = 3                         # rebound (the gated step's where)
+    assert tb.count_on_device("cpu") is count and int(count) == 3
+
+
+def test_the_graph_engages_only_on_one_unsharded_card_rank():
+    """The step replays a graph only for a CUDA batch, no mesh or a mesh
+    of one rank, an unsharded state and no profiler recording."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from octcubem_tpu_torch.train import step_graph
+
+    class Mesh:
+        def __init__(self, n):
+            self.n = n
+
+        def size(self):
+            return self.n
+
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert step_graph.engages(cuda)
+    assert step_graph.engages(cuda, Mesh(1))
+    assert not step_graph.engages(cpu)
+    assert not step_graph.engages(cuda, Mesh(2))
+    assert not step_graph.engages(cuda, None, shards=object())
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert not step_graph.engages(cuda)
+    assert step_graph.engages(cuda)
+
+
+def test_a_remat_block_with_drop_path_is_not_captured():
+    """``step_graph.capturable``: a model is, and so is its remat twin
+    without drop path; with drop path its checkpointed blocks' recompute
+    makes a generator, which no capture allows."""
+    from octcubem_tpu_torch.train import step_graph
+
+    kw = model_kw("a")
+    plain = tmae.MaskedAutoencoderViT3D(**kw)
+    dropped = tmae.MaskedAutoencoderViT3D(**kw, drop_path_rate=0.1)
+    assert step_graph.capturable(plain, plain.with_remat())
+    assert step_graph.capturable(dropped)
+    assert not step_graph.capturable(dropped, dropped.with_remat())
+
+
+def test_successive_steps_return_their_own_metrics():
+    """Two calls of one step: distinct metric tensors, the first call's
+    unchanged by the second; both eager on the CPU."""
+    from octcubem_tpu_torch.utils import profiling
+
+    kw = model_kw("a")
+    _, params = jax_init(kw, volume("a"), 0.9)
+    x = torch.from_numpy(volume("a", seed=23))
+    tm = torch_model(kw, params)
+    tx = topt.build_adamw(tm, 1e-3)
+    state = TState.create(tm, tx, seed=5)
+    step = teng.make_mae_train_step(tm, tx)
+    seen = profiling.last_seq()
+    state, m1 = step(state, x, 0.9)
+    kept = {k: v.clone() for k, v in m1.items()}
+    state, m2 = step(state, x, 0.9)
+    for k in m1:
+        assert m1[k] is not m2[k] and m1[k].data_ptr() != m2[k].data_ptr()
+        assert torch.equal(m1[k], kept[k])
+    assert not torch.equal(m1["loss"], m2["loss"])
+    assert [r["path"] for r in profiling.records_since(seen)] == ["eager"] * 2
+    assert isinstance(tx.count, int) and tx.count == 2
