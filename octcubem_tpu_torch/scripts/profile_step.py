@@ -106,7 +106,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
     host = profiling.phase_medians_ms(profiling.records_since(seen),
-                                      profiling.TRAIN_PHASES + ("replay",))
+                                      profiling.TRAIN_PHASES + (
+                                          "premask", "branch2d", "replay"))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.iters):
@@ -143,7 +144,8 @@ def main(argv=None) -> int:
     device = profiling.range_device_ms(prof)
     print("--- phases (host ms: median of the timed steps; device ms a "
           "profiled step)")
-    for ph in dict.fromkeys(list(host) + list(profiling.TRAIN_PHASES)):
+    for ph in dict.fromkeys(list(host) + list(profiling.TRAIN_PHASES)
+                            + ["premask", "branch2d"]):
         dev = device.get(f"octcube.mae.{ph}", 0.0) / args.iters
         print(f"{host.get(ph, float('nan')):9.4f} host  {dev:9.4f} device  "
               f"{ph}")

@@ -67,10 +67,14 @@ that checkpoints a block with drop path run eagerly.
 
 Each call is one ``utils/profiling.step("mae")`` whose ``path`` says how
 it ran.  An eager, warm-up or capture step has the phases ``forward``
-(every loss3d / loss2d call, with its noise draw and pre-mask),
-``backward`` (every ``autograd.grad``) and ``update`` (``reduce``, where
-the step reduces: the gradient mean and the loss all-reduce; the norm;
-``adamw``); a replay has the one phase ``replay``.
+(every loss3d / loss2d call, with its noise draw and pre-mask; inside
+it ``premask``, the pre-mask's patch embedding and ``compute_premask``,
+where the step computes one, and ``branch2d``, each 2D forward of a
+joint step), ``backward`` (every ``autograd.grad``; with ``accum_2d`` 1
+the 2D loss is differentiated with the 3D one, so the 2D backward has
+no phase of its own) and ``update`` (``reduce``, where the step reduces:
+the gradient mean and the loss all-reduce; the norm; ``adamw``); a
+replay has the one phase ``replay``.
 """
 
 from __future__ import annotations
@@ -183,15 +187,15 @@ def make_mae_train_step(model, tx, joint: bool = False,
             with profiling.phase("forward"):
                 pm = pre_mask
                 if use_premask and pm is None:
-                    with torch.no_grad():
+                    with profiling.phase("premask"), torch.no_grad():
                         feat = model.forward_patch_embed(x)
-                    pm = compute_premask(feat, model.t_grid, model.grid)
+                        pm = compute_premask(feat, model.t_grid, model.grid)
                 loss, fl, _, _ = model(x, mask_ratio, draw(x), pre_mask=pm,
                                        generator=state.generator)
                 return loss, fl
 
         def loss2d(x):
-            with profiling.phase("forward"):
+            with profiling.phase("forward"), profiling.phase("branch2d"):
                 return m2d(x, mask_ratio_2d, draw(x),
                            generator=state.generator)[0]
 

@@ -22,7 +22,8 @@ otherwise: a step replayed from a captured CUDA graph
 (``train/step_graph.py``) is ``replay``, its first two calls ``warmup``
 and ``capture``, and the capture's record holds ``pool_bytes``, the
 graph's private memory pool.  Phases may nest (``update`` holds ``reduce`` and
-``adamw``); outside a step a phase does nothing.  Host time is
+``adamw``; the MAE step's ``forward`` holds ``premask`` and ``branch2d``);
+outside a step a phase does nothing.  Host time is
 ``perf_counter_ns`` and is always taken.  While a ``torch.profiler``
 session records (the one check is ``_profiler_enabled``), the step and
 each phase also open a range ``octcube.<engine>.<name>`` (a user

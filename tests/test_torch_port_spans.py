@@ -135,7 +135,9 @@ def test_step_record_phases_and_no_spans_untraced(name, monkeypatch):
     assert len(recs) == 1
     rec = recs[0]
     assert rec["engine"] == engine and not rec["profiled"]
-    assert set(rec["phases"]) == TRAIN_PHASES
+    # a joint step's 2D forward is its own phase inside forward
+    assert set(rec["phases"]) == TRAIN_PHASES | (
+        {"branch2d"} if name == "mae_joint" else set())
     assert all(v > 0 for v in rec["phases"].values())
     assert rec["phases"]["adamw"] <= rec["phases"]["update"]
     assert sum(rec["phases"][k] for k in ("forward", "backward", "update")
@@ -191,6 +193,73 @@ def test_records_nest_and_the_deque_is_bounded(monkeypatch):
 def _ranges(events, name):
     return [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
             if e.get("cat") == "user_annotation" and e["name"] == name]
+
+
+def _mae_step(joint, premask):
+    """A tiny MAE step at a 3D grid of 6 x 6 patches (3 border rows each
+    side: the pre-mask's top-up does the work) and its inputs."""
+    kw = dict(MAE_KW, input_size=96, high_res_input_size=128)
+    model = mae3d.create_model(mae3d.MaskedAutoencoderViT3D, device="cpu",
+                               seed=1, **kw)
+    tx = optim.build_adamw(model, 1e-3, 0.05)
+    state = TrainState.create(model, tx, seed=2)
+    step = mae_engine.make_mae_train_step(model, tx, joint=joint,
+                                          use_premask=premask)
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((1, 6, 96, 96, 1), generator=g)
+    b2 = torch.rand((2, 3, 128, 128, 1), generator=g) if joint else None
+    return lambda s: step(s, x, 0.9, batch2d=b2), state
+
+
+SUBPHASES = [(False, False, set()), (False, True, {"premask"}),
+             (True, False, {"branch2d"}), (True, True, {"premask", "branch2d"})]
+
+
+@pytest.mark.parametrize("joint,premask,extra", SUBPHASES,
+                         ids=["3d", "3d_premask", "joint", "joint_premask"])
+def test_premask_and_branch2d_phases_nest_in_forward(joint, premask, extra):
+    """The pre-mask (computed in the step) and each 2D forward of a joint
+    step are phases of their own, their host time inside the forward's;
+    a 3D-only step without the pre-mask records neither."""
+    call, state = _mae_step(joint, premask)
+    before = profiling.last_seq()
+    call(state)
+    (rec,) = profiling.records_since(before)
+    ph = rec["phases"]
+    assert set(ph) == TRAIN_PHASES | extra
+    assert all(ph[k] > 0 for k in extra)
+    assert sum(ph[k] for k in extra) <= ph["forward"]
+    assert ph["forward"] + ph["backward"] + ph["update"] <= rec["seconds"]
+
+
+@pytest.mark.parametrize("joint,premask,extra", SUBPHASES,
+                         ids=["3d", "3d_premask", "joint", "joint_premask"])
+def test_premask_and_branch2d_ranges_nest_in_forward(joint, premask, extra,
+                                                     tmp_path):
+    """Under a CPU profiler each of those phases is a range
+    ``octcube.mae.premask`` / ``octcube.mae.branch2d`` inside an
+    ``octcube.mae.forward`` range on the same thread, one per pre-mask
+    and per 2D forward; the 2D forward's attention calls run inside
+    ``branch2d``."""
+    call, state = _mae_step(joint, premask)
+    state, _ = call(state)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call(state)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    fwd = _ranges(events, "octcube.mae.forward")
+    assert len(fwd) == 1 + joint
+    for name in ("premask", "branch2d"):
+        got = _ranges(events, f"octcube.mae.{name}")
+        assert len(got) == (name in extra)
+        for lo, hi, tid in got:
+            assert any(a <= lo and hi <= b and t == tid for a, b, t in fwd)
+    if joint:
+        (lo, hi, tid), = _ranges(events, "octcube.mae.branch2d")
+        inside = [a for a, b, t in _ranges(events, "octcube.attn.fwd")
+                  if t == tid and lo <= a and b <= hi]
+        assert len(inside) == 2 + 1     # the 2D encoder's and decoder's
 
 
 @pytest.mark.parametrize("name", ["mae_plain", "clip_accum"])
