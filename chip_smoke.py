@@ -240,6 +240,21 @@ Phases, each fatal on failure (no phase's error is caught):
      (step 2's loss bit-equal to the uninterrupted run's); (c)
      entry.dryrun_multichip(4) on four gloo ranks sharing the card: its
      five legs and the ViT-L-width production leg finite.
+ 24. AdamW's kernel (csrc/adamw.cu, train/optim.py) at the ViT-L MAE's
+     params: (a) three updates at a device count, no clip, against the
+     plain multi-tensor body on the card: per operand (p, mu, nu) the
+     largest difference in ulps, the share of entries that differ and
+     the worst leaf's max|d| / max|plain| (within TOL_ADAMW), one launch
+     an update and none of the plain body; (b) the fine-tune form (layer
+     decay 0.65, clip 1.0, bf16 mu, gated on ok, false on the second of
+     four updates, which changes nothing), the same way; (c) one captured
+     update replayed twice, bit for bit against the eager updates; (d)
+     the kernel's device time in a profile (no multi_tensor_apply kernel
+     in it), a step's CUDA events and host time, beside its bound (28 B a
+     param at 3.35 TB/s), the plain body's time and torch.optim.AdamW's
+     fused step's (the library yardstick).  The kernels line carries its
+     entry.  Every train step's launches above, "and no other kernel",
+     hold one adamw launch besides (ADAMW_STEP).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
 result when there is no CUDA device or no port package beside it.
 """
@@ -295,6 +310,8 @@ PARENT_STEP_MS = {("ViT-L/16 60x256x256", 16): 118.597,
 # 700 W: the mean of scripts/time_kernels.py's two parent runs in an A/B
 # call (PERF.md)
 PARENT_B6_MS = {"square": 1.24775, "shard": 0.38244}
+# a train step's one AdamW update: one launch of csrc/adamw.cu
+ADAMW_STEP = {"adamw": 1}
 # the ViT-L logits, flash (fixed shift, unnormalised bf16 p) vs naive
 # (exact softmax, normalised bf16 p) through 24 bf16 blocks.  Measured on an
 # H100 at 700 W with seeded weights: 7.8e-3 (first kernel version) and
@@ -1834,7 +1851,8 @@ def time_b8(torch, _cuda, kablate, rate):
 
 # ----------------------------------- phase 15: the joint step, checkpoints
 
-JOINT_B1_B2 = {"flash_fwd_packed": 160, "flash_bwd_packed": 160}
+JOINT_B1_B2 = {"flash_fwd_packed": 160, "flash_bwd_packed": 160,
+               **ADAMW_STEP}
 # the blank-region pre-mask on the card against its plain version on the
 # CPU: equal per-frame counts, and a patch may differ only in a swap with
 # one of its frame whose score is within this of its own (fp32 sums of
@@ -1927,7 +1945,7 @@ def run_remat_2d(torch, _cuda, entry_mod, smi):
         torch.cuda.synchronize()
         launches = _nonzero(_cuda.launches)
         want = {"flash_fwd_packed": 96 if remat else 64,
-                "flash_bwd_packed": 64}
+                "flash_bwd_packed": 64, **ADAMW_STEP}
         print(f"remat_2d={remat} accum_2d=1: loss {m['loss'].item():.6f} "
               f"launches {launches}")
         if launches != want or not math.isfinite(m["loss"].item()):
@@ -2533,7 +2551,8 @@ def run_phase16(torch, _cuda, entry_mod, serve, infer):
 
 # ------------------------------------------------- phase 17: the 2D MAE
 
-MAE2D_B1_B2 = {"flash_fwd_packed": 32, "flash_bwd_packed": 32}
+MAE2D_B1_B2 = {"flash_fwd_packed": 32, "flash_bwd_packed": 32,
+               **ADAMW_STEP}
 
 
 def mae2d_train_flops(d=1024, layers=24, dd=512, dlayers=8, img=224,
@@ -3037,7 +3056,7 @@ def run_phase18(torch, _cuda, entry_mod, smi):
 
 # ------------------------------------- phase 19: the fine-tuning family
 
-FT_B1_B2 = {"flash_fwd_packed": 24, "flash_bwd_packed": 24}
+FT_B1_B2 = {"flash_fwd_packed": 24, "flash_bwd_packed": 24, **ADAMW_STEP}
 # the multi-task target of every classifier step: normal column 0, then 8
 # diseases (16 logits, the octcube_multitask head)
 FT_TARGET = [[0.0, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0]]
@@ -3438,7 +3457,8 @@ def run_ft_slivit(torch, _cuda, smi, tmp):
                     cfg.input_size, 1), generator=gen, device="cuda")
     y = torch.tensor([0, 1, 1, 0], device="cuda")
     state, _ = _ft_step(torch, _cuda, step, state, x, y,
-                        "slivit_ct3d step (4 x 60 x 256 x 256)", [], want={})
+                        "slivit_ct3d step (4 x 60 x 256 x 256)", [],
+                        want=ADAMW_STEP)
     ms, peak, bound = _time_ft(torch, step, state, x, y, smi,
                                "slivit_ct3d step (batch 4, bf16)",
                                convnext_flops(), 3)
@@ -3652,7 +3672,7 @@ def run_ft_cli(torch, _cuda, smi, tmp, direct_ms):
                        "--epochs", "1", "--output_dir", run2])
         wall = time.perf_counter() - t0
     steps = probe.take()[0]
-    _cli_steps("cli/finetune.py slivit_ct3d", steps, {})
+    _cli_steps("cli/finetune.py slivit_ct3d", steps, ADAMW_STEP)
     files = sorted(os.listdir(run2))
     ev2 = [s["ev"][0].elapsed_time(s["ev"][1]) for s in steps]
     print(f"cli/finetune.py slivit_ct3d on {smi}: {wall:.1f} s in main; "
@@ -3703,7 +3723,8 @@ def run_phase19(torch, _cuda, smi):
     # checked steps, as the counters read them in this run
     seen = {**a["seen"], **vj_seen, **trunks_seen, **sl["seen"], **cli_seen}
     return {kern: {path: [d.get(kern, 0) for d in steps]
-                   for path, steps in seen.items()} for kern in FT_B1_B2}
+                   for path, steps in seen.items()}
+            for kern in ("flash_fwd_packed", "flash_bwd_packed")}
 
 
 # ----------------------------------------- phase 20: the COEM contrastive path
@@ -3723,7 +3744,7 @@ COEM_3MOD_CONFIG = "vitl16_octcube_ef_3mod"
 def coem_launches(accum, three_mod=False):
     per = (200, 56) if three_mod else (128, 32)
     return {"flash_fwd_packed": per[0] * accum,
-            "flash_bwd_packed": per[1] * accum}
+            "flash_bwd_packed": per[1] * accum, **ADAMW_STEP}
 
 
 def vit_fwd_flops(n, layers=24, d=1024, pix=0, l=0):
@@ -4283,7 +4304,7 @@ def run_coem_cli(torch, _cuda, smi, tmp):
         ft_wall = time.perf_counter() - t0
     ft_steps = probe.take()[0]
     # fp32 without remat: 24 + 2 x 24 B1, 8 + 2 x 24 B2 a step
-    ft_want = {"flash_fwd_packed": 72, "flash_bwd_packed": 56}
+    ft_want = {"flash_fwd_packed": 72, "flash_bwd_packed": 56, **ADAMW_STEP}
     _cli_steps("cli/retclip_finetune.py octcube_ef_3mod (fp32)", ft_steps,
                ft_want)
     ft_ev = [s["ev"][0].elapsed_time(s["ev"][1]) for s in ft_steps]
@@ -4354,7 +4375,8 @@ HIPT_PAIR_CFG = {
 HIPT_PAIRS = 128
 # one B1 and one B2 per HIPT block (257 tokens, folded); the text tower's
 # attention is plain PyTorch, as in the JAX package
-HIPT_PAIR_STEP = {"flash_fwd_packed": 6, "flash_bwd_packed": 6}
+HIPT_PAIR_STEP = {"flash_fwd_packed": 6, "flash_bwd_packed": 6,
+                  **ADAMW_STEP}
 # the pair's AdamW: OpenCLIP's defaults (lr 5e-4, wd 0.2, betas 0.9 /
 # 0.98), a linear warmup from 0 so that the first update moves nothing
 HIPT_LR, HIPT_WARMUP = 5e-4, 10
@@ -4891,7 +4913,8 @@ def run_tp_one_rank(torch, _cuda, entry_mod):
                   f"{TOL_NAIVE['bfloat16'][0]:.1e}), blocks.0.mixer.Wqkv "
                   f"grad rel {dgrad:.3e} (tol {TOL_RUN_TO_RUN:.1e}), launches "
                   f"per step {ct}")
-            want = {"flash_fwd_packed": 32, "flash_bwd_packed": 32}
+            want = {"flash_fwd_packed": 32, "flash_bwd_packed": 32,
+                    **ADAMW_STEP}
             if (dloss > TOL_NAIVE["bfloat16"][0] or dgrad > TOL_RUN_TO_RUN
                     or any(c != want for c in ct)):
                 raise AssertionError(f"flash_tp's MAE step, dec_heads "
@@ -5295,11 +5318,12 @@ def run_gloo_clis(torch, _cuda, smi):
         # under sp each attention call is one B5 and one B7 launch where
         # one rank's is one B1 and one B2
         want = ([{"flash_fwd_bh": c["flash_fwd_packed"],
-                  "flash_bwd_bh": c["flash_bwd_packed"]}
+                  "flash_bwd_bh": c["flash_bwd_packed"], **ADAMW_STEP}
                  for c in one["launches"]] if sp else one["launches"])
         if (dloss > TOL_DP_LOSS or len(got["losses"]) != 2
                 or any(rk[name]["launches"] != want for rk in ranks)
-                or any(set(c) != {"flash_fwd_packed", "flash_bwd_packed"}
+                or any(set(c) != {"flash_fwd_packed", "flash_bwd_packed",
+                                  "adamw"} or c["adamw"] != 1
                        for c in one["launches"])
                 or not all(math.isfinite(v) for v in got["losses"])):
             raise AssertionError(f"22c: cli/{name}.py on two ranks")
@@ -5463,7 +5487,7 @@ def run_fsdp_one_rank(torch, _cuda, entry_mod):
               f"{[r['launches'] for r in got]}, event ms "
               f"{[round(r['event_ms'], 1) for r in got]} vs "
               f"{[round(r['event_ms'], 1) for r in rep]}")
-        want = {"flash_fwd_packed": 32, "flash_bwd_packed": 32}
+        want = {"flash_fwd_packed": 32, "flash_bwd_packed": 32, **ADAMW_STEP}
         if (not losses_equal or not free_equal or dgn > TOL_RUN_TO_RUN
                 or n_sh == 0 or any(n not in g_got for n in free)
                 or any(r["launches"] != want for r in got + rep)):
@@ -5769,6 +5793,236 @@ def run_phase23(torch, _cuda, entry_mod, smi):
     print(f"phase 23 launches per step: {json.dumps(seen)}")
 
 
+# ----------------------------------------- phase 24: AdamW (csrc/adamw.cu)
+
+# The kernel against the plain multi-tensor body on the card, per leaf:
+# max|d| <= TOL_ADAMW * max|plain|.  The plain body's PyTorch kernels may
+# contract a multiply-add into one rounding where the kernel rounds twice,
+# a last-bit difference in a term; an entry that cancels to near 0 can
+# then differ by many of its own ulps, never by more than a few ulps of
+# its leaf's largest term (2^-18 leaves room for the terms' sizes).  With
+# bf16 mu that last bit can round a stored mu one bf16 step the other way
+# (2^-8 of it, held at 2^-6), which moves the next update by at most 2^-7
+# of |u| (|u| < 2): p within TOL_ADAMW_BF16_P * lr, absolute, beyond.
+TOL_ADAMW = 2 ** -18
+TOL_ADAMW_BF16_MU = 2 ** -6
+TOL_ADAMW_BF16_P = 2 ** -6
+
+
+def _ordered(torch, x):
+    """A float tensor's bit patterns as int64 in the order of its values
+    (sign-magnitude to two's complement): their difference counts ulps."""
+    bits, mask = ((torch.int16, 0x7FFF) if x.dtype == torch.bfloat16
+                  else (torch.int32, 0x7FFFFFFF))
+    i = x.contiguous().view(bits).long()
+    return torch.where(i < 0, -(i & mask), i)
+
+
+def _adamw_diff(torch, what, got, ref, tol, atol=0.0):
+    """Two lists of leaves -> (largest difference in ulps as stored, share
+    of entries that differ, worst max|d| / max|ref| of a leaf); raises
+    where a leaf's max|d| > tol * max|ref| + atol."""
+    worst, differ, n, rel = 0, 0, 0, 0.0
+    for a, b in zip(got, ref):
+        if not a.numel():
+            continue
+        a, b = a.detach(), b.detach()
+        d = (_ordered(torch, a) - _ordered(torch, b)).abs()
+        worst = max(worst, int(d.max()))
+        differ += int((d > 0).sum())
+        n += a.numel()
+        big = float(b.float().abs().max())
+        gap = float((a.float() - b.float()).abs().max())
+        rel = max(rel, gap / big if big else gap)
+        if gap > tol * big + atol:
+            raise AssertionError(f"24: {what}: max|d| {gap:.3e} against "
+                                 f"max|plain| {big:.3e}")
+    return worst, differ / max(n, 1), rel
+
+
+def _adamw_twins(torch, optim, named, **kw):
+    """The kernel's AdamW over ``named`` and the plain body's over copies
+    of them, both counting on the card."""
+    kern = optim.build_adamw(named, **kw)
+    plain = optim.build_adamw(
+        {k: torch.nn.Parameter(p.detach().clone()) for k, p in named.items()},
+        **kw)
+    plain._kernel_update = plain._foreach_update
+    for tx in (kern, plain):
+        tx.count_on_device("cuda")
+    return kern, plain
+
+
+def _adamw_compare(torch, _cuda, kern, plain, gen, scales, oks, what,
+                   bf16=False):
+    """Updates with the same fresh gradients (times ``scales``) and gates
+    ``oks`` (None: not gated): one launch of the kernel a step, none of
+    the plain body, a gated-off update changes nothing; per operand, the
+    worst ulps, share differing and relative gap over the updates."""
+    rows = {}
+    for i, (scale, ok) in enumerate(zip(scales, oks)):
+        for p, q in zip(kern.params, plain.params):
+            q.grad = p.grad = scale * torch.randn(
+                p.shape, generator=gen, device="cuda")
+        gate = None if ok is None else torch.tensor(ok, device="cuda")
+        held = ([t.clone() for t in kern.params + kern.mu + kern.nu]
+                if ok is False else None)
+        _cuda.reset_launches()
+        kern.step(ok=gate)
+        plain.step(ok=gate)
+        torch.cuda.synchronize()
+        launches = _nonzero(_cuda.launches)
+        if launches != ADAMW_STEP:
+            raise AssertionError(f"24: {what} update {i + 1}: launches "
+                                 f"{launches}")
+        if held is not None:
+            if not all(torch.equal(a, b) for a, b in
+                       zip(held, kern.params + kern.mu + kern.nu)):
+                raise AssertionError(f"24: {what}: a gated-off update "
+                                     f"changed the state")
+            del held
+        lr = max(kern.lr(c) for c in range(int(kern.count) + 1))
+        for op, got, ref, tol, atol in (
+                ("p", kern.params, plain.params, TOL_ADAMW,
+                 TOL_ADAMW_BF16_P * lr if bf16 else 0.0),
+                ("mu", kern.mu, plain.mu,
+                 TOL_ADAMW_BF16_MU if bf16 else TOL_ADAMW, 0.0),
+                ("nu", kern.nu, plain.nu, TOL_ADAMW, 0.0)):
+            ulps, share, rel = _adamw_diff(torch, f"{what} update {i + 1} "
+                                           f"{op}", got, ref, tol, atol)
+            old = rows.get(op, (0, 0.0, 0.0))
+            rows[op] = (max(old[0], ulps), max(old[1], share),
+                        max(old[2], rel))
+        print(f"24 {what} update {i + 1} (ok {ok}): launches {launches}; "
+              f"kernel vs plain (ulps, share differing, max|d|/max|plain|) "
+              + "; ".join(f"{op} {r[0]}, {r[1]:.2e}, {r[2]:.2e}"
+                          for op, r in rows.items()))
+    if int(kern.count) != int(plain.count):
+        raise AssertionError(f"24: {what}: counts {int(kern.count)} and "
+                             f"{int(plain.count)}")
+    return {op: {"max_ulps": r[0], "share_differing": r[1],
+                 "max_rel_gap": r[2]} for op, r in rows.items()}
+
+
+def _kernel_device_ms(torch, fn, reps):
+    """fn run ``reps`` times under the profiler -> ({kernel name: device
+    ms a call}, the device ms of every kernel a call)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {e.key: e.device_time_total / 1e3 / reps
+          for e in prof.key_averages() if e.device_time_total > 0}
+    return ms, sum(ms.values())
+
+
+def run_phase24(torch, _cuda, entry_mod, optim, schedules, smi):
+    """Phase 24: AdamW's kernel at the ViT-L MAE's params (24a-24d above)
+    -> the kernels line's entry."""
+    step, state, x = entry_mod.train_entry()
+    named = dict(state.params.named_parameters())
+    del step, state, x
+    torch.cuda.empty_cache()
+    n = sum(p.numel() for p in named.values())
+    gen = torch.Generator(device="cuda").manual_seed(24)
+
+    # 24a: the MAE's set as its cell runs it: a device count, no clip
+    kern, plain = _adamw_twins(torch, optim, named, learning_rate=1e-3,
+                               weight_decay=0.05)
+    mae = _adamw_compare(torch, _cuda, kern, plain, gen, (1e-2, 1e-4, 1e-2),
+                         (None,) * 3, f"MAE set ({len(named)} tensors, "
+                         f"{n} params)")
+
+    # 24d: times at that set, the kernel's profile holding no other pass
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        kern.step()
+        host.append((time.perf_counter() - t0) * 1e3)
+    ev_ms = _elapsed_ms(kern.step, 20, 2)
+    per_kernel, dev_ms = _kernel_device_ms(torch, kern.step, 5)
+    k_ms = sum(v for k, v in per_kernel.items() if "adamw_kernel" in k)
+    if not k_ms or any("multi_tensor_apply" in k for k in per_kernel):
+        raise AssertionError(f"24: the kernel's update profile {per_kernel}")
+    plain_ms = _elapsed_ms(plain.step, 10, 1)
+    plain_kernels, plain_dev = _kernel_device_ms(torch, plain.step, 2)
+    lib = torch.optim.AdamW(plain.params, lr=1e-3, betas=(0.9, 0.95),
+                            weight_decay=0.05, eps=1e-8, fused=True)
+    lib_ms = _elapsed_ms(lib.step, 10, 1)
+    del lib
+    bytes_ = 28 * n
+    bound = bytes_ / PEAK_BYTES * 1e3
+    print(f"24d AdamW at the MAE set on {smi}: kernel {k_ms:.4f} ms device "
+          f"(profiler, a step's adamw_kernel launches; "
+          f"{bytes_ / k_ms / 1e6:.1f} GB/s, {bound / k_ms:.1%} of the "
+          f"bound), {dev_ms:.4f} ms every kernel of the update "
+          f"({ {k: round(v, 4) for k, v in per_kernel.items()} }), "
+          f"{ev_ms:.4f} ms a step (CUDA events over 20), host "
+          f"{sorted(host)[len(host) // 2]:.3f} ms a call (median of 10); "
+          f"bound {bound:.4f} ms (28 B x {n} params at "
+          f"{PEAK_BYTES:.3e} B/s); plain body {plain_ms:.4f} ms a step "
+          f"(events), {plain_dev:.4f} ms device over "
+          f"{len(plain_kernels)} kernel kinds; torch.optim.AdamW(fused=True) "
+          f"{lib_ms:.4f} ms (events, library yardstick)")
+    del plain
+    torch.cuda.empty_cache()
+
+    # 24c: one captured update replayed against the same update eagerly
+    cap = optim.build_adamw(
+        {k: torch.nn.Parameter(p.detach().clone()) for k, p in named.items()},
+        learning_rate=1e-3, weight_decay=0.05)
+    cap.count_on_device("cuda")
+    cap.load_state_dict(kern.state_dict())
+    for p, q in zip(cap.params, kern.params):
+        p.grad = q.grad
+    graph = torch.cuda.CUDAGraph()
+    _cuda.reset_launches()
+    with torch.cuda.graph(graph):
+        cap.step()
+    for _ in range(2):
+        kern.step()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in
+                   zip(kern.params + kern.mu + kern.nu,
+                       cap.params + cap.mu + cap.nu))
+        if not same or int(kern.count) != int(cap.count):
+            raise AssertionError("24c: a replayed update differs from the "
+                                 "eager one")
+    print(f"24c: a captured update ({_nonzero(_cuda.launches)} at capture) "
+          f"replayed twice, bit-equal to the eager updates")
+    del cap, graph, kern
+    torch.cuda.empty_cache()
+
+    # 24b: the fine-tune form: layer decay, clip, bf16 mu, gated on ok
+    kern, plain = _adamw_twins(
+        torch, optim, named, learning_rate=schedules.clip_cosine_lr(
+            1e-3, 0, 10), weight_decay=0.05, layer_decay=0.65, num_blocks=24,
+        clip_grad=1.0, mu_dtype=torch.bfloat16)
+    ft = _adamw_compare(torch, _cuda, kern, plain, gen, (1e-2, 1.0, 1e-2, 1e-2),
+                        (True, False, True, True), "fine-tune set (layer "
+                        "decay 0.65, clip 1.0, bf16 mu)", bf16=True)
+    on = torch.tensor(True, device="cuda")
+    ft_ms = _elapsed_ms(lambda: kern.step(ok=on), 10, 1)
+    print(f"24b fine-tune form on {smi}: {ft_ms:.4f} ms an update with the "
+          f"clip's norm (CUDA events over 10; bf16 mu: 24 B a param, bound "
+          f"{24 * n / PEAK_BYTES * 1e3:.4f} ms without the norm)")
+    del kern, plain
+    for p in named.values():
+        p.grad = None
+    torch.cuda.empty_cache()
+    return {"name": "adamw", "route": "cuda",
+            "source": "octcubem_tpu_torch/csrc/adamw.cu",
+            "replaces": "none (XLA fuses optax's AdamW on the TPU)",
+            "launches": 1, "params": n, "kernel_ms": k_ms,
+            "update_device_ms": dev_ms, "events_ms": ev_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": "bytes", "vs_plain": {"mae": mae, "fine_tune": ft},
+            "fine_tune_ms": ft_ms}
+
+
 def main() -> int:
     import torch
 
@@ -5851,14 +6105,14 @@ def main() -> int:
     # training: ViT-L/16 (B1 + B2), then ViT-H/14 (B5 + B7, B1 + B2)
     launches_bwd = run_train(
         torch, _cuda, entry_mod, optim, "ViT-L/16 60x256x256", (16, 4),
-        {"flash_fwd_packed": 32, "flash_bwd_packed": 32}, {})[
+        {"flash_fwd_packed": 32, "flash_bwd_packed": 32, **ADAMW_STEP}, {})[
             "flash_bwd_packed"]
     check_flash_vs_naive(torch, entry_mod, "ViT-L/16")
     mae_h = dict(ctor=entry_mod.mae3d.mae_vit_huge_patch14, input_size=224)
     b57 = run_train(
         torch, _cuda, entry_mod, optim, "ViT-H/14 60x224x224", (16,),
         {"flash_fwd_bh": 32, "flash_bwd_bh": 32, "flash_fwd_packed": 8,
-         "flash_bwd_packed": 8},
+         "flash_bwd_packed": 8, **ADAMW_STEP},
         dict(d=1280, layers=32, img=224, patch=14), **mae_h)
     check_flash_vs_naive(torch, entry_mod, "ViT-H/14", **mae_h)
     phase_done("7-8: MAE steps and flash vs naive")
@@ -5898,6 +6152,8 @@ def main() -> int:
     phase_done("22: the multi-rank paths")
     run_phase23(torch, _cuda, entry_mod, smi)
     phase_done("23: fsdp-sharded states, dryrun_multichip(4)")
+    adamw = run_phase24(torch, _cuda, entry_mod, optim, schedules, smi)
+    phase_done("24: AdamW's kernel")
     per_step = {kern: {**ft_launches[kern], **coem_launches_seen[kern],
                        **aux_seen[kern]}
                 for kern in ft_launches}
@@ -5942,6 +6198,7 @@ def main() -> int:
         "source": "octcubem_tpu_torch/csrc/flash_ablate.cu",
         "replaces": "scripts/kablate.py:33", "max_abs_err": b8_err,
         **timing_b8})
+    kernels.append(adamw)
     for k in kernels:
         for key, val in k.items():
             if isinstance(val, float) and not math.isfinite(val):

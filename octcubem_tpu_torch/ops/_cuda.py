@@ -16,7 +16,8 @@ a wrapper adds one exactly where it calls its kernel (one call may be
 several launches of one algorithm, as the backward's passes are), so a
 run can show that its main path went through the kernels.  The
 ``[B, H, N, D]`` forward library serves three TPU kernels (B3, B5, B6)
-and the backward two (B4, B7), counted apart.
+and the backward two (B4, B7), counted apart.  ``adamw`` replaces no TPU
+kernel (XLA fused optax's AdamW there) and counts one per update.
 """
 
 from __future__ import annotations
@@ -85,7 +86,18 @@ KERNELS = {
         "octcube_flash_ablate": ([_P] * 5 + [_I] * 6 + [_F, _P], ctypes.c_int),
         "octcube_error_string": ([_I], ctypes.c_char_p),
     }),
+    "adamw": ("adamw.cu", {
+        # host arrays ptrs, sizes, ends, scale, decay; count, mu_bf16; host
+        # array hyper; device pointers lr, c1, c2, clip, ok; stream
+        "octcube_adamw": ([_P] * 5 + [_I] * 2 + [_P] * 7, ctypes.c_int),
+        "octcube_error_string": ([_I], ctypes.c_char_p),
+    }),
 }
+
+# built beside whichever library a process loads first, in the same nvcc
+# round: a training run's first update would otherwise wait for its own
+# build inside the step
+BUILT_WITH_ANY = ("adamw",)
 
 # launch counter -> the TPU kernel it replaces (octcubem_tpu/ops/
 # flash_attention.py; B8 in scripts/kablate.py)
@@ -98,6 +110,7 @@ COUNTERS = {
     "flash_fwd_bh_exact": "B6 _fwd_kernel",
     "flash_bwd_bh": "B7 _fused_bwd_kernel",
     "flash_ablate": "B8 fwd_variant",
+    "adamw": "none: optax's AdamW, which XLA fuses into one pass",
 }
 
 launches: dict[str, int] = {name: 0 for name in COUNTERS}
@@ -182,7 +195,8 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            built = build(dict.fromkeys((name, *BUILT_WITH_ANY)))
+            lib = ctypes.CDLL(str(built[name]))
             for fn, (argtypes, restype) in KERNELS[name][1].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes

@@ -15,30 +15,36 @@ decay on the masked params, the layer scales, then the LR of the
 pre-increment count.  Without clip and layer decay that is exactly
 ``build_fused_adamw``'s single pass.  A param whose ``.grad`` is None
 takes a zero gradient, as JAX gives it one: its count, moments and
-weight decay still advance (``torch.optim`` would skip it).  Each stage
-is one multi-tensor (``torch._foreach_*``) op over all params.
+weight decay still advance (``torch.optim`` would skip it).  The LR is
+folded into the first moment's scale and the decoupled decay is the
+factor ``1 - lr * weight_decay * scale`` on the decayed params
+(``torch.optim.AdamW``'s form).
+
+Where it runs: a param list on the card takes ``csrc/adamw.cu``, one
+pass that reads p, g, mu and nu once and writes p, mu and nu once (28
+bytes a fp32 param), launched by ``_kernel_update``; it has no other
+path, and raises on a list it does not take.  A CPU list takes
+``_foreach_update``, the same arithmetic as multi-tensor
+(``torch._foreach_*``) ops, one pass a stage: the kernel's plain
+version, which the CPU tests hold against optax.
 
 On a state sharded over fsdp (``core/fsdp.py``) the params, ``mu`` and
-``nu`` of a sharded leaf are this rank's chunks, on which every stage
-above is elementwise; the clip's norm is the global gradient's
-(``global_norm``).
+``nu`` of a sharded leaf are this rank's chunks, on which the update is
+elementwise; the clip's norm is the global gradient's (``global_norm``).
 
 ``step(ok=...)`` is the fine-tune step's NaN guard on the device (JAX's
-``jnp.where(ok, new, old)`` over the whole state): the update is computed
-out of place and kept only where the 0-d bool ``ok`` holds, so a
-non-finite loss leaves the params, both moments and the count as they
-were, and the host reads nothing.  On that path the count is a 0-d
-tensor on the params' device and the LR is read at it from a table of
-the schedule over its ``total_steps`` (the last entry past the end).
-Without ``ok`` the update is in place, at an ``int`` count with the LR
-and bias corrections as host floats, or at a 0-d tensor count
-(``count_on_device``: the form a step captured into a CUDA graph
-replays, ``train/step_graph.py``) with them read on the card and the
-count advanced in its own tensor.  Every path runs one update body
-(``_update``): the LR is folded into the first moment's scale and the
-decoupled decay is the factor ``1 - lr * weight_decay * scale`` on the
-decayed params (``torch.optim.AdamW``'s form), one pass fewer than
-adding the decay to the update.
+``jnp.where(ok, new, old)`` over the whole state): the update is kept
+only where the 0-d bool ``ok`` holds, so a non-finite loss leaves the
+params, both moments and the count as they were, and the host reads
+nothing (the kernel writes nothing where ``ok`` is false; the plain
+version computes out of place and selects).  On that path the count is
+a 0-d tensor on the params' device and the LR is read at it from a
+table of the schedule over its ``total_steps`` (the last entry past the
+end).  Without ``ok`` the count is an ``int``, with the LR and bias
+corrections as host floats, or a 0-d tensor (``count_on_device``: the
+form a step captured into a CUDA graph replays, ``train/step_graph.py``)
+with them read on the card and the count advanced in its own tensor.
+Every path runs the one body of its device.
 
 LiT locking (the COEM towers): ``lit_lock_scales`` gives each param 1.0
 or 0.0 by the reference lock() groups; ``make_partition`` freezes the
@@ -51,6 +57,8 @@ differentiates and keeps moments for every param.
 
 from __future__ import annotations
 
+import ctypes
+import itertools
 import re
 from typing import Callable, Mapping
 
@@ -58,9 +66,15 @@ import torch
 from torch import nn
 
 from ..core.multihost import all_reduce_sum
+from ..ops import _cuda
 from ..utils import profiling
 
 _NO_DECAY = ("pos_embed", "cls_token", "mask_token")
+
+# csrc/adamw.cu: elements a block takes at a time (kChunk), tensors a
+# launch holds (kMaxTensors)
+ADAMW_CHUNK = 2048
+ADAMW_GROUP = 64
 
 
 def _named(params) -> dict[str, torch.Tensor]:
@@ -193,6 +207,20 @@ def grad_norm(params, grads, shards=None) -> torch.Tensor:
     return global_norm(grads, shards.mask(params), shards.group)
 
 
+def adamw_launches(sizes) -> list[tuple[list[int], list[int]]]:
+    """csrc/adamw.cu's launches over tensors of ``sizes`` elements: per
+    launch the indices of its tensors (in order, at most ``ADAMW_GROUP``;
+    an empty tensor takes none) and their chunk counts, cumulative, which
+    the launch's blocks walk ``ADAMW_CHUNK`` elements at a time."""
+    live = [i for i, n in enumerate(sizes) if n]
+    launches = []
+    for k in range(0, len(live), ADAMW_GROUP):
+        idx = live[k:k + ADAMW_GROUP]
+        ends = itertools.accumulate(-(-sizes[i] // ADAMW_CHUNK) for i in idx)
+        launches.append((idx, list(ends)))
+    return launches
+
+
 class AdamW:
     """AdamW over named params (see the module docstring for the order).
 
@@ -223,6 +251,7 @@ class AdamW:
         self.shards = None  # the fsdp layout of a sharded state (core/fsdp)
         self._lr_table = None
         self._count = None  # the device count ``count_on_device`` keeps
+        self._plan = None  # the kernel's launches (``_kernel_plan``)
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
@@ -261,17 +290,6 @@ class AdamW:
         lr = self.learning_rate
         return float(lr(int(count)) if callable(lr) else lr)
 
-    def _grads(self) -> list[torch.Tensor]:
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        grads = [g.float() for g in grads]
-        if self.clip_grad is not None:
-            gn = grad_norm(self.params, grads, self.shards)
-            factor = torch.where(gn < self.clip_grad, torch.ones_like(gn),
-                                 self.clip_grad / gn)
-            grads = torch._foreach_mul(grads, factor)
-        return grads
-
     @torch.no_grad()
     def count_on_device(self, device) -> torch.Tensor:
         """The count as a 0-d tensor on ``device``, the same tensor from
@@ -300,35 +318,55 @@ class AdamW:
         that count on the device (module docstring).  Runs in the open
         step's ``adamw`` phase (utils/profiling.py)."""
         with profiling.phase("adamw"):
-            if ok is not None:
-                return self._gated_step(ok)
-            grads = self._grads()
+            if ok is not None and not torch.is_tensor(self.count):
+                self.count = torch.tensor(int(self.count),
+                                          device=self.params[0].device)
             if torch.is_tensor(self.count):
                 lr = self._device_lr(self.count).float()
-                self.count.add_(1)
-                c1, c2 = self._corrections(self.count)
+                count = self.count + 1
+                c1, c2 = self._corrections(count)
+                if ok is None:
+                    self.count.copy_(count)  # in place: a replay reads it
+                else:
+                    self.count = torch.where(ok, count, self.count)
             else:
                 lr = self.lr(self.count)  # the schedule's: pre-increment
                 self.count += 1           # bias correction: post-increment
                 c1 = 1.0 - self.b1 ** self.count
                 c2 = 1.0 - self.b2 ** self.count
-            mu = ([m.float() for m in self.mu] if self.mu_dtype is not None
-                  else self.mu)
-            torch._foreach_mul_(mu, self.b1)
-            torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
-            torch._foreach_mul_(self.nu, self.b2)
-            torch._foreach_addcmul_(self.nu, grads, grads,
-                                    value=1.0 - self.b2)
-            self._update(self.params, mu, self.nu, lr, c1, c2)
-            if self.mu_dtype is not None:
-                torch._foreach_copy_(self.mu, mu)
+            if self.params and self.params[0].is_cuda:
+                self._kernel_update(lr, c1, c2, ok)
+            else:
+                self._foreach_update(lr, c1, c2, ok)
 
-    def _update(self, params, mu, nu, lr, c1, c2) -> None:
-        """``params`` in place: p * (1 - lr * wd * s) - lr * s * (mu / c1) /
-        (sqrt(nu / c2) + eps), s the layer scale, the decay on the masked
-        params only (the module docstring's order, with the LR folded
-        into the first moment's scale and the decay as a factor).  ``lr``,
-        ``c1``, ``c2``: floats, or fp32 0-d tensors on the device."""
+    def _clip_factor(self) -> torch.Tensor | None:
+        """The global-norm clip's factor on the gradient, a 0-d fp32
+        tensor on the params' device; None without a clip."""
+        if self.clip_grad is None:
+            return None
+        gn = grad_norm(self.params, [p.grad for p in self.params],
+                       self.shards)
+        return torch.where(gn < self.clip_grad, torch.ones_like(gn),
+                           self.clip_grad / gn)
+
+    def _foreach_update(self, lr, c1, c2, ok) -> None:
+        """The update as multi-tensor ops, one pass a stage: the CPU's
+        body and the kernel's plain version.  In place; with ``ok``, out
+        of place and kept where it holds.  ``lr``, ``c1``, ``c2``: floats,
+        or fp32 0-d tensors on the device."""
+        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        factor = self._clip_factor()
+        if factor is not None:
+            grads = torch._foreach_mul(grads, factor)
+        gated = ok is not None
+        params, nu = ([[t.clone() for t in ts] for ts in (self.params, self.nu)]
+                      if gated else (self.params, self.nu))
+        mu = [m.to(torch.float32, copy=gated) for m in self.mu]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
         denom = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -344,6 +382,105 @@ class AdamW:
             for s, ps in groups.items():
                 torch._foreach_mul_(ps, 1.0 - lr * (self.weight_decay * s))
         torch._foreach_add_(params, u)
+        if gated:
+            for old, new in ((self.params, params), (self.mu, mu),
+                             (self.nu, nu)):
+                for o, n in zip(old, new):
+                    torch.where(ok, n.to(o.dtype), o, out=o)
+        elif self.mu_dtype is not None:
+            torch._foreach_copy_(self.mu, mu)
+
+    def _kernel_plan(self, dev, mu_type) -> list:
+        """csrc/adamw.cu's launches over this state (``adamw_launches``):
+        per launch its tensor indices, the addresses p, g, mu, nu a tensor
+        (g left 0), sizes, chunk ends, layer scales and the decay rates
+        wd * s, as a list and as a float array.  Built, with the state's
+        tensors checked, again whenever a param or moment has moved (fsdp
+        places chunks) or the scales or decay changed."""
+        key = (tuple(map(torch.Tensor.data_ptr, itertools.chain(
+            self.params, self.mu, self.nu))), id(self.scales),
+            self.weight_decay)
+        if self._plan is not None and self._plan[0] == key:
+            return self._plan[1]
+        for name, p, m, v in zip(self.names, self.params, self.mu, self.nu):
+            for t, want in ((p, torch.float32), (m, mu_type),
+                            (v, torch.float32)):
+                if (t.dtype != want or t.device != dev
+                        or not t.is_contiguous() or t.numel() != p.numel()):
+                    raise ValueError(
+                        f"{name}: the AdamW kernel takes contiguous {want} "
+                        f"tensors of the param's size on {dev}, got "
+                        f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        scale = self.scales or [1.0] * len(self.params)
+        wd = [0.0] * len(self.params)
+        for i in self.decayed:
+            wd[i] = self.weight_decay * scale[i]
+        launches = []
+        for idx, ends in adamw_launches([p.numel() for p in self.params]):
+            k = len(idx)
+            ptrs = [a for i in idx for a in (self.params[i].data_ptr(), 0,
+                                             self.mu[i].data_ptr(),
+                                             self.nu[i].data_ptr())]
+            launches.append((
+                idx, (ctypes.c_longlong * (4 * k))(*ptrs),
+                (ctypes.c_longlong * k)(*[self.params[i].numel()
+                                          for i in idx]),
+                (ctypes.c_int * k)(*ends),
+                (ctypes.c_float * k)(*[scale[i] for i in idx]),
+                [wd[i] for i in idx],
+                (ctypes.c_float * k)(*[wd[i] for i in idx])))
+        self._plan = (key, launches)
+        return launches
+
+    def _kernel_update(self, lr, c1, c2, ok) -> None:
+        """The update as csrc/adamw.cu's one pass (module docstring).
+        Takes every tensor on the params' card: p, nu and the gradients
+        fp32, mu fp32 or bf16, each contiguous; raises on anything else.
+        A host count's LR and decay factors go by value, a device count's
+        by pointer, as do the clip factor and ``ok``."""
+        dev = self.params[0].device
+        mu_type = self.mu_dtype or torch.float32
+        if mu_type not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the AdamW kernel keeps mu in fp32 or bf16, "
+                             f"not {mu_type}")
+        plan = self._kernel_plan(dev, mu_type)
+        grads = []
+        for name, p in zip(self.names, self.params):
+            g = p.grad
+            if g is not None:
+                if not g.is_contiguous():
+                    g = g.contiguous()  # the kernel walks memory in order
+                if (g.dtype != torch.float32 or g.device != dev
+                        or g.numel() != p.numel()):
+                    raise ValueError(
+                        f"{name}: the AdamW kernel takes a contiguous fp32 "
+                        f"gradient of the param's size on {dev}, got "
+                        f"{g.dtype} {tuple(g.shape)} on {g.device}")
+            grads.append(g)
+        if ok is not None and (ok.dtype != torch.bool or ok.device != dev):
+            raise ValueError(f"ok: a bool tensor on {dev}, got {ok.dtype} "
+                             f"on {ok.device}")
+        on_device = torch.is_tensor(lr)  # the kernel reads lr, c1, c2 there
+        at = ([lr.data_ptr(), c1.data_ptr(), c2.data_ptr()] if on_device
+              else [None] * 3)
+        clip = self._clip_factor()
+        at += [None if t is None else t.data_ptr() for t in (clip, ok)]
+        hyper = (ctypes.c_float * 7)(
+            self.b1, 1.0 - self.b1, self.b2, 1.0 - self.b2, self.eps,
+            *((0.0, 0.0) if on_device else (-lr / c1, c2)))
+        lib = _cuda.library("adamw")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for idx, ptrs, sizes, ends, scale, wd, c_wd in plan:
+            for j, i in enumerate(idx):
+                ptrs[4 * j + 1] = 0 if grads[i] is None else grads[i].data_ptr()
+            decay = (c_wd if on_device else
+                     (ctypes.c_float * len(idx))(*[1.0 - lr * w for w in wd]))
+            err = lib.octcube_adamw(
+                *map(ctypes.addressof, (ptrs, sizes, ends, scale, decay)),
+                len(idx), int(mu_type == torch.bfloat16),
+                ctypes.addressof(hyper), *at, stream)
+            _cuda.check(lib, err, "adamw")
+        _cuda.launches["adamw"] += 1
 
     def _lr_values(self, device) -> torch.Tensor:
         """The schedule over steps 0 .. ``total_steps`` (one entry for a
@@ -377,25 +514,6 @@ class AdamW:
         count, fp32 0-d tensors."""
         return ((1.0 - torch.pow(self.b1, count.double())).float(),
                 (1.0 - torch.pow(self.b2, count.double())).float())
-
-    def _gated_step(self, ok: torch.Tensor) -> None:
-        dev = self.params[0].device
-        if not torch.is_tensor(self.count):
-            self.count = torch.tensor(int(self.count), device=dev)
-        grads = self._grads()
-        lr = self._device_lr(self.count).float()
-        count = self.count + 1
-        c1, c2 = self._corrections(count)
-        mu = torch._foreach_mul([m.float() for m in self.mu], self.b1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
-        nu = torch._foreach_mul(self.nu, self.b2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        new = [p.clone() for p in self.params]
-        self._update(new, mu, nu, lr, c1, c2)
-        for old, upd in ((self.params, new), (self.mu, mu), (self.nu, nu)):
-            for o, n in zip(old, upd):
-                torch.where(ok, n.to(o.dtype), o, out=o)
-        self.count = torch.where(ok, count, self.count)
 
 
 def build_fused_adamw(params, learning_rate: float | Callable,

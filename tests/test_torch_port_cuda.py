@@ -45,6 +45,18 @@ accumulation step launches B1 and B2 by the count of its passes (no
 backward for the frozen blocks), keeps the frozen params bit for bit and
 reads nothing back.
 
+AdamW's kernel (csrc/adamw.cu) against the multi-tensor body it replaces
+on the card, three updates over tensors whose sizes are off a multiple of
+4, an empty one, more than one launch holds, and gradients that are views
+off 16-byte alignment, with a host count and with a device count, clip,
+layer scales, bf16 mu and a false gate: p, nu and fp32 mu within 1e-5
+relative (the plain body's PyTorch kernels may contract a multiply-add
+into one rounding where the kernel rounds twice); with bf16 mu, that
+last-bit difference can round a stored mu one bf16 step the other way,
+so mu is held within two bf16 steps and p within lr * 2^-7 * 2 (the next
+update moves by at most 2^-7 of |u|, and |u| stays below 2 here); a
+gated-off update changes nothing; a captured update replays bit for bit.
+
 Head_dim 16 (the HIPT ViT-4K's 12 heads of 16): B3 / B4 and B5 / B7 at
 257 and 197 tokens, ragged, rect with kv_valid and at large logits, the
 Hopper forward on its 32-byte-swizzled panels, B6 at D = 16, and the
@@ -724,8 +736,8 @@ def test_aot_round_trip_on_card(gen, tmp_path):
 def test_finetune_step_launches_b1_b2_per_block_and_reads_nothing_back(gen):
     """One fine-tune step (train/finetune_engine.py) on a small ViT-ST at a
     cls-prefixed 129 tokens, drop path 0.2, the layer-decay AdamW gated on
-    the device: one B1 and one B2 launch per block and no other attention
-    kernel; a NaN batch leaves params, moments and count as they were;
+    the device: one B1 and one B2 launch per block, no other attention
+    kernel, and one AdamW launch; a NaN batch leaves params, moments and count as they were;
     the step's trace holds no device-to-host copy."""
     from octcubem_tpu_torch.models import vit_st
     from octcubem_tpu_torch.train import finetune_engine, losses, optim
@@ -748,7 +760,7 @@ def test_finetune_step_launches_b1_b2_per_block_and_reads_nothing_back(gen):
     state, m = step(state, x, y)
     torch.cuda.synchronize()
     assert {k: c for k, c in _cuda.launches.items() if c} == {
-        "flash_fwd_packed": 3, "flash_bwd_packed": 3}
+        "flash_fwd_packed": 3, "flash_bwd_packed": 3, "adamw": 1}
     assert bool(m["finite"])
     before = [p.detach().clone() for p in model.parameters()]
     mu = [t.clone() for t in tx.mu]
@@ -808,7 +820,8 @@ def test_coem_accum_step_launches_and_frozen_prefix(gen):
     and the head) at 129 tokens, a 2-block en face tower, remat on: per
     chunk, pass 1 runs 4 + 2 B1, pass 2 runs 4 + 2 recomputed B1 and 2
     B2 in the OCT tower and 2 + 2 B1 and 2 B2 in the en face tower: 32 B1
-    and 8 B2 a step.  Frozen params bit for bit; no device-to-host copy."""
+    and 8 B2 a step, and one AdamW launch.  Frozen params bit for bit; no
+    device-to-host copy."""
     from octcubem_tpu_torch.models import coem
     from octcubem_tpu_torch.train import clip_engine, optim
     from octcubem_tpu_torch.train.train_state import TrainState
@@ -837,7 +850,7 @@ def test_coem_accum_step_launches_and_frozen_prefix(gen):
     state, m = step(state, batch)
     torch.cuda.synchronize()
     assert {k: c for k, c in _cuda.launches.items() if c} == {
-        "flash_fwd_packed": 32, "flash_bwd_packed": 8}
+        "flash_fwd_packed": 32, "flash_bwd_packed": 8, "adamw": 1}
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -849,3 +862,98 @@ def test_coem_accum_step_launches_and_frozen_prefix(gen):
     params = dict(model.named_parameters())
     assert all(torch.equal(v, params[k]) for k, v in frozen.items())
 
+
+# ------------------------------------------------ AdamW (csrc/adamw.cu)
+
+# sizes off a multiple of 4, an empty tensor, 2-D (decayed) and 1-D ones,
+# more tensors than one launch holds (train/optim.py ADAMW_GROUP)
+ADAMW_SHAPES = ([(5,), (3, 7), (0,), (2049,), (4099, 3), (1,), (2048, 4)]
+                + [(7,)] * 66 + [(300, 9)])
+
+
+def _adamw_twins(gen, device_count, plain=True, **kw):
+    """Two AdamW over the same seeded params on the card; with ``plain``
+    the second's updates run the multi-tensor body (``_foreach_update``)."""
+    from octcubem_tpu_torch.train import optim, schedules
+
+    vals = [torch.randn(s, generator=gen, device="cuda")
+            for s in ADAMW_SHAPES]
+    lr = schedules.warmup_half_cosine(1e-2, 1e-4, 1, 3, 2)
+    twins = []
+    for _ in range(2):
+        params = {f"blocks.{i}.w": torch.nn.Parameter(v.clone())
+                  for i, v in enumerate(vals)}
+        tx = optim.AdamW(params, lr, 0.05, **kw)
+        if device_count:
+            tx.count_on_device("cuda")
+        twins.append(tx)
+    if plain:
+        twins[1]._kernel_update = twins[1]._foreach_update
+    return twins
+
+
+def _adamw_grads(gen, twins, scale):
+    """The same gradients for both twins: views into one flat buffer at
+    an odd offset (off 16-byte alignment), one param without any."""
+    n = sum(p.numel() for p in twins[0].params)
+    flat = scale * torch.randn(n + 1, generator=gen, device="cuda")
+    for tx in twins:
+        at = 1
+        for i, p in enumerate(tx.params):
+            p.grad = None if i == 3 else flat[at:at + p.numel()].view_as(p)
+            at += p.numel()
+
+
+@pytest.mark.parametrize("device_count", [False, True])
+def test_adamw_kernel_matches_the_foreach_body(gen, device_count):
+    kw = {}
+    if device_count:
+        kw = dict(clip_grad=1.0, mu_dtype=torch.bfloat16,
+                  scales={f"blocks.{i}.w": 0.5 + 0.01 * i
+                          for i in range(len(ADAMW_SHAPES))})
+    kern, plain = _adamw_twins(gen, device_count, **kw)
+    for i, scale in enumerate((3.0, 0.01, 3.0, 1.0)):
+        _adamw_grads(gen, (kern, plain), scale)
+        gate = None
+        if device_count:
+            gate = torch.tensor(i != 2, device="cuda")
+            held = [t.clone() for t in kern.params + kern.mu + kern.nu]
+        _cuda.reset_launches()
+        kern.step(ok=gate)
+        plain.step(ok=gate)
+        torch.cuda.synchronize()
+        assert _cuda.launches["adamw"] == 1
+        if gate is not None and not gate.item():
+            assert all(torch.equal(a, b) for a, b in
+                       zip(held, kern.params + kern.mu + kern.nu))
+        bf16 = device_count
+        for a, b in zip(kern.params, plain.params):
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=1e-2 * 2 ** -6 if bf16 else 1e-6)
+        for a, b in zip(kern.nu, plain.nu):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        for a, b in zip(kern.mu, plain.mu):
+            torch.testing.assert_close(a.float(), b.float(),
+                                       rtol=2 ** -6 if bf16 else 1e-5,
+                                       atol=1e-6)
+    assert int(kern.count) == int(plain.count) == (3 if device_count else 4)
+
+
+def test_adamw_kernel_replays_bit_for_bit_in_a_graph(gen):
+    """The update at a device count, captured once and replayed, against
+    the same update run eagerly from the same state."""
+    eager, graphed = _adamw_twins(gen, True, plain=False, clip_grad=1.0)
+    _adamw_grads(gen, (eager, graphed), 1.0)
+    eager.step()
+    graphed.step()  # the warm-up: the library loads outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed.step()
+    for _ in range(2):
+        eager.step()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(eager.params + eager.mu + eager.nu,
+                        graphed.params + graphed.mu + graphed.nu):
+            assert torch.equal(a, b)
+    assert int(eager.count) == int(graphed.count) == 3

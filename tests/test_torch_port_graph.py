@@ -208,8 +208,9 @@ def test_profiled_step_runs_eagerly_between_replays(gen):
 
 
 def test_replay_launches_what_the_eager_step_launches():
-    """The ViT-L MAE step (train_entry: 24 + 8 blocks, batch 4): 32 B1 and
-    32 B2 launches counted in each call, warm-up, capture and replay."""
+    """The ViT-L MAE step (train_entry: 24 + 8 blocks, batch 4): 32 B1,
+    32 B2 and one AdamW launch counted in each call, warm-up, capture and
+    replay."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from octcubem_tpu_torch.entry import train_entry
@@ -222,7 +223,7 @@ def test_replay_launches_what_the_eager_step_launches():
         state, m = step(state, x, 0.9, noise=noise)
         torch.cuda.synchronize()
         assert {k: n for k, n in _cuda.launches.items() if n} == {
-            "flash_fwd_packed": 32, "flash_bwd_packed": 32}
+            "flash_fwd_packed": 32, "flash_bwd_packed": 32, "adamw": 1}
     assert _paths(seen) == ["warmup", "capture", "replay"]
     assert torch.isfinite(m["loss"]).item()
 

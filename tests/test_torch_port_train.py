@@ -171,6 +171,186 @@ def test_adamw_matches_optax(chain, mu_bf16, on_device):
                                           np.asarray(mu_ref[name], np.float32))
 
 
+# ------------------------------- the AdamW kernel's launches (csrc/adamw.cu)
+
+class _AdamwLib:
+    """Stands in for the kernel's library: records what each
+    ``octcube_adamw`` call is handed (its host arrays read back)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def octcube_adamw(self, ptrs, sizes, ends, scale, decay, count, mu_bf16,
+                      hyper, lr, c1, c2, clip, ok, stream):
+        import ctypes
+
+        def read(addr, ctype, n):
+            return list((ctype * n).from_address(addr))
+
+        self.calls.append({
+            "ptrs": read(ptrs, ctypes.c_longlong, 4 * count),
+            "sizes": read(sizes, ctypes.c_longlong, count),
+            "ends": read(ends, ctypes.c_int, count),
+            "scale": read(scale, ctypes.c_float, count),
+            "decay": read(decay, ctypes.c_float, count),
+            "mu_bf16": mu_bf16, "hyper": read(hyper, ctypes.c_float, 7),
+            "dev": (lr, c1, c2, clip, ok)})
+        return 0
+
+
+def _walk(call, grid):
+    """The kernel's blocks over one launch (csrc/adamw.cu's chunk loop),
+    for ``grid`` blocks -> per tensor of the launch, how often each
+    element is written."""
+    ends = call["ends"]
+    seen = [np.zeros(n, np.int64) for n in call["sizes"]]
+    for b in range(grid):
+        t, first = -1, 0
+        for c in range(b, ends[-1], grid):
+            if t < 0 or c >= ends[t]:
+                t += 1
+                while c >= ends[t]:
+                    t += 1
+                first = ends[t - 1] if t else 0
+            e0 = (c - first) * topt.ADAMW_CHUNK
+            seen[t][e0:e0 + topt.ADAMW_CHUNK] += 1
+    return seen
+
+
+# (2-D shapes decay, 1-D ones do not); sizes off a multiple of 4, empty
+# tensors, and more tensors than one launch holds
+ADAMW_SHAPES = {
+    "ragged": [(5,), (3, 1), (2049,), (4099, 1), (1,), (6151,), (2048, 2)],
+    "empty": [(0,), (6, 1), (0, 4), (10,), (0,)],
+    "many": [(7,)] * 70 + [(3000, 2)] * 3 + [(1, 1)] + [(2,)] * 60,
+}
+
+
+@pytest.mark.parametrize("on_device", [False, True])
+@pytest.mark.parametrize("shapes", list(ADAMW_SHAPES))
+def test_adamw_kernel_launches_cover_each_element_once(monkeypatch, shapes,
+                                                       on_device):
+    """``AdamW._kernel_update``'s launches (the library and the stream
+    stood in for): every element of every non-empty tensor written once
+    by the kernel's chunk walk at any grid, each launch at most
+    ADAMW_GROUP tensors, and each tensor handed its own pointers, layer
+    scale and decay: with a host count the factor 1 - lr wd s (1 where no
+    decay applies), with a device count wd s and the LR and corrections
+    by pointer, as the clip factor and ok; a missing gradient as 0; a
+    moment that moved, at its new address."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(3)
+    shp = ADAMW_SHAPES[shapes]
+    params = {f"blocks.{i}.w": torch.nn.Parameter(torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32))) for i, s in enumerate(shp)}
+    scales = {n: 0.5 + 0.01 * i for i, n in enumerate(params)}
+    tx = topt.AdamW(params, 1e-3, 0.05, clip_grad=1.0 if on_device else None,
+                    scales=scales,
+                    mu_dtype=torch.bfloat16 if on_device else None)
+    for i, p in enumerate(params.values()):
+        if i != 1:
+            p.grad = torch.ones_like(p)
+    lib = _AdamwLib()
+    monkeypatch.setattr(topt._cuda, "library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    lr, c1, c2 = 2e-3, 0.1, 0.05
+    ok = None
+    if on_device:
+        lr, c1, c2 = (torch.tensor(v) for v in (lr, c1, c2))
+        ok = torch.tensor(True)
+    before = topt._cuda.launches["adamw"]
+    tx._kernel_update(lr, c1, c2, ok)
+    assert topt._cuda.launches["adamw"] == before + 1
+    slot = {p.data_ptr(): i for i, p in enumerate(tx.params)}
+    decayed = set(tx.decayed)
+    covered = {}
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    for call in lib.calls:
+        assert 1 <= len(call["sizes"]) <= topt.ADAMW_GROUP
+        chunks = [-(-n // topt.ADAMW_CHUNK) for n in call["sizes"]]
+        assert call["ends"] == list(np.cumsum(chunks))
+        assert call["mu_bf16"] == int(on_device)
+        assert call["hyper"][:5] == [f32(v) for v in (0.9, 0.1, 0.95, 0.05,
+                                                      1e-8)]
+        for grid in (1, 7, call["ends"][-1] + 5):
+            assert all((s == 1).all() for s in _walk(call, grid))
+        for k, n in enumerate(call["sizes"]):
+            i = slot[call["ptrs"][4 * k]]
+            p, s = tx.params[i], scales[tx.names[i]]
+            assert i not in covered and n == p.numel() > 0
+            covered[i] = True
+            assert call["ptrs"][4 * k:4 * k + 4] == [
+                p.data_ptr(), 0 if p.grad is None else p.grad.data_ptr(),
+                tx.mu[i].data_ptr(), tx.nu[i].data_ptr()]
+            assert call["scale"][k] == f32(s)
+            wds = 0.05 * s if i in decayed else 0.0
+            assert call["decay"][k] == f32(wds if on_device
+                                           else 1.0 - 2e-3 * wds)
+        if on_device:
+            assert call["dev"][:3] == (lr.data_ptr(), c1.data_ptr(),
+                                       c2.data_ptr())
+            assert call["dev"][3] is not None and call["dev"][4] == ok.data_ptr()
+        else:
+            assert call["hyper"][5:] == [f32(-2e-3 / 0.1), f32(0.05)]
+            assert call["dev"] == (None,) * 5
+    assert sorted(covered) == [i for i, p in enumerate(tx.params)
+                               if p.numel()]
+    assert decayed & set(covered) and set(covered) - decayed
+    # a moment that moved (fsdp places chunks so) is launched where it is
+    last = max(covered)
+    tx.nu[last] = tx.nu[last].clone()
+    lib.calls.clear()
+    tx._kernel_update(lr, c1, c2, ok)
+    assert tx.nu[last].data_ptr() in lib.calls[-1]["ptrs"]
+
+
+def test_adamw_kernel_refuses_what_it_does_not_take(monkeypatch):
+    """The kernel's wrapper raises, before any launch, on a param (and
+    its gradient) off fp32, mu off fp32 and bf16, and an ok that is no
+    bool."""
+    lib = _AdamwLib()
+    monkeypatch.setattr(topt._cuda, "library", lambda name: lib)
+
+    def tx_with(dtype=torch.float32, mu=None):
+        p = torch.nn.Parameter(torch.ones((4, 3), dtype=dtype))
+        p.grad = torch.ones_like(p)
+        return topt.AdamW({"w": p}, 1e-3, mu_dtype=mu)
+
+    for tx in (tx_with(torch.float64), tx_with(mu=torch.float16)):
+        with pytest.raises(ValueError, match="AdamW kernel"):
+            tx._kernel_update(1e-3, 0.1, 0.05, None)
+    with pytest.raises(ValueError, match="ok"):
+        tx_with()._kernel_update(1e-3, 0.1, 0.05, torch.tensor(1.0))
+    assert lib.calls == []
+
+
+def test_adamw_cpu_path_is_the_foreach_body(monkeypatch):
+    """A CPU param list takes the multi-tensor body, gated or not: its
+    ops in a profile, the kernel's library never asked for, no launch
+    counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def refuse(name):
+        raise AssertionError(f"library {name} asked for on the CPU")
+
+    monkeypatch.setattr(topt._cuda, "library", refuse)
+    lin = torch.nn.Linear(8, 4)
+    tx = topt.AdamW(lin, tsched.warmup_half_cosine(1e-2, 1e-4, 1, 3, 4),
+                    0.05, clip_grad=1.0)
+    before = dict(topt._cuda.launches)
+    for ok in (None, torch.tensor(True)):
+        for p in lin.parameters():
+            p.grad = torch.ones_like(p)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tx.step(ok=ok)
+        names = {e.name for e in prof.events()}
+        assert {"aten::_foreach_addcmul_", "aten::_foreach_div_",
+                "aten::_foreach_sqrt_"} <= names
+    assert topt._cuda.launches == before
+
+
 # ----------------------------------------------------- the train step
 
 # loss and grad norm: the JAX package's full-model fp32 tolerance
