@@ -46,17 +46,12 @@ Phases, each fatal on failure (no phase's error is caught):
      with both decoder geometries (32 B1 + 32 B2 launches per step) and
      ViT-H/14 at 60x224x224 (32 B5 + 32 B7 in the encoder, 8 B1 + 8 B2 in
      the decoder); finite loss and grad norm, params unchanged by the
-     first update (its LR is 0) and changed by the next two, peak device
-     memory, the step's time beside the parent tree's;
+     first update (its LR is 0) and changed by the next two;
   8. flash against impl="naive" under autograd: each MAE cut to 2 + 2
      blocks at batch 2, loss and per-leaf gradients, fp32 and bf16;
-  9. B1 and B2 at the ViT-L step's shapes, B3-B5 and B7 at the ViT-H
+  9. B1 and B2 at the ViT-L step's shapes, B4 and B7 at the ViT-H
      paths' shapes, laid out as the paths lay them out, against their
-     plain versions (the backward twice, as in phase 3); timings with
-     CUDA events (kernel, plain version, a PyTorch library yardstick, the
-     bound; the forwards and the steps).  A forward's bound is the larger
-     of its products, its bytes and its exps (one per score, at the SFU's
-     16 per clock per SM and the card's max SM clock: time_kernels.py);
+     plain versions (the backward twice, as in phase 3);
  10. B6, the exact online softmax, against its plain version, fp32 and
      bf16, D in {32, 64, 80, 128, 256}, square (the fused buffer's
      views, ragged against the tiles) and rect with kv_valid < Nk and NaN
@@ -81,10 +76,8 @@ Phases, each fatal on failure (no phase's error is caught):
      against the unsharded ones, pad rows' gradients exactly 0;
  13. B8 on the Hopper body, every ablation variant at every tile,
      against its plain version at the harness's shape (BH 64, N 5,121,
-     D 32), then the harness's timings (scripts/kablate.py);
- 14. timings of B6 (the decoder's square shape and the shard shape,
-     beside the parent's mma.sync body's) and B8 against their bounds,
-     plain versions and SDPA;
+     D 32), then the harness's own run (scripts/kablate.py), its B8
+     launches counted;
  15. the vitl_joint_pretrain step at full width (ViT-L/16 MAE, decoder
      512 x 8 blocks x 16 heads, bf16): the 3D batch 4 x 60x256x256 at
      mask 0.90 with the in-step pre-mask, the 2D batch 64 x 3x512x512 at
@@ -93,10 +86,9 @@ Phases, each fatal on failure (no phase's error is caught):
      saved after steps 1 and 2 (async, keep_last=2), restored into a
      fresh state bit for bit, step 3 from both (loss equal, gradients
      within the run-to-run limit of B2's dq), delete_recent_checkpoints
-     leaving step 1;
-     the step's time and peak memory beside its bound; the pre-mask on
-     the card against the plain one on the CPU from the same embeddings
-     of volumes with zeroed bands; remat_2d (the 2D batch whole through a
+     leaving step 1; the pre-mask on the card against the plain one on
+     the CPU from the same embeddings of volumes with zeroed bands;
+     remat_2d (the 2D batch whole through a
      remat model2d: 96 B1 launches against 64, a lower peak; at 2 + 2
      blocks the same loss and gradients within tolerance); cli/export.py
      of the checkpoint with its geometry stamp, cli/serve.py serving it
@@ -108,28 +100,28 @@ Phases, each fatal on failure (no phase's error is caught):
      1: the int8 model (block projections quantized from the bf16 one):
      24 B1 launches and int8 GEMMs in a profile, logits within the JAX
      test's int8 bound of the bf16 model, every disease's argmax equal,
-     both forwards timed, cli/serve.py --quant int8 answering; the AOT
-     artifact exported on the card (24 B1 op calls in its graph, 24 B1
+     cli/serve.py --quant int8 answering; the AOT artifact exported on
+     the card (24 B1 op calls in its graph, 24 B1
      launches, the live logits to 1e-6), one exported on the CPU for
      ("cuda", "cpu") run on the card through B1, a cpu-only one refused
-     there, cli/serve.py --aot answering, export and load seconds;
-     Grad-CAM at full depth, bf16 and fp32, at layer -1 and 0 (B1 per
-     block, B2 per block after the chosen one), a finite map in [0, 1]
-     and its time, and flash against impl="naive" at 4 blocks; cli/infer.py
-     on a .dcm equal to the same volume as .npy;
+     there, cli/serve.py --aot answering; Grad-CAM at full depth, bf16
+     and fp32, at layer -1 and 0 (B1 per block, B2 per block after the
+     chosen one), a finite map in [0, 1], and flash against
+     impl="naive" at 4 blocks; cli/infer.py on a .dcm equal to the same
+     volume as .npy;
  17. the 2D MAE (mae_vit_large_patch16, 224, in_chans 1, bf16, fp32
      params), batch 16, mask 0.75: three forward-backward + AdamW updates
      (finite, the LR-0 first update, 32 B1 + 32 B2 launches each and no
-     other kernel), the step's time and peak beside its bound; at 2 + 2
-     blocks, batch 2, flash against impl="naive" in loss and per-leaf
-     gradients, fp32 and bf16.  Phase 3 holds B1 and B2 at its shapes
-     (n 50 and 197) and B2 at the serving shape;
+     other kernel); at 2 + 2 blocks, batch 2, flash against
+     impl="naive" in loss and per-leaf gradients, fp32 and bf16.  Phase
+     3 holds B1 and B2 at its shapes (n 50 and 197) and B2 at the
+     serving shape;
  18. cli/pretrain.py in process on the card (octcubem_tpu_torch.cli.
      pretrain.main): the vitl_joint_pretrain preset at full width on 56
      synthetic volumes (batch 4, the 2D batch 64 in 4 microbatches), two
      epochs of two steps with a torch.profiler trace (args.json, log.txt,
-     the SPL pickles, ckpt/{0,1}, the trace naming B1's and B2's kernels,
-     its idle share); --resume latest into a third epoch (the state bit
+     the SPL pickles, ckpt/{0,1}, the trace naming B1's and B2's
+     kernels); --resume latest into a third epoch (the state bit
      for bit before its first step, the 2D mask 0.80: B1 / B2 at n 205,
      which phase 3 also holds, the SPL dict reloaded);
      training_continue_reset_optim (the saved params, a fresh optimizer,
@@ -137,16 +129,14 @@ Phases, each fatal on failure (no phase's error is caught):
      make_mae_train_step step on the CLI loaders' first batches at the
      CLI's seeds (TOL_CLI_LOSS); --mode 2d (the ViT-L/16 2D MAE at 224,
      batch 16); 160 B1 + 160 B2 launches in every joint step and 32 + 32
-     in every 2D update; the CLI's step time (host wall and CUDA events),
-     peak, model build and checkpoint staging seconds beside
-     time_joint's direct step;
+     in every 2D update;
  19. the fine-tuning family (train/finetune_engine.py, the layer-decay
      AdamW gated on the device): the octcube_multitask step at full width
      (ViT-L/16 48x256x256, batch 1, drop path 0.2, layer decay 0.65):
      three steps (finite, the LR-0 first update, 24 B1 + 24 B2 each and
      no other kernel), a NaN volume's step reverted on the device and the
-     next step against a run without it, the step's time, peak and trace
-     (idle share, no device-to-host copy); that model cut to 2 blocks,
+     next step against a run without it, no device-to-host copy in the
+     step's trace; that model cut to 2 blocks,
      flash against impl="naive" in loss and gradients, fp32 and bf16; the
      variable_joint model on its 256 and 512 streams (4,097 and 16,385
      tokens); vit2d (batch 48) and vit_3dhead (48 slices) at 224 (197
@@ -163,8 +153,8 @@ Phases, each fatal on failure (no phase's error is caught):
      the partition lock at 9 groups), chunk 8 x accum_freq 2, three steps
      (finite, 256 B1 + 64 B2 each and no other kernel, the frozen params
      bit for bit with no moments, the trainable ones moved, no
-     device-to-host copy in a step's trace, its time, peak, idle share
-     and bound), and one step at the preset's 32 x 4 (512 B1 + 128 B2);
+     device-to-host copy in a step's trace), and one step at the
+     preset's 32 x 4 (512 B1 + 128 B2);
      the accumulated step against the full batch at 2 + 2 blocks in fp32
      (the JAX test's 1e-4 / 1e-3); flash against impl="naive" at 2 + 2
      blocks, fp32 and bf16 (the CLIP loss, and the gradients of a fixed
@@ -186,19 +176,21 @@ Phases, each fatal on failure (no phase's error is caught):
      384 region features and SimpleTokenizer ids, three
      make_clip_train_step steps with the port's AdamW (finite, exactly 6
      B1 + 6 B2 each and no other kernel, the LR-0 first update, every
-     param moved after; time, peak, idle share, bound); the pair at 2
+     param moved after); the pair at 2
      blocks, flash against impl="naive", fp32 and bf16; the default
      VisionTransformer4K (12 blocks of 12 heads of 16) at batch 64 on a
      16 x 16 map (12 B3 + 12 B4) and a 14 x 14 map (12 B5 + 12 B7),
      forward and backward, and at 2 blocks against impl="naive"; RN50's
      ModifiedResNet (eval and batch-stats mode), focalnet_tiny_srf and
      perceiver_base forward and backward with no csrc kernel in a
-     profile; B3, B4, B5, B7 timed at head_dim 16.  Then one
-     {"kernels": [...]} line with B1-B8; B1's and B2's entries carry
-     ``launches_per_step_on``: for each phase-19, phase-20 and phase-21
-     path, the launches counted in each of its checked steps of this run;
-     B3's, B4's, B5's and B7's carry phase 21's, and ``at_head_dim_16``:
-     their error and timing row at the default HIPT's shapes;
+     profile; B4 and B7 at head_dim 16 against their plain versions.
+     Then one {"kernels": [...]} line with B1-B8, each entry its
+     launches and its largest error against its plain version; B1's and
+     B2's entries carry ``launches_per_step_on``: for each phase-19,
+     phase-20 and phase-21 path, the launches counted in each of its
+     checked steps of this run; B3's, B4's, B5's and B7's carry phase
+     21's, and ``at_head_dim_16``: their error at the default HIPT's
+     shapes;
  22. the multi-rank paths (ROADMAP A14): (a) on a one-rank NCCL group
      formed by core/multihost.initialize, entry()'s ViT-L classifier
      with attn_impl="flash_tp" under use_tensor_parallel (its weights
@@ -211,18 +203,17 @@ Phases, each fatal on failure (no phase's error is caught):
      shard_tp_params' rule, the row-parallel partials summed as the
      all-reduce sums them, against the unsharded sublayer forward and
      backward; B1 / B2 at the rank's shard shapes (TP_SHARDS) against
-     their plain versions and timed (events, plain, SDPA, bound); (c)
+     their plain versions; (c)
      two gloo ranks sharing cuda:0 (spawned, a FileStore, backend="gloo"
      given explicitly): cli/pretrain.py on vitl_joint_pretrain at full
      width (2 volumes and 8 2D images a rank), cli/retclip.py on
      octcube_ir (4 pairs x accum_freq 2 a rank) and cli/predict.py
      --n_data 2, each against the same CLI on one rank fed the global
      batch (the first loss within TOL_DP_LOSS, the launches per step
-     equal, the CSV within TOL_DP_PROB), with each rank's step time, the
-     gloo all-reduce's host time apart, and peak; since PR 15 also
-     cli/pretrain.py at n_sp 2 on the two ranks (every stack's tokens
-     split over them, B5 / B7 through flash_sp, the gathers' gloo
-     fallback) against one rank on the same batch; (d) B1's and B2's
+     equal, the CSV within TOL_DP_PROB); also cli/pretrain.py at n_sp 2
+     on the two ranks (every stack's tokens split over them, B5 / B7
+     through flash_sp, the gathers' gloo fallback) against one rank on
+     the same batch; (d) B1's and B2's
      entries of the kernels line carry ``at_tp_shards``: the rows of (b).
  23. states sharded over fsdp (ROADMAP A15, core/fsdp.py): (a) on a
      one-rank NCCL group, the ViT-L MAE step on a state placed by
@@ -233,15 +224,13 @@ Phases, each fatal on failure (no phase's error is caught):
      vitl_joint_pretrain step at full width (2 volumes and 8 2D images,
      accum_2d 1; 22c's geometry) and the octcube_ir CLIP step at 4
      pairs, each against one rank on the same batch (the first loss
-     within TOL_FSDP_LOSS, the launches per step equal), with each
-     rank's step time in CUDA events, the gathers', reduce-scatters'
-     and all-reduces' host time apart, and its peak; a checkpoint saved
+     within TOL_FSDP_LOSS, the launches per step equal); a checkpoint saved
      by both ranks at step 1, resumed onto fsdp 2 and onto one rank
      (step 2's loss bit-equal to the uninterrupted run's); (c)
      entry.dryrun_multichip(4) on four gloo ranks sharing the card: its
      five legs and the ViT-L-width production leg finite.
  24. AdamW's kernel (csrc/adamw.cu, train/optim.py) at the ViT-L MAE's
-     params: (a) three updates at a device count, no clip, against the
+     params: (a) three updates at the count, no clip, against the
      plain multi-tensor body on the card: per operand (p, mu, nu) the
      largest difference in ulps, the share of entries that differ and
      the worst leaf's max|d| / max|plain| (within TOL_ADAMW), one launch
@@ -249,14 +238,14 @@ Phases, each fatal on failure (no phase's error is caught):
      decay 0.65, clip 1.0, bf16 mu, gated on ok, false on the second of
      four updates, which changes nothing), the same way; (c) one captured
      update replayed twice, bit for bit against the eager updates; (d)
-     the kernel's device time in a profile (no multi_tensor_apply kernel
-     in it), a step's CUDA events and host time, beside its bound (28 B a
-     param at 3.35 TB/s), the plain body's time and torch.optim.AdamW's
-     fused step's (the library yardstick).  The kernels line carries its
-     entry.  Every train step's launches above, "and no other kernel",
-     hold one adamw launch besides (ADAMW_STEP).
+     the kernel in the profile of 100 updates (CUDA activity only),
+     and no multi_tensor_apply kernel.  The kernels line carries its entry.  Every train step's
+     launches above, "and no other kernel", hold one adamw launch
+     besides (ADAMW_STEP).
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with no
-result when there is no CUDA device or no port package beside it.
+result when there is no CUDA device or no port package beside it.  The
+script times nothing: scripts/time_kernels.py times the kernels alone,
+and the benchmark (benchmark/run.py) times every step.
 """
 
 from __future__ import annotations
@@ -278,10 +267,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published dense peaks (NVIDIA data sheet)
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
-
 # kernel-vs-plain tolerances: |d| <= atol + rtol * |plain|.
 # fp32: the JAX kernel tests' own 5e-5 (summation order only).
 # bf16: o is rounded to bf16 on both sides, so one rounding step apart is
@@ -300,16 +285,6 @@ TOL_LSE = 1e-4  # fp32 statistics on both sides
 # runs, dk, dv, dkc and dvc must be bit-identical between them.
 TOL_GRAD = {"float32": 5e-4, "bfloat16": 2 ** -7}
 
-# the ViT-L and ViT-H step times of the parent tree: this script's own
-# phase 7 in PR 4's final run, NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
-PARENT_STEP_MS = {("ViT-L/16 60x256x256", 16): 118.597,
-                  ("ViT-L/16 60x256x256", 4): 105.866,
-                  ("ViT-H/14 60x224x224", 16): 151.139}
-# B6 on the body it ran before the Hopper one (the mma.sync kernel), CUDA
-# events per call at phase 14's two shapes, NVIDIA H100 80GB HBM3 at
-# 700 W: the mean of scripts/time_kernels.py's two parent runs in an A/B
-# call (PERF.md)
-PARENT_B6_MS = {"square": 1.24775, "shard": 0.38244}
 # a train step's one AdamW update: one launch of csrc/adamw.cu
 ADAMW_STEP = {"adamw": 1}
 # the ViT-L logits, flash (fixed shift, unnormalised bf16 p) vs naive
@@ -317,22 +292,6 @@ ADAMW_STEP = {"adamw": 1}
 # H100 at 700 W with seeded weights: 7.8e-3 (first kernel version) and
 # 5.9e-3 (this one), on logits up to 0.92; the limit is ~2.5x the larger.
 TOL_LOGITS = 2e-2
-
-
-def _elapsed_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _kernel_args(qkv, num_heads):
@@ -709,7 +668,7 @@ def _nonzero(launches):
 def run_main_path(torch, _cuda, entry_mod, name="ViT-L 48x256x256",
                   counter="flash_fwd_packed", **entry_kw):
     """Phases 4 and 6: entry()'s forward through the kernels: one launch
-    of ``counter`` per block and no other kernel."""
+    of ``counter`` per block and no other kernel -> that count."""
     fn, (model, x) = entry_mod.entry(**entry_kw)
     _cuda.reset_launches()
     logits = fn(model, x)
@@ -736,7 +695,7 @@ def run_main_path(torch, _cuda, entry_mod, name="ViT-L 48x256x256",
           f"{ref.float().abs().max().item():.3e})")
     if err > TOL_LOGITS:
         raise AssertionError(f"flash and naive {name} forwards disagree")
-    return fn, model, x, depth
+    return depth
 
 
 def _post_npy(url, arr):
@@ -801,7 +760,7 @@ def run_serve(torch, _cuda, serve):
             code, out = _post_npy(base + "/predict" + query, vol)
             probs = np.asarray(out.get("probs", [[np.nan]]), np.float64)
             print(f"serve /predict{query} {list(vol.shape)}: {code} "
-                  f"probs {probs.shape} latency_ms {out.get('latency_ms')}")
+                  f"probs {probs.shape}")
             if code != 200 or probs.shape != (1, 8) or not np.isfinite(probs).all():
                 raise AssertionError(f"bad predict answer {code} {out}")
     launches = dict(_cuda.launches)
@@ -810,61 +769,13 @@ def run_serve(torch, _cuda, serve):
         raise AssertionError(f"expected {24 * 5} B1 launches, got {launches}")
 
 
-def time_flash_fwd(torch, fa, rate):
-    """Phase 9: B1 at the ViT-L shape: kernel, plain version, the library
-    yardstick and the bound (``rate``: the card's exps per second)."""
-    import torch.nn.functional as F
-
-    from octcubem_tpu_torch.scripts.time_kernels import bound, fwd_work
-
-    b, n, h, d = 1, 4097, 16, 64
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
-                      dtype=torch.bfloat16)
-    args = _kernel_args(qkv, h)
-    scale = d ** -0.5
-    ms = _elapsed_ms(lambda: fa.fwd_packed_cuda(*args, h, scale), 50)
-    plain_ms = _elapsed_ms(lambda: fa.fwd_packed_plain(*args, h, scale), 5, 1)
-    qh, kh, vh = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
-    library_ms = _elapsed_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 50)
-    m = n - 1  # query rows of the kernel; keys are m plus the cls
-    flops, nbytes, exps = fwd_work(b, h, m, n, d)
-    bound_ms, bound_by = bound(flops, nbytes, exps, rate)
-    print(f"B1 timing at B={b} H={h} N={n} D={d} bf16: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, "
-          f"{nbytes:.3e} B, {exps:.3e} exp at {rate:.3e}/s); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
-
-
-def mae_train_flops(d=1024, layers=24, dd=512, dlayers=8, frames=60,
-                    img=256, patch=16, tpatch=3, mask=0.90) -> float:
-    """Analytic FLOPs of one ViT-L 3D MAE train step per volume (fwd + bwd
-    = 3 x fwd): the port's copy of bench.py's mae_train_flops, which this
-    script may not import (bench.py imports JAX)."""
-    l_full = (frames // tpatch) * (img // patch) ** 2     # 5120
-    l_vis = int(l_full * (1 - mask)) + 1                  # 511 + cls
-    l_dec = l_full + 1
-    dense = (layers * 2 * l_vis * 12 * d * d + dlayers * 2 * l_dec * 12 * dd * dd
-             + 2 * l_full * (tpatch * patch * patch) * d
-             + 2 * l_dec * dd * (tpatch * patch * patch)
-             + 2 * l_dec * d * dd)
-    attn = layers * 4 * l_vis * l_vis * d + dlayers * 4 * l_dec * l_dec * dd
-    return 3.0 * (dense + attn)
-
-
 def run_train(torch, _cuda, entry_mod, optim, name, geometries, expect,
-              flops_kw, **entry_kw):
+              **entry_kw):
     """Phase 7: three MAE steps per decoder geometry, with their launch
-    counts (``expect``, and no other kernel), the LR-0 first update and
-    peak memory; then the step's time.  Returns the last step's
-    launches."""
+    counts (``expect``, and no other kernel) and the LR-0 first update.
+    Returns the last step's launches."""
     last = None
     for dec_heads in geometries:
-        torch.cuda.reset_peak_memory_stats()
         step, state, x = entry_mod.train_entry(dec_heads=dec_heads, batch=4,
                                                **entry_kw)
         model, tx = state.params, state.tx
@@ -901,18 +812,7 @@ def run_train(torch, _cuda, entry_mod, optim, name, geometries, expect,
               f"{sorted(still)}")
         if still - free:
             raise AssertionError(f"params did not move: {sorted(still - free)}")
-        del before
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ms = _elapsed_ms(lambda: step(state, x, mask_ratio=0.9), 5, 1)
-        flops = mae_train_flops(**flops_kw) * x.shape[0]
-        bound = flops / PEAK_BF16_FLOPS * 1e3
-        print(f"train step {name} dec_heads={dec_heads} (mask 0.90, batch "
-              f"{x.shape[0]}, bf16): {ms:.3f} ms per step (parent "
-              f"{PARENT_STEP_MS[(name, dec_heads)]:.3f}), "
-              f"{x.shape[0] / ms * 1e3:.3f} vol/s; bound {bound:.3f} ms "
-              f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
-              f"max_memory_allocated {peak:.2f} GiB")
-        del step, state, x, model, tx
+        del before, step, state, x, model, tx
         torch.cuda.empty_cache()
     return last
 
@@ -1010,19 +910,12 @@ def _check_main_path_shape(torch, fa, name, args, o, lse, do, out, h,
     return max(errs.values())
 
 
-def time_flash_bwd(torch, fa, rate):
+def check_main_path_bwd(torch, fa):
     """Phase 9, B2 at the encoder's and both decoder geometries' shapes
-    (B=4): first held against its plain version as the step lays it out
-    (with B1), then timed: kernel, plain version, the library yardstick
-    (SDPA forward + backward minus its forward, at the same [B, H, N, D])
-    and the bound.  Also B1's time at the decoder shape, against its bound
-    with the exps at ``rate``.  Returns the reference decoder's row."""
-    import torch.nn.functional as F
-
-    from octcubem_tpu_torch.scripts.time_kernels import bound, fwd_work
-
+    (B=4), with B1, held against their plain versions as the step lays
+    them out.  Returns B2's max |d| at the reference decoder's."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    rows = {}
+    errs = {}
     for name, (b, n, h, d) in (("decoder h16", (4, 5121, 16, 32)),
                                ("decoder h4", (4, 5121, 4, 128)),
                                ("encoder", (4, 512, 16, 64))):
@@ -1039,46 +932,11 @@ def time_flash_bwd(torch, fa, rate):
         do = do[:, 1:] if cls else do
         dqkv = torch.zeros_like(qkv)
         out = _kernel_args(dqkv, h)
-        err = _check_main_path_shape(torch, fa, name, args, o, lse, do, out,
-                                     h, scale)
-        ms = _elapsed_ms(lambda: fa.bwd_packed_cuda(*args, o, lse, do, None,
-                                                    h, scale, out=out), 20)
-        fwd_ms = _elapsed_ms(lambda: fa.fwd_packed_cuda(*args, h, scale), 20)
-        plain_ms = _elapsed_ms(lambda: fa.bwd_packed_plain(
-            *args, o, lse, do, None, h, scale), 3, 1)
-        qh, kh, vh = (t.contiguous().requires_grad_() for t in
-                      qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
-        g = torch.randn((b, h, n, d), generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        sdpa_fwd = _elapsed_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, scale=scale), 20)
-        sdpa_all = _elapsed_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
-            (qh, kh, vh), g), 20)
-        m = n - 1 if cls else n
-        keys = m + 1 if cls else m
-        es = qkv.element_size()
-        flops = 10 * b * h * m * keys * d
-        nbytes = (8 * b * m * h * d * es + b * h * m * 4
-                  + (4 * b * h * d * es if cls else 0))
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        row = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-               "library_ms": sdpa_all - sdpa_fwd,
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        fwd_bound, fwd_by = bound(*fwd_work(b, h, m, keys, d), rate)
-        print(f"B2 timing {name} B={b} H={h} N={n} D={d} bf16: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bwd "
-              f"{row['library_ms']:.4f} ms (fwd+bwd {sdpa_all:.4f} - fwd "
-              f"{sdpa_fwd:.4f}), bound {row['bound_ms']:.4f} ms ({flops:.3e} "
-              f"FLOP -> {t_ops:.4f} ms; {nbytes:.3e} B -> {t_bytes:.4f} ms); "
-              f"{flops / ms / 1e9:.1f} TFLOP/s achieved; B1 at this shape "
-              f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms by {fwd_by})")
-        rows[name] = row
-        del qkv, args, o, lse, do, dqkv, out, qh, kh, vh, g
+        errs[name] = _check_main_path_shape(torch, fa, name, args, o, lse, do,
+                                            out, h, scale)
+        del qkv, args, o, lse, do, dqkv, out
         torch.cuda.empty_cache()
-    return rows["decoder h16"]
+    return errs["decoder h16"]
 
 
 # ------------------------------------------------ [B, H, N, D]: B3-B5, B7
@@ -1294,28 +1152,21 @@ def run_vith_backward(torch, _cuda, entry_mod):
     return launches["flash_bwd_bh_cls"]
 
 
-# (path, (B, N, H, D), cls fold) of B3 / B4 (folded) and B5 / B7 on the
-# ViT-H/14 paths (phase 9) and the default HIPT ViT-4K's (phase 21)
+# (path, (B, N, H, D), cls fold) of B4 (folded) and B7 on the ViT-H/14
+# paths (phase 9) and the default HIPT ViT-4K's (phase 21)
 VITH_BH_PATHS = (("ViT-H classifier", (1, 4097, 16, 80), True),
                  ("ViT-H encoder", (4, 512, 16, 80), False))
 HIPT_BH_PATHS = (("HIPT 16x16", (64, 257, 12, 16), True),
                  ("HIPT 14x14", (64, 197, 12, 16), False))
 
 
-def time_bh_kernels(torch, fa, rate, paths=VITH_BH_PATHS):
-    """Phase 9 (and 21), B3-B5 and B7 at the paths' shapes (bf16, laid out
-    as the paths lay them out), timed: kernel, plain version, the library
-    yardstick (SDPA at the same [B, H, N, D]: its forward for B3 and B5,
-    forward + backward minus forward for B4 and B7) and the bound (the
-    forwards' with their exps at ``rate``).  Returns {kernel: row}."""
-    import torch.nn.functional as F
-
-    from octcubem_tpu_torch.scripts.time_kernels import bound, fwd_work
-
+def check_bh_paths(torch, fa, paths=VITH_BH_PATHS):
+    """Phase 9 (and 21), B4 and B7 at the paths' shapes (bf16, laid out as
+    the paths lay them out, on B3's / B5's own o and lse) against their
+    plain versions, twice."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    rows = {}
     for path, (b, n, h, d), cls in paths:
-        fwd, bwd = ("B3", "B4") if cls else ("B5", "B7")
+        bwd = "B4" if cls else "B7"
         qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
                           dtype=torch.bfloat16)
         args = _bh_args(qkv, h, cls)
@@ -1326,59 +1177,8 @@ def time_bh_kernels(torch, fa, rate, paths=VITH_BH_PATHS):
                      lambda: fa.bwd_bh_cuda(*args, o, lse, do, None, scale),
                      fa.bwd_bh_plain(*args, o, lse, do, None, scale),
                      torch.bfloat16)
-        t = {fwd: _elapsed_ms(lambda: fa.fwd_bh_cuda(*args, scale), 50),
-             bwd: _elapsed_ms(lambda: fa.bwd_bh_cuda(*args, o, lse, do, None,
-                                                     scale), 20)}
-        plain = {fwd: _elapsed_ms(lambda: fa.fwd_bh_plain(*args, scale), 3, 1),
-                 bwd: _elapsed_ms(lambda: fa.bwd_bh_plain(
-                     *args, o, lse, do, None, scale), 3, 1)}
-        qh, kh, vh = (x.contiguous().requires_grad_() for x in
-                      _bh_views(qkv, h))
-        g = torch.randn((b, h, n, d), generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        sdpa_fwd = _elapsed_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, scale=scale), 50)
-        sdpa_all = _elapsed_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
-            (qh, kh, vh), g), 20)
-        lib = {fwd: sdpa_fwd, bwd: sdpa_all - sdpa_fwd}
-        m = n - 1 if cls else n          # query rows of the kernels
-        keys = m + 1 if cls else m
-        es = qkv.element_size()
-        elems = b * m * h * d            # one [B, H, m, D] operand
-        work = {fwd: fwd_work(b, h, m, keys, d),
-                bwd: (10 * b * h * m * keys * d,
-                      (3 * b * n * h * d + 2 * elems + 3 * elems) * es
-                      + 2 * b * h * m * 4 + (2 * b * h * d * es if cls else 0),
-                      0)}
-        for kern in (fwd, bwd):
-            flops, nbytes, exps = work[kern]
-            bound_ms, bound_by = bound(flops, nbytes, exps, rate)
-            rows[kern] = {"ms": t[kern], "plain_ms": plain[kern],
-                          "library_ms": lib[kern], "bound_ms": bound_ms,
-                          "bound_by": bound_by}
-            print(f"{kern} timing {path} B={b} H={h} N={n} D={d} bf16: kernel "
-                  f"{t[kern]:.4f} ms, plain {plain[kern]:.4f} ms, sdpa "
-                  f"{'fwd' if kern == fwd else 'bwd'} {lib[kern]:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FLOP, "
-                  f"{nbytes:.3e} B, {exps:.3e} exp); "
-                  f"{flops / t[kern] / 1e9:.1f} TFLOP/s achieved")
-        del qkv, args, o, lse, do, qh, kh, vh, g
+        del qkv, args, o, lse, do
         torch.cuda.empty_cache()
-    return rows
-
-
-def time_forward(torch, fn, model, x, name):
-    ms = _elapsed_ms(lambda: fn(model, x), 20)
-    u, p = model.t_patch_size, model.patch_size
-    n = 1 + x.shape[1] // u * (x.shape[2] // p) ** 2
-    dim, depth = model.head.weight.shape[1], len(model.blocks)
-    flops = depth * (2 * n * 12 * dim * dim + 4 * n * n * dim) \
-        + 2 * (n - 1) * u * p * p * dim
-    print(f"entry forward ({name} bf16, batch 1): {ms:.3f} ms per "
-          f"volume; {flops:.3e} FLOP -> bound {flops / PEAK_BF16_FLOPS * 1e3:.3f} "
-          f"ms at {PEAK_BF16_FLOPS:.3e} FLOP/s")
-    return ms
 
 
 # ----------------------------------------------------- B6: exact softmax
@@ -1709,7 +1509,7 @@ def run_sp_shards(torch, _cuda, fa):
     return launches
 
 
-# ------------------------------------------------------ B8 and timings
+# ------------------------------------------------------------------- B8
 
 def check_b8(torch, kablate):
     """Phase 13: B8, every flag variant at every tile of the Hopper body,
@@ -1753,100 +1553,20 @@ def check_b8(torch, kablate):
     return base_err
 
 
-def _row(ms, plain_ms, library_ms, work, rate):
-    """A forward's row: its times and its bound from ``work`` = (FLOP,
-    bytes, exps) at ``rate`` exps per second."""
-    from octcubem_tpu_torch.scripts.time_kernels import bound
-
-    bound_ms, bound_by = bound(*work, rate)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
-
-
-def time_b6(torch, fa, rate):
-    """Phase 14, B6 at the decoder's square shape (the fused buffer's
-    views) and at the 4-shard shape: kernel, plain version, SDPA at the
-    same [B, H, N, D], the bound, and the parent's body's time
-    (PARENT_B6_MS).  Returns the square shape's row."""
-    import torch.nn.functional as F
-
-    from octcubem_tpu_torch.scripts.time_kernels import fwd_work
-
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    b, h, n, d = 4, 16, 5121, 32
-    scale = d ** -0.5
-    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
-                      dtype=torch.bfloat16)
-    q, k, v = _bh_views(qkv, h)
-    ms = _elapsed_ms(lambda: fa.fwd_bh_cuda(q, k, v, None, None, scale, None,
-                                            False), 20)
-    plain_ms = _elapsed_ms(lambda: fa.fwd_bh_exact_plain(q, k, v, scale), 3, 1)
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    sdpa = _elapsed_ms(lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, scale=scale), 20)
-    row = _row(ms, plain_ms, sdpa, fwd_work(b, h, n, n, d), rate)
-    print(f"B6 timing decoder square B={b} H={h} N={n} D={d} bf16: kernel "
-          f"{ms:.4f} ms (the parent's mma.sync body "
-          f"{PARENT_B6_MS['square']:.4f}), plain {plain_ms:.4f} ms, sdpa "
-          f"{sdpa:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}); {4 * b * h * n * n * d / ms / 1e9:.1f} "
-          "TFLOP/s achieved")
-    del qkv, q, k, v, qc, kc, vc
-    nq, nk, kv = 1281, 5124, 5121
-    q = torch.randn((b, h, nq, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda",
-                        dtype=torch.bfloat16) for _ in range(2))
-    ms_s = _elapsed_ms(lambda: fa.fwd_bh_cuda(q, k, v, None, None, scale, kv,
-                                              False), 20)
-    plain_s = _elapsed_ms(lambda: fa.fwd_bh_exact_plain(q, k, v, scale, kv),
-                          3, 1)
-    kk, vv = k[:, :, :kv].contiguous(), v[:, :, :kv].contiguous()
-    sdpa_s = _elapsed_ms(lambda: F.scaled_dot_product_attention(
-        q, kk, vv, scale=scale), 20)
-    shard = _row(ms_s, plain_s, sdpa_s, fwd_work(b, h, nq, kv, d), rate)
-    print(f"B6 timing shard rect B={b} H={h} Nq={nq} Nk={nk} kv_valid={kv} "
-          f"D={d} bf16: kernel {ms_s:.4f} ms (the parent's mma.sync body "
-          f"{PARENT_B6_MS['shard']:.4f}), plain {plain_s:.4f} ms, sdpa "
-          f"{sdpa_s:.4f} ms, bound {shard['bound_ms']:.4f} ms "
-          f"({shard['bound_by']})")
-    return row
-
-
-def time_b8(torch, _cuda, kablate, rate):
-    """Phase 13, then: the harness's timings (every variant, the tiles and
-    a b* variant) with the launch count of its run; B8 base's plain
-    version and SDPA at the same inputs viewed as [4, 16, N, D] (the base
-    variant is attention up to the pad keys' e^-16 mass).  Returns B8's
-    row."""
-    import torch.nn.functional as F
-
+def run_kablate(torch, _cuda, kablate):
+    """Phase 13, then: the ablation harness's own run (every variant, the
+    tiles and a b* flash f+b variant; it prints its times) -> its B8
+    launches."""
     names = list(kablate.VARIANTS) + [t for t in kablate.TILES
                                       if t != kablate.BASE_TILE] + ["bwd"]
     _cuda.reset_launches()
-    times = kablate.main(names)
+    kablate.main(names)
     torch.cuda.synchronize()
     launches = _cuda.launches["flash_ablate"]
     print(f"kablate harness launches: {_nonzero(_cuda.launches)}")
     if not launches:
         raise AssertionError("the harness launched no B8")
-    gen = torch.Generator(device="cuda").manual_seed(16)
-    bh, n, d = kablate.BH, kablate.N, kablate.D
-    q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda",
-                           dtype=torch.bfloat16) for _ in range(3))
-    plain_ms = _elapsed_ms(lambda: kablate.fwd_variant_plain(
-        q, k, v, kablate.n_pad_of(n), kablate.TILES[kablate.BASE_TILE][2]),
-        3, 1)
-    q4, k4, v4 = (t.view(4, bh // 4, n, d) for t in (q, k, v))
-    sdpa = _elapsed_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, scale=d ** -0.5), 20)
-    from octcubem_tpu_torch.scripts.time_kernels import fwd_work
-
-    row = _row(times["base"], plain_ms, sdpa, fwd_work(1, bh, n, n, d), rate)
-    print(f"B8 base timing BH={bh} N={n} D={d} bf16: kernel {row['ms']:.4f} "
-          f"ms (the harness's), plain {plain_ms:.4f} ms, sdpa {sdpa:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-    return dict(row, launches=launches)
+    return launches
 
 
 # ----------------------------------- phase 15: the joint step, checkpoints
@@ -1858,14 +1578,6 @@ JOINT_B1_B2 = {"flash_fwd_packed": 160, "flash_bwd_packed": 160,
 # one of its frame whose score is within this of its own (fp32 sums of
 # 256 cosines in another order: a few ulps of 1)
 PREMASK_EPS = 1e-6
-
-
-def joint_flops(batch=4, batch2d=64) -> float:
-    """Analytic FLOPs of one vitl_joint_pretrain step: the 3D batch at mask
-    0.90 and the 2D batch (one tube of 3 frames at 512: 1,024 tokens) at
-    mask 0.75, each fwd + bwd = 3 x fwd."""
-    return (batch * mae_train_flops()
-            + batch2d * mae_train_flops(frames=3, img=512, mask=0.75))
 
 
 def _leaf_grads(model):
@@ -1914,29 +1626,23 @@ def _joint_step(torch, _cuda, step, state, x, what):
     return state, m
 
 
-def time_joint(torch, step, state, x, smi, what):
-    """The step's time, and its peak: the state held and three steps on
-    it, the peak counter reset just before."""
+def _peak_gib(torch, step, state, x):
+    """The peak of the state held and three steps on it, the peak counter
+    reset just before, in GiB."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ms = _elapsed_ms(lambda: step(state, x, mask_ratio=0.9), 2, 1)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    flops = joint_flops()
-    bound = flops / PEAK_BF16_FLOPS * 1e3
-    print(f"{what} (3D 4x60x256x256 mask 0.90 + 2D 64x3x512x512 mask 0.75, "
-          f"bf16) on {smi}: {ms:.3f} ms per step; bound {bound:.3f} ms "
-          f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
-          f"max_memory_allocated {peak:.2f} GiB")
-    return ms, peak
+    for _ in range(3):
+        step(state, x, mask_ratio=0.9)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def run_remat_2d(torch, _cuda, entry_mod, smi):
+def run_remat_2d(torch, _cuda, entry_mod):
     """15.2: the 2D branch whole (accum_2d=1) through a remat model2d, and
-    without; then remat on and off at 2 + 2 blocks."""
+    without, the remat peak below the other; then remat on and off at 2 +
+    2 blocks."""
     peaks = {}
     for remat in (True, False):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         step, state, x = entry_mod.train_entry(
             joint=True, batch=4, batch2d=64, accum_2d=1, use_premask=True,
             remat_2d=remat)
@@ -1951,9 +1657,10 @@ def run_remat_2d(torch, _cuda, entry_mod, smi):
         if launches != want or not math.isfinite(m["loss"].item()):
             raise AssertionError(f"expected {want} and a finite loss, got "
                                  f"{launches}, {m['loss'].item()}")
-        _, peaks[remat] = time_joint(torch, step, state, x, smi,
-                                     f"remat_2d={remat} step")
+        peaks[remat] = _peak_gib(torch, step, state, x)
         del step, state, x, m
+    print(f"remat_2d peak (max_memory_allocated over three steps) "
+          f"{peaks[True]:.2f} GiB against {peaks[False]:.2f} GiB without")
     if not peaks[True] < peaks[False]:
         raise AssertionError(f"remat peak {peaks[True]:.2f} GiB is not below "
                              f"{peaks[False]:.2f} GiB")
@@ -1970,7 +1677,6 @@ def run_remat_2d(torch, _cuda, entry_mod, smi):
         raise AssertionError("remat changed the joint loss")
     _grads_agree("remat_2d on vs off, 2+2 blocks", res[True][1], res[False][1])
     torch.cuda.empty_cache()
-    return peaks
 
 
 def check_premask(torch, model, x):
@@ -2017,13 +1723,11 @@ def _state_equal(torch, a, b):
             and torch.equal(a.generator.get_state(), b.generator.get_state()))
 
 
-def run_joint_and_resume(torch, _cuda, entry_mod, optim, ckpt, run_dir,
-                         smi):
+def run_joint_and_resume(torch, _cuda, entry_mod, optim, ckpt, run_dir):
     """15.1 and 15.4: three joint steps at full width, saved after steps 1
     and 2 (async, keep_last=2), restored into a fresh state, step 3 taken
-    from both; the NaN cleanup; the step's time.  -> (ms, peak, model, x)."""
+    from both; the NaN cleanup.  -> (model, x)."""
     ck_dir = str(Path(run_dir) / "ckpt")
-    torch.cuda.reset_peak_memory_stats()
     step, state, x = entry_mod.train_entry(joint=True, batch=4, batch2d=64,
                                            accum_2d=4, use_premask=True)
     model = state.params
@@ -2037,13 +1741,10 @@ def run_joint_and_resume(torch, _cuda, entry_mod, optim, ckpt, run_dir,
                              "is 0")
     ckpt.save_checkpoint(ck_dir, state.step, state)
     state, _ = _joint_step(torch, _cuda, step, state, x, "joint step 2")
-    t0 = time.time()
     ckpt.save_checkpoint(ck_dir, state.step, state, {"epoch": state.step},
                          keep_last=2, async_save=True)
-    staged = time.time() - t0
     ckpt.wait_for_saves(ck_dir)
-    print(f"checkpoint of step {state.step}: staged in {staged:.1f} s, on "
-          f"disk after {time.time() - t0:.1f} s; steps "
+    print(f"checkpoint of step {state.step}: steps "
           f"{sorted(os.listdir(ck_dir))}")
     fstep, fresh, fx = entry_mod.train_entry(joint=True, batch=4, batch2d=64,
                                              accum_2d=4, use_premask=True)
@@ -2077,11 +1778,9 @@ def run_joint_and_resume(torch, _cuda, entry_mod, optim, ckpt, run_dir,
           f"steps 2-3; unmoved {sorted(still)}")
     if still - free:
         raise AssertionError(f"params did not move: {sorted(still - free)}")
-    del before
+    del before, step, state
     torch.cuda.empty_cache()
-    ms, peak = time_joint(torch, step, state, x, smi,
-                          "vitl_joint_pretrain step (accum_2d=4)")
-    return ms, peak, model, x
+    return model, x
 
 
 def run_export_and_serve(torch, _cuda, run_dir):
@@ -2217,8 +1916,8 @@ def run_retfound_init(torch, entry_mod, run_dir):
     torch.cuda.empty_cache()
 
 
-def run_phase15(torch, _cuda, entry_mod, optim, smi):
-    """Phase 15 -> (the joint step's ms and peak GiB, remat_2d's peaks)."""
+def run_phase15(torch, _cuda, entry_mod, optim):
+    """Phase 15 (15.1-15.6 above)."""
     from octcubem_tpu_torch.core import checkpoint as ckpt
 
     with tempfile.TemporaryDirectory() as run_dir:
@@ -2226,15 +1925,14 @@ def run_phase15(torch, _cuda, entry_mod, optim, smi):
             json.dump({"model": "mae_vit_large_patch16", "num_heads": 16,
                        "decoder_num_heads": 16, "num_frames": 60,
                        "t_patch_size": 3, "input_size": 256}, f)
-        ms, peak, model, x = run_joint_and_resume(
-            torch, _cuda, entry_mod, optim, ckpt, run_dir, smi)
+        model, x = run_joint_and_resume(torch, _cuda, entry_mod, optim, ckpt,
+                                        run_dir)
         check_premask(torch, model, x)
         del model, x
         torch.cuda.empty_cache()
-        peaks = run_remat_2d(torch, _cuda, entry_mod, smi)
+        run_remat_2d(torch, _cuda, entry_mod)
         run_export_and_serve(torch, _cuda, run_dir)
         run_retfound_init(torch, entry_mod, run_dir)
-    return ms, peak, peaks
 
 
 # ------------------------------------- phase 16: the serving options
@@ -2284,8 +1982,6 @@ def _serve_and_hold(torch, _cuda, serve, argv, what, model, vols,
         if code != 200 or got.shape != ref.shape:
             raise AssertionError(f"{what}: bad predict answer {code} {out}")
         worst = max(worst, float(np.abs(got - ref).max()))
-        print(f"{what} /predict?raw=0: {code} latency_ms "
-              f"{out.get('latency_ms')}")
     print(f"{what}: max|dprobs| vs the model run directly {worst:.3e} (tol "
           f"{tol:.0e}); launches {launches}")
     if not worst <= tol:
@@ -2298,8 +1994,8 @@ def _serve_and_hold(torch, _cuda, serve, argv, what, model, vols,
 def run_int8(torch, _cuda, entry_mod, serve, model, fn, x):
     """16.1: the int8 model (block projections quantized from ``model``):
     24 B1 launches and int8 GEMMs in a profile, logits within TOL_INT8 of
-    the bf16 model and every disease's argmax equal, both timed; then
-    cli/serve.py --quant int8."""
+    the bf16 model and every disease's argmax equal; then cli/serve.py
+    --quant int8."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2337,20 +2033,12 @@ def run_int8(torch, _cuda, entry_mod, serve, model, fn, x):
         if rows:
             break
     int8 = [r for r in rows if any(t in r[0].lower() for t in INT8_GEMM)]
-    for name, count, us in rows[:12]:
-        print(f"int8 forward kernel {count:4d} x {us / 1e3:8.3f} ms "
-              f"{name[:110]}")
     n_int8 = sum(c for _, c, _ in int8)
-    print(f"int8 forward: {n_int8} int8 GEMM launches "
-          f"({sum(u for _, _, u in int8) / 1e3:.3f} ms) of "
+    print(f"int8 forward: {n_int8} int8 GEMM launches of "
           f"{sum(c for _, c, _ in rows)} kernels")
     if n_int8 < 4 * 24:
         raise AssertionError("the int8 forward ran no int8 GEMM per "
                              "projection")
-    ms_bf16 = _elapsed_ms(lambda: fn(model, x), 20)
-    ms_int8 = _elapsed_ms(lambda: fn(qmodel, x), 20)
-    print(f"ViT-L 48x256x256 batch 1 forward, CUDA events over 20: bf16 "
-          f"{ms_bf16:.3f} ms, int8 {ms_int8:.3f} ms")
     rng = np.random.default_rng(16)
     vols = [rng.random((48, 256, 256), dtype=np.float32) for _ in range(2)]
     # the server builds the same seeded init and quantizes it the same way
@@ -2359,36 +2047,31 @@ def run_int8(torch, _cuda, entry_mod, serve, model, fn, x):
                     "serve --quant int8", qmodel, vols, 24 * 3, 1e-6)
     del qmodel, q, ref
     torch.cuda.empty_cache()
-    return ms_bf16, ms_int8
 
 
 def run_aot(torch, _cuda, entry_mod, serve, model, fn, x, run_dir):
     """16.2: the bf16 ViT-L exported on the card, written, loaded back:
     24 B1 op calls in its graph, 24 B1 launches, the live logits within
     TOL_AOT; a ("cuda", "cpu") artifact exported on the CPU runs on the
-    card through B1; a cpu-only one is refused there; cli/serve.py --aot.
-    Returns the export and load seconds."""
+    card through B1; a cpu-only one is refused there; cli/serve.py
+    --aot."""
     import numpy as np
 
     from octcubem_tpu_torch.compat import aot
 
     live = fn(model, x)
     path = str(Path(run_dir) / "vitl.octaot")
-    t0 = time.time()
     aot.export_serving_artifact(model, (x,), path,
                                 meta={"nb_classes": 16, "quant": "none"})
-    export_s = time.time() - t0
-    t0 = time.time()
     afn, meta = aot.load_serving_artifact(path)
-    load_s = time.time() - t0
     calls = aot.flash_op_calls(afn.program)
     _cuda.reset_launches()
     out = afn(x)
     torch.cuda.synchronize()
     launches = _nonzero(_cuda.launches)
     err = (out.float() - live.float()).abs().max().item()
-    print(f"AOT export on the card {export_s:.2f} s, load {load_s:.2f} s, "
-          f"{os.path.getsize(path) / 2 ** 30:.2f} GiB; header "
+    print(f"AOT export on the card: {os.path.getsize(path) / 2 ** 30:.2f} "
+          f"GiB; header "
           f"{ {k: meta[k] for k in ('platforms', 'exported_on', 'in_shapes')} }; "
           f"flash op calls in the graph {calls}; launches {launches}; "
           f"max|dlogits| vs the live model {err:.3e} (tol {TOL_AOT:.0e})")
@@ -2401,27 +2084,21 @@ def run_aot(torch, _cuda, entry_mod, serve, model, fn, x, run_dir):
     _, (cpu_model, cpu_x) = entry_mod.entry(device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     both = str(Path(run_dir) / "vitl_both.octaot")
-    t0 = time.time()
     aot.export_serving_artifact(cpu_model, (cpu_x,), both,
                                 platforms=("cuda", "cpu"))
-    cpu_export_s = time.time() - t0
     del cpu_model
-    t0 = time.time()
     bfn, bmeta = aot.load_serving_artifact(both)
-    move_s = time.time() - t0
     _cuda.reset_launches()
     out = bfn(x)
     torch.cuda.synchronize()
     launches = _nonzero(_cuda.launches)
     err2 = (out.float() - live.float()).abs().max().item()
-    print(f"AOT exported on the CPU for {bmeta['platforms']} in "
-          f"{cpu_export_s:.2f} s, loaded onto the card (moved) in "
-          f"{move_s:.2f} s: launches {launches}; max|dlogits| vs the live "
+    print(f"AOT exported on the CPU for {bmeta['platforms']}, loaded onto "
+          f"the card (moved): launches {launches}; max|dlogits| vs the live "
           f"model {err2:.3e}")
     if launches != {"flash_fwd_packed": 24} or not err2 <= TOL_AOT:
         raise AssertionError("the CPU-exported artifact did not run B1 on "
                              "the card to the live logits")
-    ms_aot = _elapsed_ms(lambda: bfn(x), 10)
     del bfn
     os.remove(both)
 
@@ -2441,21 +2118,17 @@ def run_aot(torch, _cuda, entry_mod, serve, model, fn, x, run_dir):
     _serve_and_hold(torch, _cuda, serve, ["--port", "0", "--aot", path],
                     "serve --aot", model, vols, 24 * 2, 1e-6)
     os.remove(path)
-    print(f"AOT artifact forward (the CPU export on the card), CUDA events "
-          f"over 10: {ms_aot:.3f} ms")
-    return export_s, load_s
 
 
 def run_gradcam(torch, _cuda, entry_mod, x):
     """16.3: Grad-CAM on the ViT-L classifier at full depth, bf16 and fp32
     (infer's default), at layer -1 (infer's) and layer 0: B1 per block and
-    B2 per block after the chosen one; a finite map in [0, 1]; its time.
-    Then flash against impl="naive" at 4 blocks, full width."""
+    B2 per block after the chosen one; a finite map in [0, 1].  Then
+    flash against impl="naive" at 4 blocks, full width."""
     import numpy as np
 
     from octcubem_tpu_torch.utils.saliency import gradcam
 
-    times = {}
     for dtype in (torch.bfloat16, torch.float32):
         _, (model, _) = entry_mod.entry(capture_cam=True, dtype=dtype)
         for layer in (-1, 0):
@@ -2466,13 +2139,9 @@ def run_gradcam(torch, _cuda, entry_mod, x):
             expect = {"flash_fwd_packed": 24}
             if layer == 0:
                 expect["flash_bwd_packed"] = 23
-            ms = _elapsed_ms(lambda: gradcam(model, x, layer=layer,
-                                             grid=CAM_GRID), 3, 1)
-            times[(str(dtype)[6:], layer)] = ms
             print(f"Grad-CAM ViT-L {str(dtype)[6:]} layer {layer}: map "
                   f"{cam.shape} in [{cam.min():.3f}, {cam.max():.3f}], "
-                  f"launches {launches}, {ms:.3f} ms per map (CUDA events "
-                  f"over 3)")
+                  f"launches {launches}")
             if (cam.shape != (1,) + CAM_GRID or not np.isfinite(cam).all()
                     or cam.min() < 0 or cam.max() > 1):
                 raise AssertionError("bad Grad-CAM map")
@@ -2502,7 +2171,6 @@ def run_gradcam(torch, _cuda, entry_mod, x):
         raise AssertionError("flash and naive Grad-CAM maps disagree")
     del model
     torch.cuda.empty_cache()
-    return times, errs
 
 
 def run_dicom(torch, infer, run_dir):
@@ -2518,12 +2186,10 @@ def run_dicom(torch, infer, run_dir):
     dcm, npy = (str(Path(run_dir) / n) for n in ("vol.dcm", "vol.npy"))
     write_dicom(dcm, vol)
     np.save(npy, vol)
-    t0 = time.time()
     p_dcm = infer.main([dcm])
-    dcm_s = time.time() - t0
     p_npy = infer.main([npy])
-    print(f"infer on a .dcm ({dcm_s:.2f} s with the model build, fp32): "
-          f"probs {p_dcm.shape}, equal to the .npy's: "
+    print(f"infer on a .dcm (fp32): probs {p_dcm.shape}, equal to the "
+          f".npy's: "
           f"{np.array_equal(p_dcm, p_npy)}")
     if (p_dcm.shape != (8, 2) or not np.isfinite(p_dcm).all()
             or not np.array_equal(p_dcm, p_npy)):
@@ -2531,22 +2197,17 @@ def run_dicom(torch, infer, run_dir):
 
 
 def run_phase16(torch, _cuda, entry_mod, serve, infer):
-    """Phase 16 -> its timings."""
+    """Phase 16 (16.1-16.4 above)."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     x = torch.rand((1, 48, 256, 256, 1), generator=gen, device="cuda")
     fn, (model, _) = entry_mod.entry()
-    out = {}
-    out["bf16_ms"], out["int8_ms"] = run_int8(torch, _cuda, entry_mod, serve,
-                                              model, fn, x)
+    run_int8(torch, _cuda, entry_mod, serve, model, fn, x)
     with tempfile.TemporaryDirectory() as run_dir:
-        out["export_s"], out["load_s"] = run_aot(
-            torch, _cuda, entry_mod, serve, model, fn, x, run_dir)
+        run_aot(torch, _cuda, entry_mod, serve, model, fn, x, run_dir)
         del model
         torch.cuda.empty_cache()
-        out["cam_ms"], out["cam_naive_err"] = run_gradcam(
-            torch, _cuda, entry_mod, x)
+        run_gradcam(torch, _cuda, entry_mod, x)
         run_dicom(torch, infer, run_dir)
-    return out
 
 
 # ------------------------------------------------- phase 17: the 2D MAE
@@ -2555,29 +2216,11 @@ MAE2D_B1_B2 = {"flash_fwd_packed": 32, "flash_bwd_packed": 32,
                **ADAMW_STEP}
 
 
-def mae2d_train_flops(d=1024, layers=24, dd=512, dlayers=8, img=224,
-                      patch=16, chans=1, mask=0.75) -> float:
-    """Analytic FLOPs of one 2D MAE train step per image (fwd + bwd = 3 x
-    fwd), as mae_train_flops counts the 3D one: the encoder on the kept
-    patches + cls, the decoder on every patch + cls; the patch embed runs
-    on every patch (the 2D module embeds, then gathers)."""
-    l_full = (img // patch) ** 2                          # 196
-    l_vis = int(l_full * (1 - mask)) + 1                  # 49 + cls
-    l_dec = l_full + 1
-    pix = patch * patch * chans
-    dense = (layers * 2 * l_vis * 12 * d * d + dlayers * 2 * l_dec * 12 * dd * dd
-             + 2 * l_full * pix * d + 2 * l_dec * dd * pix
-             + 2 * l_vis * d * dd)
-    attn = layers * 4 * l_vis * l_vis * d + dlayers * 4 * l_dec * l_dec * dd
-    return 3.0 * (dense + attn)
-
-
-def run_mae2d(torch, _cuda, optim, schedules, smi):
+def run_mae2d(torch, _cuda, optim, schedules):
     """17.1: mae_vit_large_patch16 (img 224, in_chans 1) in bf16 with fp32
     params, batch 16, mask 0.75: three forward-backward + AdamW updates
     (finite; the first at LR 0 leaves every param as it was; 32 B1 + 32
-    B2 launches each and no other kernel), then its time and peak beside
-    its bound."""
+    B2 launches each and no other kernel)."""
     from octcubem_tpu_torch.models import mae2d
 
     torch.cuda.empty_cache()
@@ -2623,22 +2266,8 @@ def run_mae2d(torch, _cuda, optim, schedules, smi):
           f"by steps 2-3; unmoved {still}")
     if still:
         raise AssertionError(f"params did not move: {still}")
-    del before
-    # the peak of the state held and the steps on it (no copy of the params)
+    del before, model, tx, x
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ms = _elapsed_ms(step, 5, 1)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    flops = 16 * mae2d_train_flops()
-    bound = flops / PEAK_BF16_FLOPS * 1e3
-    print(f"MAE 2D step (ViT-L/16 224, in_chans 1, batch 16, mask 0.75, "
-          f"bf16) on {smi}: {ms:.3f} ms per step (CUDA events over 5), "
-          f"{16 / ms * 1e3:.1f} images/s; bound {bound:.3f} ms ({flops:.3e} "
-          f"FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); max_memory_allocated "
-          f"{peak:.2f} GiB")
-    del model, tx, x
-    torch.cuda.empty_cache()
-    return ms, peak, bound
 
 
 def check_mae2d_vs_naive(torch):
@@ -2687,86 +2316,41 @@ TOL_CLI_LOSS = 1e-6
 class CliProbe:
     """What phase 18 reads from inside a CLI run without changing what the
     run does: for each step, its launches (the counters set to 0 just
-    before it), the host clock when it was issued, CUDA events around it,
-    its keyword arguments and its metrics; the seconds to build each model
-    and to stage each checkpoint; the seconds the main thread waited on
-    each loader for each batch (the loader stall), by dataset; and a check
-    of the state the run's first step sees.  ``patch(pretrain)`` wraps the
-    functions the CLI calls."""
+    before it), its keyword arguments and its metrics; and a check of the
+    state the run's first step sees.  ``patch(pretrain)`` wraps the step
+    builders the CLI calls."""
 
     def __init__(self, torch, _cuda):
         self.torch, self._cuda = torch, _cuda
-        self.steps, self.build_s, self.stage_s = [], [], []
-        self.waits = []
+        self.steps = []
         self.on_first = None
 
     def _wrap_step(self, step):
-        torch, _cuda = self.torch, self._cuda
+        _cuda = self._cuda
 
         def wrapped(state, *args, **kw):
             if self.on_first is not None:
                 self.on_first(state)
                 self.on_first = None
             _cuda.reset_launches()
-            # the allocator counts on the host as the step is issued, so
-            # the peak is read without waiting for the card
-            torch.cuda.reset_peak_memory_stats()
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            t = time.perf_counter()
-            ev[0].record()
             out = step(state, *args, **kw)
-            ev[1].record()
-            self.steps.append({
-                "t": t, "ev": ev, "kw": kw, "out": out[1:],
-                "launches": _nonzero(_cuda.launches),
-                "peak": torch.cuda.max_memory_allocated() / 2 ** 30})
+            self.steps.append({"kw": kw, "out": out[1:],
+                               "launches": _nonzero(_cuda.launches)})
             return out
 
         return wrapped
 
     @contextlib.contextmanager
     def patch(self, pretrain):
-        from octcubem_tpu_torch.core import checkpoint
-        from octcubem_tpu_torch.data.loader import Loader
-        from octcubem_tpu_torch.models import mae2d, mae3d
         from octcubem_tpu_torch.train import mae_engine
 
-        def timed(fn, into):
-            def call(*a, **k):
-                t0 = time.perf_counter()
-                out = fn(*a, **k)
-                into.append(time.perf_counter() - t0)
-                return out
-            return call
-
-        def waited(iterate):
-            def gen(loader):
-                it = iterate(loader)
-                kind = type(loader.dataset).__name__
-                while True:
-                    t0 = time.perf_counter()
-                    try:
-                        batch = next(it)
-                    except StopIteration:
-                        return
-                    self.waits.append((kind, time.perf_counter() - t0))
-                    yield batch
-            return gen
-
         saved = [(mae_engine, "make_mae_train_step"),
-                 (pretrain, "make_2d_step"), (mae3d, "create_model"),
-                 (mae2d, "create_model"), (checkpoint, "save_checkpoint"),
-                 (Loader, "__iter__")]
+                 (pretrain, "make_2d_step")]
         saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
         make3, make2 = saved[0][2], saved[1][2]
         mae_engine.make_mae_train_step = (
             lambda *a, **k: self._wrap_step(make3(*a, **k)))
         pretrain.make_2d_step = lambda *a, **k: self._wrap_step(make2(*a, **k))
-        mae3d.create_model = timed(saved[2][2], self.build_s)
-        mae2d.create_model = timed(saved[3][2], self.build_s)
-        checkpoint.save_checkpoint = timed(saved[4][2], self.stage_s)
-        Loader.__iter__ = waited(saved[5][2])
         try:
             yield self
         finally:
@@ -2774,18 +2358,10 @@ class CliProbe:
                 setattr(mod, name, fn)
 
     def take(self):
-        """-> (steps, build seconds, staging seconds) since the last take;
-        prints the loader stalls."""
+        """-> the steps since the last take."""
         self.torch.cuda.synchronize()
-        out = list(self.steps), list(self.build_s), list(self.stage_s)
-        stalls = {}
-        for kind, sec in self.waits:
-            stalls.setdefault(kind, []).append(round(sec * 1e3, 3))
-        if stalls:
-            print(f"loader stall (ms the main thread waited for each batch, "
-                  f"in order) {stalls}")
-        for acc in (self.steps, self.build_s, self.stage_s, self.waits):
-            acc.clear()
+        out = list(self.steps)
+        self.steps.clear()
         return out
 
 
@@ -2811,45 +2387,11 @@ def _cli_steps(what, steps, want):
     return losses
 
 
-def _cli_times(what, steps, smi, per_epoch):
-    """The CLI's step time: the host wall between issuing consecutive
-    steps of one epoch, and CUDA events around each step after the
-    first -> (host ms list, event ms list)."""
-    host = [(steps[i + 1]["t"] - steps[i]["t"]) * 1e3
-            for i in range(len(steps) - 1) if (i + 1) % per_epoch]
-    events = [s["ev"][0].elapsed_time(s["ev"][1]) for s in steps[1:]]
-    print(f"{what} on {smi}: host wall per step (issue to next issue, "
-          f"within an epoch) {[round(v, 3) for v in host]} ms; CUDA events "
-          f"per step after the first {[round(v, 3) for v in events]} ms; "
-          f"peak per step (max_memory_allocated, reset before each) "
-          f"{[round(s['peak'], 2) for s in steps]} GiB")
-    return host, events
-
-
-def trace_idle_share(path):
-    """(idle share, busy ms, window ms, kernel names) of a Chrome trace:
-    the window from its first to its last event, busy the union of its
-    device kernels' intervals."""
+def _trace_kernels(path):
+    """The device kernels' names in a Chrome trace."""
     with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
-    start = min(e["ts"] for e in events)
-    end = max(e["ts"] + e["dur"] for e in events)
-    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                     if e.get("cat") == "kernel")
-    busy, cur_lo, cur_hi = 0.0, None, None
-    for lo, hi, _ in kernels:
-        if cur_hi is None or lo > cur_hi:
-            if cur_hi is not None:
-                busy += cur_hi - cur_lo
-            cur_lo, cur_hi = lo, hi
-        else:
-            cur_hi = max(cur_hi, hi)
-    if cur_hi is not None:
-        busy += cur_hi - cur_lo
-    window = end - start
-    return 1.0 - busy / window, busy / 1e3, window / 1e3, {
-        k[2] for k in kernels}
+        return {e["name"] for e in json.load(f)["traceEvents"]
+                if e.get("ph") == "X" and e.get("cat") == "kernel"}
 
 
 def _cli_engine_loss(torch, pretrain):
@@ -2891,12 +2433,11 @@ def _log_records(run):
         return [json.loads(line) for line in f]
 
 
-def run_phase18(torch, _cuda, entry_mod, smi):
+def run_phase18(torch, _cuda):
     """Phase 18: cli/pretrain.py in process on the card, four runs (the
     preset at full width with a profile; --resume latest into a third
     epoch at 2D mask 0.80; training_continue_reset_optim; --mode 2d), then
-    the preset again for one step against the engine's step, and
-    time_joint's direct step beside the CLI's."""
+    the preset again for one step against the engine's step."""
     import shutil
 
     from octcubem_tpu_torch.cli import pretrain
@@ -2908,37 +2449,22 @@ def run_phase18(torch, _cuda, entry_mod, smi):
         run1, run3 = str(Path(tmp) / "run1"), str(Path(tmp) / "run3")
         # 18.1 the preset at full width, with a profile
         torch.cuda.empty_cache()
-        held_before = torch.cuda.memory_allocated() / 2 ** 30
-        t0 = time.perf_counter()
         state1 = pretrain.main(CLI_JOINT + [
             "--epochs", "2", "--steps_per_epoch", "2", "--profile_steps",
             "1", "--output_dir", run1])
-        wall = time.perf_counter() - t0
-        steps, build_s, stage_s = probe.take()
-        peak = max(s["peak"] for s in steps)
+        steps = probe.take()
         _cli_steps("cli/pretrain.py vitl_joint_pretrain run 1", steps,
                    JOINT_B1_B2)
-        host1, ev1 = _cli_times("cli/pretrain.py run 1 (2 epochs x 2 steps)",
-                                steps, smi, 2)
         recs = _log_records(run1)
         files = sorted(os.listdir(run1))
-        print(f"run 1: {wall:.1f} s in main; model built in "
-              f"{build_s[0]:.2f} s; checkpoints staged in "
-              f"{[round(v, 2) for v in stage_s]} s; step peak "
-              f"(max_memory_allocated) {peak:.2f} GiB, of which "
-              f"{held_before:.2f} GiB was held before the run, on {smi}; "
-              f"files {files}; log.txt {recs}")
+        print(f"run 1: files {files}; log.txt {recs}")
         want = {"args.json", "log.txt", "all_image_dict-0.pkl",
                 "all_image_dict-1.pkl", "ckpt", "profile"}
         if not (want <= set(files) and [r["epoch"] for r in recs] == [0, 1]
                 and all(math.isfinite(r["train_loss"]) for r in recs)
                 and sorted(os.listdir(Path(run1) / "ckpt")) == ["0", "1"]):
             raise AssertionError("run 1 did not write what it should")
-        idle, busy, window, names = trace_idle_share(
-            Path(run1) / "profile" / "trace.json")
-        print(f"run 1 profile (step 2 of epoch 0): idle share {idle:.4f} "
-              f"(device busy {busy:.3f} ms in a {window:.3f} ms window) on "
-              f"{smi}")
+        names = _trace_kernels(Path(run1) / "profile" / "trace.json")
         for body in ("fwd_hopper_kernel", "bwd_hopper_kernel"):
             if not any(body in n for n in names):
                 raise AssertionError(f"the CLI's trace names no {body}")
@@ -2953,17 +2479,14 @@ def run_phase18(torch, _cuda, entry_mod, smi):
         state2 = pretrain.main(CLI_JOINT + [
             "--epochs", "3", "--steps_per_epoch", "2", "--resume", "latest",
             "--output_dir", run1])
-        steps, build_s, stage_s = probe.take()
+        steps = probe.take()
         _cli_steps("cli/pretrain.py run 2 (resumed, epoch 2)", steps,
                    JOINT_B1_B2)
-        host2, ev2 = _cli_times("cli/pretrain.py run 2", steps, smi, 2)
         log = (Path(run1) / "out.log").read_text()
         recs = _log_records(run1)
         masks = {s["kw"]["mask_ratio_2d"] for s in steps}
         print(f"run 2: restored state bit-identical {restored}; 2D mask "
-              f"{masks}; log.txt epochs {[r['epoch'] for r in recs]}; model "
-              f"built in {build_s[0]:.2f} s; checkpoint staged in "
-              f"{[round(v, 2) for v in stage_s]} s on {smi}")
+              f"{masks}; log.txt epochs {[r['epoch'] for r in recs]}")
         if not (restored == [True] and masks == {0.8}
                 and [r["epoch"] for r in recs] == [0, 1, 2]
                 and "all_image_dict-1.pkl (K=" in log):
@@ -2987,14 +2510,14 @@ def run_phase18(torch, _cuda, entry_mod, smi):
             "--epochs", "1", "--steps_per_epoch", "1", "--resume", run1,
             "--resume_type", "training_continue_reset_optim",
             "--output_dir", run3])
-        steps, _, _ = probe.take()
+        steps = probe.take()
         _cli_steps("cli/pretrain.py run 3 (reset_optim)", steps, JOINT_B1_B2)
         p3 = state3.params.state_dict()
         same = all(torch.equal(p3[k], live[k]) for k in live)
         recs = _log_records(run3)
         print(f"run 3: params equal to the saved ones, fresh optimizer, step "
               f"0 before its step {fresh}; params unmoved by its LR-0 update "
-              f"{same}; AdamW count {state3.tx.count}; log.txt epochs "
+              f"{same}; AdamW count {int(state3.tx.count)}; log.txt epochs "
               f"{[r['epoch'] for r in recs]}")
         if not (fresh == [True] and same and state3.tx.count == 1
                 and [r["epoch"] for r in recs] == [0]):
@@ -3024,34 +2547,11 @@ def run_phase18(torch, _cuda, entry_mod, smi):
         run4 = str(Path(tmp) / "run4")
         pretrain.main(["--mode", "2d", "--synthetic", "--synthetic_n", "8",
                        "--epochs", "1", "--output_dir", run4])
-        steps, build_s, stage_s = probe.take()
+        steps = probe.take()
         _cli_steps("cli/pretrain.py --mode 2d", steps, MAE2D_B1_B2)
-        ev4 = [s["ev"][0].elapsed_time(s["ev"][1]) for s in steps[1:]]
-        print(f"--mode 2d on {smi}: CUDA events per update after the first "
-              f"{[round(v, 3) for v in ev4]} ms; model built in "
-              f"{build_s[0]:.2f} s; checkpoint staged in "
-              f"{[round(v, 2) for v in stage_s]} s; log.txt "
-              f"{_log_records(run4)}")
+        print(f"--mode 2d: log.txt {_log_records(run4)}")
         shutil.rmtree(run4)
     torch.cuda.empty_cache()
-    print(f"held before the direct step: "
-          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
-    # the direct step on phase 15's inputs, in the same run
-    step, state, x = entry_mod.train_entry(joint=True, batch=4, batch2d=64,
-                                           accum_2d=4, use_premask=True)
-    direct_ms, direct_peak = time_joint(
-        torch, step, state, x, smi, "time_joint's direct step (phase 15's "
-        "inputs)")
-    del step, state, x
-    torch.cuda.empty_cache()
-    # run 1 traces its second step: the profiler's start and the traced
-    # step are left out of the summary
-    print(f"phase 18 summary on {smi}: CLI joint step (unprofiled steps "
-          f"after each run's first), CUDA events "
-          f"{[round(v, 3) for v in ev1[1:] + ev2]} ms, host wall "
-          f"{[round(v, 3) for v in host1[1:] + host2]} ms; direct step "
-          f"{direct_ms:.3f} ms (peak {direct_peak:.2f} GiB); CLI run 1 step "
-          f"peak {peak:.2f} GiB; idle share {idle:.4f}")
 
 
 # ------------------------------------- phase 19: the fine-tuning family
@@ -3066,24 +2566,10 @@ CLI_FT = ["--preset", "octcube_multitask", "--synthetic", "--synthetic_n",
           "10", "--epochs", "1"]
 
 
-def finetune_flops(d=1024, layers=24, frames=48, img=256, patch=16,
-                   tpatch=3, chans=1, batch=1, classes=16) -> float:
-    """Analytic FLOPs of one ViT fine-tuning step (fwd + bwd = 3 x fwd)
-    over every token + cls; ``frames=None`` for a 2D ViT (vit2d, and
-    vit_3dhead's trunk over ``batch`` slices)."""
-    grid = (img // patch) ** 2
-    l = grid * (frames // tpatch if frames else 1)
-    n = l + 1
-    pix = (tpatch if frames else 1) * patch * patch * chans
-    dense = (layers * 2 * n * 12 * d * d + 2 * l * pix * d + 2 * d * d
-             + 2 * d * classes)
-    attn = layers * 4 * n * n * d
-    return 3.0 * batch * (dense + attn)
-
-
 def _profiled(torch, fn, tmp, tag):
-    """One call of ``fn`` under torch.profiler -> (idle share, busy ms,
-    window ms, kernel names, device-to-host copies)."""
+    """One call of ``fn`` under torch.profiler -> (kernel names,
+    device-to-host copies); a profile with no device kernel raises, so no
+    check on it passes for want of a trace."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -3092,11 +2578,13 @@ def _profiled(torch, fn, tmp, tag):
         torch.cuda.synchronize()
     path = os.path.join(tmp, f"trace_{tag}.json")
     prof.export_chrome_trace(path)
-    idle, busy, window, names = trace_idle_share(path)
+    names = _trace_kernels(path)
     os.remove(path)
+    if not names:
+        raise AssertionError(f"{tag}: the profile recorded no device kernel")
     dtoh = sorted({e.name for e in prof.events()
                    if "DtoH" in e.name or "Device -> Host" in e.name})
-    return idle, busy, window, names, dtoh
+    return names, dtoh
 
 
 def _ft_state(torch, model, cfg, steps_per_epoch, seed):
@@ -3114,24 +2602,6 @@ def _ft_state(torch, model, cfg, steps_per_epoch, seed):
         layer_decay=cfg.layer_decay, num_blocks=getattr(model, "depth", 24),
         name_prefix="params.")
     return TrainState.create(model, tx, seed), tx
-
-
-def convnext_flops(slices=60, img=256, depths=(3, 3, 9, 3),
-                   dims=(96, 192, 384, 768), batch=4, head_dim=256) -> float:
-    """Analytic FLOPs of one slivit_baseline step (fwd + bwd = 3 x fwd):
-    ConvNeXt-tiny on every slice (stem 4x4/4, per block a 7x7 depthwise
-    conv and the 4x pointwise MLP, 2x2/2 downsamples) and the head's
-    patch projection; the compact ViT's own products are left out (under
-    0.1 %)."""
-    r = img // 4
-    f = 2 * r * r * dims[0] * 4 * 4 * 3
-    for stage, (depth, c) in enumerate(zip(depths, dims)):
-        if stage:
-            r //= 2
-            f += 2 * r * r * c * 2 * 2 * dims[stage - 1]
-        f += depth * r * r * c * (2 * 49 + 2 * 2 * 4 * c)
-    proj = 2 * dims[-1] * r * r * head_dim
-    return 3.0 * batch * slices * (f + proj)
 
 
 def _ft_step(torch, _cuda, step, state, x, y, what, seen, want=FT_B1_B2):
@@ -3154,28 +2624,13 @@ def _ft_step(torch, _cuda, step, state, x, y, what, seen, want=FT_B1_B2):
     return state, m
 
 
-def _time_ft(torch, step, state, x, y, smi, what, flops, iters=5):
-    """CUDA events over ``iters`` steps after one, and the peak of the
-    state held and those steps (counter reset just before)."""
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ms = _elapsed_ms(lambda: step(state, x, y), iters, 1)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    bound = flops / PEAK_BF16_FLOPS * 1e3
-    print(f"{what} on {smi}: {ms:.3f} ms per step (CUDA events over "
-          f"{iters} after 1); bound {bound:.3f} ms ({flops:.3e} FLOP at "
-          f"{PEAK_BF16_FLOPS:.3e} FLOP/s); max_memory_allocated "
-          f"{peak:.2f} GiB")
-    return ms, peak, bound
-
-
 def _spacing(torch, p):
     """The fp32 spacing above a tensor's largest magnitude."""
     m = p.detach().abs().max()
     return (torch.nextafter(m, m * 2 + 1) - m).item()
 
 
-def run_ft_multitask(torch, _cuda, smi, tmp):
+def run_ft_multitask(torch, _cuda, tmp):
     """19a: the octcube_multitask step at full width (vit_st aggregate
     head, ViT-L/16 48x256x256, batch 1, bf16 with fp32 params, drop path
     0.2, layer decay 0.65, blr 5e-3 scaled to batch 1, the multi-task
@@ -3185,8 +2640,8 @@ def run_ft_multitask(torch, _cuda, smi, tmp):
     on a NaN volume (params, both moments, the count and the step kept;
     the generator moves on) and the next finite step against a run that
     never took the NaN step (the same loss bit for bit, gradients within
-    B2's run-to-run limit); the step's time, peak and trace (idle share,
-    no device-to-host copy)."""
+    B2's run-to-run limit); no device-to-host copy in the step's
+    trace."""
     from octcubem_tpu_torch.core.config import PRESETS
     from octcubem_tpu_torch.models import vit_st
     from octcubem_tpu_torch.train import finetune_engine, losses
@@ -3271,7 +2726,8 @@ def run_ft_multitask(torch, _cuda, smi, tmp):
         for dst, src in ((tx.mu, snap[1]), (tx.nu, snap[2])):
             for a, b in zip(dst, src):
                 a.copy_(b)
-    tx.count, state.step = snap[3].clone(), snap[4].clone()
+    tx.count.copy_(snap[3])
+    state.step = snap[4].clone()
     state.generator.set_state(after_nan)
     state, m_b = _ft_step(torch, _cuda, step, state, x, y,
                           "the same step in a run without the NaN step", [])
@@ -3284,21 +2740,13 @@ def run_ft_multitask(torch, _cuda, smi, tmp):
         raise AssertionError("the step after the NaN step differs from a run "
                              "without it")
     del snap, grads_a
-    flops = finetune_flops()
-    ms, peak, bound = _time_ft(torch, step, state, x, y, smi,
-                               "octcube_multitask step (ViT-L/16 48x256x256, "
-                               "batch 1, bf16)", flops)
-    idle, busy, window, _, dtoh = _profiled(
-        torch, lambda: step(state, x, y), tmp, "multitask")
-    print(f"octcube_multitask step trace on {smi}: idle share {idle:.4f} "
-          f"(busy {busy:.3f} of {window:.3f} ms); device-to-host copies "
-          f"{dtoh}")
+    _, dtoh = _profiled(torch, lambda: step(state, x, y), tmp, "multitask")
+    print(f"octcube_multitask step trace: device-to-host copies {dtoh}")
     if dtoh:
         raise AssertionError(f"the fine-tune step reads the device: {dtoh}")
     del state, tx, model, step, x
     torch.cuda.empty_cache()
-    return {"ms": ms, "peak": peak, "bound": bound, "idle": idle,
-            "seen": {"octcube_multitask steps": seen}}
+    return {"octcube_multitask steps": seen}
 
 
 # the octcube_multitask model cut to 2 blocks (4,097 tokens), flash
@@ -3347,12 +2795,12 @@ def check_ft_vs_naive(torch):
         torch.cuda.empty_cache()
 
 
-def run_ft_variable_joint(torch, _cuda, smi, tmp):
+def run_ft_variable_joint(torch, _cuda):
     """19c: the variable_joint model (high_res_input_size 512: a second
     patch embed, the spatial pos embed stored at the 32 x 32 grid): one
     step on the 48x256x256 stream (4,097 tokens, the table bicubic-pooled
     to 16 x 16), one on the 48x512x512 stream (16,385 tokens); 24 B1 + 24
-    B2 each; each stream's time and peak."""
+    B2 each."""
     from octcubem_tpu_torch.core.config import PRESETS
     from octcubem_tpu_torch.models import vit_st
     from octcubem_tpu_torch.train import finetune_engine, losses
@@ -3367,7 +2815,7 @@ def run_ft_variable_joint(torch, _cuda, smi, tmp):
     step = finetune_engine.make_finetune_train_step(
         model, tx, losses.make_criterion(cfg.task_mode))
     y = torch.tensor(FT_TARGET, device="cuda")
-    out, seen = {}, {}
+    seen = {}
     for size in (256, 512):
         x = torch.rand((1, 48, size, size, 1), generator=gen, device="cuda")
         tokens = (size // 16) ** 2 * 16 + 1
@@ -3375,32 +2823,23 @@ def run_ft_variable_joint(torch, _cuda, smi, tmp):
                             f"variable_joint step, the {size} stream "
                             f"({tokens} tokens)", seen.setdefault(
                                 f"variable_joint {tokens}-token step", []))
-        res = _time_ft(torch, step, state, x, y, smi,
-                       f"variable_joint step, 48x{size}x{size} stream",
-                       finetune_flops(img=size), iters=3)
-        idle = _profiled(torch, lambda: step(state, x, y), tmp,
-                         f"vj{size}")[0]
-        print(f"variable_joint {size} stream step trace on {smi}: idle "
-              f"share {idle:.4f}")
-        out[size] = res + (idle,)
         del x
     del state, tx, model, step
     torch.cuda.empty_cache()
-    return out, seen
+    return seen
 
 
-def run_ft_2d_trunks(torch, _cuda, smi, tmp):
+def run_ft_2d_trunks(torch, _cuda):
     """19d: vit2d ViT-L/16 at 224, in_chans 1, batch 48, and vit_3dhead
     (ViT-L/16 trunk at 224 over 48 slices, batch 1): one step each through
-    the engine (24 B1 + 24 B2 at 197 tokens, no fold; a finite loss), its
-    time, peak and trace idle share."""
+    the engine (24 B1 + 24 B2 at 197 tokens, no fold; a finite loss)."""
     from octcubem_tpu_torch.core.config import PRESETS
     from octcubem_tpu_torch.models import registry
     from octcubem_tpu_torch.train import finetune_engine, losses
 
     gen = torch.Generator(device="cuda").manual_seed(25)
     y = torch.tensor(FT_TARGET, device="cuda")
-    out, seen = {}, {}
+    seen = {}
     for family, shape in (("vit2d", (48, 224, 224, 1)),
                           ("vit_3dhead", (1, 48, 224, 224, 1))):
         model = registry.create_model(
@@ -3417,25 +2856,19 @@ def run_ft_2d_trunks(torch, _cuda, smi, tmp):
                             f"{family} ViT-L/16 224 step, input "
                             f"{list(shape)} (197 tokens)",
                             seen.setdefault(f"{family} 197-token step", []))
-        res = _time_ft(torch, step, state, x, yy, smi,
-                       f"{family} step ({list(shape)}, bf16)",
-                       finetune_flops(frames=None, img=224, batch=48), 3)
-        idle = _profiled(torch, lambda: step(state, x, yy), tmp, family)[0]
-        print(f"{family} step trace on {smi}: idle share {idle:.4f}")
-        out[family] = res + (idle,)
         del model, state, tx, step, x
         torch.cuda.empty_cache()
-    return out, seen
+    return seen
 
 
 SLIVIT_HAND = ("fwd_hopper_kernel", "bwd_hopper_kernel", "flash_")
 
 
-def run_ft_slivit(torch, _cuda, smi, tmp):
+def run_ft_slivit(torch, _cuda, tmp):
     """19e: the slivit_ct3d model (slivit_baseline: the ConvNeXt-tiny trunk
     on 60 slices at 256^2 stacked into one tall image, the compact ViT
     head; batch 4, multi_cls, layer decay 1.0): one step with a finite
-    loss, its time and peak, and no hand-written kernel in its profile
+    loss and no hand-written kernel in its profile
     (its attention is the head's torch.matmul softmax); then the ViT-L
     trunk with a SLIViT head at 48x256x256, batch 1: one step, 24 B1 +
     24 B2."""
@@ -3459,14 +2892,9 @@ def run_ft_slivit(torch, _cuda, smi, tmp):
     state, _ = _ft_step(torch, _cuda, step, state, x, y,
                         "slivit_ct3d step (4 x 60 x 256 x 256)", [],
                         want=ADAMW_STEP)
-    ms, peak, bound = _time_ft(torch, step, state, x, y, smi,
-                               "slivit_ct3d step (batch 4, bf16)",
-                               convnext_flops(), 3)
-    idle, busy, window, names, _ = _profiled(torch, lambda: step(state, x, y),
-                                             tmp, "slivit")
+    names, _ = _profiled(torch, lambda: step(state, x, y), tmp, "slivit")
     hand = sorted(n for n in names if any(h in n for h in SLIVIT_HAND))
-    print(f"slivit_ct3d step trace on {smi}: idle share {idle:.4f} (busy "
-          f"{busy:.3f} of {window:.3f} ms), {len(names)} kernel names, "
+    print(f"slivit_ct3d step trace: {len(names)} kernel names, "
           f"hand-written kernels {hand}")
     if hand:
         raise AssertionError(f"slivit_baseline launched hand kernels: {hand}")
@@ -3485,20 +2913,12 @@ def run_ft_slivit(torch, _cuda, smi, tmp):
     seen = []
     state, _ = _ft_step(torch, _cuda, step, state, x, y1,
                         "vit_large_patch16_slivit step (48x256x256)", seen)
-    head = _time_ft(torch, step, state, x, y1, smi,
-                    "vit_large_patch16_slivit step (batch 1, bf16)",
-                    finetune_flops(), 3)
-    idle_head = _profiled(torch, lambda: step(state, x, y1), tmp, "head")[0]
-    print(f"vit_large_patch16_slivit step trace on {smi}: idle share "
-          f"{idle_head:.4f}")
-    head = head + (idle_head,)
     del model, state, tx, step, x
     torch.cuda.empty_cache()
-    return {"ct3d": (ms, peak, bound, idle), "head": head,
-            "seen": {"ViT-L + SLIViT head step": seen}}
+    return {"ViT-L + SLIViT head step": seen}
 
 
-def run_ft_predict(torch, _cuda, smi, tmp):
+def run_ft_predict(torch, _cuda, tmp):
     """19f: cli/predict.py in process over 6 seeded .npy volumes at
     48x256x256, batch 4 (the tail batch padded): its CSV equals a direct
     vit_st forward of the batches it sent to the card (seeded weights
@@ -3541,14 +2961,12 @@ def run_ft_predict(torch, _cuda, smi, tmp):
 
     devmod.to_device = spy
     try:
-        t0 = time.perf_counter()
         rows, live, emb, launches = run("live", [])
-        wall = time.perf_counter() - t0
     finally:
         devmod.to_device = real
-    print(f"cli/predict.py: {len(rows)} rows in {wall:.2f} s, {len(sent)} "
-          f"batches of {[list(t.shape) for t in sent]}, launches {launches}, "
-          f"header {live[0]}")
+    print(f"cli/predict.py: {len(rows)} rows, {len(sent)} batches of "
+          f"{[list(t.shape) for t in sent]}, launches {launches}, header "
+          f"{live[0]}")
     if (len(rows) != 6 or emb["embeddings"].shape != (6, 1024)
             or launches != {"flash_fwd_packed": 24 * len(sent)}):
         raise AssertionError("cli/predict.py: wrong rows, embeddings or "
@@ -3580,16 +2998,14 @@ def run_ft_predict(torch, _cuda, smi, tmp):
     if len(q) != 7 or not np.isfinite(qprobs).all():
         raise AssertionError("cli/predict.py --quant int8 did not answer")
     art = str(root / "m.octaot")
-    t0 = time.perf_counter()
     predict.main([str(root / "data"), "--batch_size", "4", "--export_aot",
                   art])
-    export_s = time.perf_counter() - t0
     _, a, aemb, al = run("aot", ["--aot", art])
     aprobs = np.array([[float(v) for v in r[1:]] for r in a[1:]])
     demb = float(np.abs(aemb["embeddings"] - emb["embeddings"]).max())
-    print(f"cli/predict.py --export_aot in {export_s:.1f} s, --aot: launches "
-          f"{al}, max|d prob| vs live {np.abs(aprobs - lprobs).max():.3e}, "
-          f"max|d embedding| {demb:.3e}")
+    print(f"cli/predict.py --export_aot, --aot: launches {al}, max|d prob| "
+          f"vs live {np.abs(aprobs - lprobs).max():.3e}, max|d embedding| "
+          f"{demb:.3e}")
     if (a[0] != live[0] or not np.allclose(aprobs, lprobs, rtol=0, atol=1e-6)
             or demb > 1e-6 or al != launches):
         raise AssertionError("the AOT artifact's CSV differs from the live one")
@@ -3612,12 +3028,12 @@ def _probe_finetune(probe):
         finetune_engine.make_finetune_train_step = make
 
 
-def run_ft_cli(torch, _cuda, smi, tmp, direct_ms):
+def run_ft_cli(torch, _cuda, tmp):
     """19g: cli/finetune.py in process: the octcube_multitask preset at
     full width on 10 synthetic volumes, one epoch (args.json, log.txt, the
     val and test metric CSVs, ckpt/ at the best epoch, the confusion
-    images; 24 B1 + 24 B2 in every step), its step time beside 19a's
-    direct step; then the slivit_ct3d preset on a seeded
+    images; 24 B1 + 24 B2 in every step); then the slivit_ct3d preset on a
+    seeded
     nodulemnist3d.npz (8 / 4 / 4 items) for one epoch at its full
     geometry (60 slices at 256^2, batch 4)."""
     import shutil
@@ -3629,24 +3045,18 @@ def run_ft_cli(torch, _cuda, smi, tmp, direct_ms):
     probe = CliProbe(torch, _cuda)
     run1 = str(Path(tmp) / "ft1")
     with _probe_finetune(probe):
-        t0 = time.perf_counter()
         res = finetune.main(CLI_FT + ["--output_dir", run1])
-        wall = time.perf_counter() - t0
-    steps = probe.take()[0]
+    steps = probe.take()
     seen = [s["launches"] for s in steps]
     files = sorted(os.listdir(run1))
     _cli_steps("cli/finetune.py octcube_multitask", steps, FT_B1_B2)
-    _, ev = _cli_times("cli/finetune.py octcube_multitask (one epoch)",
-                       steps, smi, len(steps))
     with open(Path(run1) / "log.txt") as f:
         recs = [json.loads(line) for line in f]
     ckpt = sorted(os.listdir(Path(run1) / "ckpt"))
     pngs = [f for f in files if f.startswith("confusion_test")]
-    print(f"cli/finetune.py octcube_multitask on {smi}: {wall:.1f} s in "
-          f"main, result {res}; CUDA events per step after the first "
-          f"{[round(v, 3) for v in ev]} ms (19a's direct step "
-          f"{direct_ms:.3f} ms); log.txt {recs}; ckpt {ckpt}; confusion "
-          f"images {len(pngs)}; files {files}")
+    print(f"cli/finetune.py octcube_multitask: result {res}; log.txt "
+          f"{recs}; ckpt {ckpt}; confusion images {len(pngs)}; files "
+          f"{files}")
     want = {"args.json", "log.txt", "macro_metrics_val.csv",
             "macro_metrics_test.csv", "ckpt"}
     if not want <= set(files) or ckpt != ["0"] or not pngs:
@@ -3667,26 +3077,21 @@ def run_ft_cli(torch, _cuda, smi, tmp, direct_ms):
     np.savez(npz, **parts)
     run2 = str(Path(tmp) / "ft2")
     with _probe_finetune(probe):
-        t0 = time.perf_counter()
         finetune.main(["--slivit_dataset", "ct3d", "--data_dir", str(npz),
                        "--epochs", "1", "--output_dir", run2])
-        wall = time.perf_counter() - t0
-    steps = probe.take()[0]
+    steps = probe.take()
     _cli_steps("cli/finetune.py slivit_ct3d", steps, ADAMW_STEP)
     files = sorted(os.listdir(run2))
-    ev2 = [s["ev"][0].elapsed_time(s["ev"][1]) for s in steps]
-    print(f"cli/finetune.py slivit_ct3d on {smi}: {wall:.1f} s in main; "
-          f"CUDA events per step {[round(v, 3) for v in ev2]} ms; files "
-          f"{files}")
+    print(f"cli/finetune.py slivit_ct3d: files {files}")
     if not {"macro_metrics_val.csv", "macro_metrics_test.csv",
             "confusion_test.png", "ckpt"} <= set(files):
         raise AssertionError(f"cli/finetune.py slivit_ct3d wrote {files}")
     shutil.rmtree(run2)
     torch.cuda.empty_cache()
-    return ev, {"cli/finetune.py octcube_multitask steps": seen}
+    return {"cli/finetune.py octcube_multitask steps": seen}
 
 
-def run_phase19(torch, _cuda, smi):
+def run_phase19(torch, _cuda):
     """Phase 19: the fine-tuning family (19a-19g above), on one card;
     checkpoints and artifacts under a temporary directory."""
     try:
@@ -3696,32 +3101,15 @@ def run_phase19(torch, _cuda, smi):
         renderer = "the stdlib PNG grid (no matplotlib)"
     print(f"phase 19: confusion images rendered by {renderer}")
     with tempfile.TemporaryDirectory() as tmp:
-        a = run_ft_multitask(torch, _cuda, smi, tmp)
+        seen = run_ft_multitask(torch, _cuda, tmp)
         check_ft_vs_naive(torch)
-        vj, vj_seen = run_ft_variable_joint(torch, _cuda, smi, tmp)
-        trunks, trunks_seen = run_ft_2d_trunks(torch, _cuda, smi, tmp)
-        sl = run_ft_slivit(torch, _cuda, smi, tmp)
-        run_ft_predict(torch, _cuda, smi, tmp)
-        cli_ev, cli_seen = run_ft_cli(torch, _cuda, smi, tmp, a["ms"])
-    print(f"phase 19 summary on {smi} (ms per step, CUDA events; peak GiB; "
-          f"bound ms; idle share): octcube_multitask {a['ms']:.3f} / "
-          f"{a['peak']:.2f} / {a['bound']:.3f} / {a['idle']:.4f}; "
-          f"variable_joint 256 {vj[256][0]:.3f} / {vj[256][1]:.2f} / "
-          f"{vj[256][2]:.3f} / {vj[256][3]:.4f}, 512 {vj[512][0]:.3f} / "
-          f"{vj[512][1]:.2f} / {vj[512][2]:.3f} / {vj[512][3]:.4f}; vit2d "
-          f"{trunks['vit2d'][0]:.3f} / "
-          f"{trunks['vit2d'][1]:.2f} / {trunks['vit2d'][2]:.3f} / "
-          f"{trunks['vit2d'][3]:.4f}; vit_3dhead "
-          f"{trunks['vit_3dhead'][0]:.3f} / {trunks['vit_3dhead'][1]:.2f} / "
-          f"{trunks['vit_3dhead'][2]:.3f} / {trunks['vit_3dhead'][3]:.4f}; "
-          f"slivit_ct3d {sl['ct3d'][0]:.3f} / {sl['ct3d'][1]:.2f} / "
-          f"{sl['ct3d'][2]:.3f} / {sl['ct3d'][3]:.4f}; ViT-L + SLIViT head "
-          f"{sl['head'][0]:.3f} / {sl['head'][1]:.2f} / {sl['head'][2]:.3f} / "
-          f"{sl['head'][3]:.4f}; the CLI's "
-          f"octcube_multitask steps {[round(v, 3) for v in cli_ev]}")
+        seen.update(run_ft_variable_joint(torch, _cuda))
+        seen.update(run_ft_2d_trunks(torch, _cuda))
+        seen.update(run_ft_slivit(torch, _cuda, tmp))
+        run_ft_predict(torch, _cuda, tmp)
+        seen.update(run_ft_cli(torch, _cuda, tmp))
     # for the kernels line: per kernel, each path's launches in each of its
     # checked steps, as the counters read them in this run
-    seen = {**a["seen"], **vj_seen, **trunks_seen, **sl["seen"], **cli_seen}
     return {kern: {path: [d.get(kern, 0) for d in steps]
                    for path, steps in seen.items()}
             for kern in ("flash_fwd_packed", "flash_bwd_packed")}
@@ -3745,26 +3133,6 @@ def coem_launches(accum, three_mod=False):
     per = (200, 56) if three_mod else (128, 32)
     return {"flash_fwd_packed": per[0] * accum,
             "flash_bwd_packed": per[1] * accum, **ADAMW_STEP}
-
-
-def vit_fwd_flops(n, layers=24, d=1024, pix=0, l=0):
-    """One ViT forward over n tokens: the block projections (2 * n * 12 d^2
-    a block), the attention products (4 * n^2 * d a block), the patch
-    projection (2 * l * pix * d)."""
-    return layers * (2 * n * 12 * d * d + 4 * n * n * d) + 2 * l * pix * d
-
-
-def coem_flops(pairs, unlocked=8, layers=24, enface_passes=1):
-    """Analytic FLOPs of a locked, rematerialised accumulation step over
-    ``pairs`` pairs: pass 1 both forwards; pass 2 both forwards again, the
-    OCT tower's ``unlocked`` blocks recomputed and differentiated (3x their
-    share), every en face block recomputed and differentiated (3x);
-    ``enface_passes`` en face images a pair (2 for the 3-modality step)."""
-    oct_f = vit_fwd_flops(5121, layers, pix=3 * 16 * 16, l=5120)
-    enf_f = vit_fwd_flops(577, layers, pix=16 * 16 * 3, l=576)
-    per = (2 * (oct_f + enface_passes * enf_f)
-           + 3 * oct_f * unlocked / layers + 3 * enface_passes * enf_f)
-    return pairs * per
 
 
 def _coem_batch(torch, gen, accum, chunk, three_mod=False):
@@ -3833,15 +3201,15 @@ def _coem_step(torch, _cuda, step, state, batch, what, want, seen):
     return state, m
 
 
-def run_coem_steps(torch, _cuda, smi, tmp):
+def run_coem_steps(torch, _cuda, tmp):
     """20a: the octcube_ir accumulation step at full width and depth
     (vitl16_octcube_ir, bf16 with fp32 params, grad checkpointing, the
     partition lock at 9 groups), chunk 8 x accum_freq 2, three steps:
     finite, 256 B1 + 64 B2 each and no other kernel; the frozen params
     bit for bit and no optimizer moments for them; every trainable param
-    moved that its LR can move in fp32; the step's time, peak, trace
-    (idle share, no device-to-host copy) and bound.  20b: one step at the
-    preset's real size, chunk 32 x accum_freq 4 (512 B1 + 128 B2)."""
+    moved that its LR can move in fp32; no device-to-host copy in the
+    step's trace.  20b: one step at the preset's real size, chunk 32 x
+    accum_freq 4 (512 B1 + 128 B2)."""
     from octcubem_tpu_torch.train import clip_engine
 
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -3878,19 +3246,9 @@ def run_coem_steps(torch, _cuda, smi, tmp):
                              f"no frozen moments {no_moments}, unexplained "
                              f"unmoved {unexplained}")
     del before
-    flops = coem_flops(16)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ms = _elapsed_ms(lambda: step(state, batch), 3, 1)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    bound = flops / PEAK_BF16_FLOPS * 1e3
-    idle, busy, window, _, dtoh = _profiled(
-        torch, lambda: step(state, batch), tmp, "coem")
-    print(f"octcube_ir step (chunk 8 x accum 2) on {smi}: {ms:.3f} ms per "
-          f"step (CUDA events over 3 after 1); bound {bound:.3f} ms "
-          f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
-          f"max_memory_allocated {peak:.2f} GiB; trace idle share "
-          f"{idle:.4f} (busy {busy:.3f} of {window:.3f} ms); device-to-host "
+    _, dtoh = _profiled(torch, lambda: step(state, batch), tmp, "coem")
+    print(f"octcube_ir step (chunk 8 x accum 2) trace: device-to-host "
           f"copies {dtoh}")
     if dtoh:
         raise AssertionError(f"the COEM step reads the device: {dtoh}")
@@ -3903,19 +3261,10 @@ def run_coem_steps(torch, _cuda, smi, tmp):
     state, _ = _coem_step(torch, _cuda, step4, state, big,
                           "octcube_ir step at the preset's size (chunk 32 x "
                           "accum 4)", coem_launches(4), seen_big)
-    torch.cuda.reset_peak_memory_stats()
-    ms_big = _elapsed_ms(lambda: step4(state, big), 1, 0)
-    peak_big = torch.cuda.max_memory_allocated() / 2 ** 30
-    bound_big = coem_flops(128) / PEAK_BF16_FLOPS * 1e3
-    print(f"octcube_ir step (chunk 32 x accum 4) on {smi}: {ms_big:.3f} ms "
-          f"(CUDA events, one step after one); bound {bound_big:.3f} ms; "
-          f"max_memory_allocated {peak_big:.2f} GiB")
     del big, state, tx, model, step, step4
     torch.cuda.empty_cache()
-    return {"ms": ms, "peak": peak, "bound": bound, "idle": idle,
-            "ms_big": ms_big, "peak_big": peak_big, "bound_big": bound_big,
-            "seen": {"octcube_ir steps (8 x 2)": seen,
-                     "octcube_ir step (32 x 4)": seen_big}}
+    return {"octcube_ir steps (8 x 2)": seen,
+            "octcube_ir step (32 x 4)": seen_big}
 
 
 # the accumulated step against the full-batch step at the same params: the
@@ -4032,10 +3381,10 @@ def check_coem_vs_naive(torch):
         torch.cuda.empty_cache()
 
 
-def run_coem_3mod(torch, _cuda, smi):
+def run_coem_3mod(torch, _cuda):
     """20e: one vitl16_octcube_ef_3mod accumulation step (chunk 4 x 2,
     bf16, remat, the partition lock): finite, 400 B1 + 112 B2 and no other
-    kernel, its time and bound."""
+    kernel."""
     from octcubem_tpu_torch.train import clip_engine
 
     gen = torch.Generator(device="cuda").manual_seed(26)
@@ -4047,17 +3396,12 @@ def run_coem_3mod(torch, _cuda, smi):
     state, _ = _coem_step(torch, _cuda, step, state, batch,
                           "octcube_ef_3mod step (chunk 4 x accum 2)",
                           coem_launches(2, three_mod=True), seen)
-    ms = _elapsed_ms(lambda: step(state, batch), 1, 0)
-    bound = coem_flops(8, enface_passes=2) / PEAK_BF16_FLOPS * 1e3
-    print(f"octcube_ef_3mod step (chunk 4 x accum 2) on {smi}: {ms:.3f} ms "
-          f"(CUDA events, one step after one); bound {bound:.3f} ms")
     del model, tx, state, step, batch
     torch.cuda.empty_cache()
-    return {"ms": ms, "bound": bound,
-            "seen": {"octcube_ef_3mod step (4 x 2)": seen}}
+    return {"octcube_ef_3mod step (4 x 2)": seen}
 
 
-def run_coem_gradcam(torch, _cuda, smi):
+def run_coem_gradcam(torch, _cuda):
     """20f: clip_pair_gradcam at full width (COEP2Tower with capture_cam,
     bf16, one pair): OCT target at layers -1 and 0, a finite [1, 20, 16,
     16] map in [0, 1]; 48 B1 per map and B2 for each OCT block after the
@@ -4077,16 +3421,12 @@ def run_coem_gradcam(torch, _cuda, smi):
         cam = clip_pair_gradcam(model, *x, target="image", layer=layer,
                                 grid=(20, 16, 16))
         launches = _nonzero(_cuda.launches)
-        ms = _elapsed_ms(lambda: clip_pair_gradcam(
-            model, *x, target="image", layer=layer, grid=(20, 16, 16)), 2, 0)
         want = {"flash_fwd_packed": 48, **({"flash_bwd_packed": b2}
                                            if b2 else {})}
         ok = (cam.shape == (1, 20, 16, 16) and np.isfinite(cam).all()
               and cam.min() >= 0 and cam.max() <= 1 and cam.max() > 0)
-        print(f"clip_pair_gradcam OCT layer {layer} on {smi}: map "
-              f"{cam.shape} in [{cam.min():.3e}, {cam.max():.3e}], "
-              f"launches {launches}, {ms:.3f} ms per map (CUDA events over "
-              f"2)")
+        print(f"clip_pair_gradcam OCT layer {layer}: map {cam.shape} in "
+              f"[{cam.min():.3e}, {cam.max():.3e}], launches {launches}")
         if not ok or launches != want:
             raise AssertionError(f"clip_pair_gradcam layer {layer}: ok {ok}, "
                                  f"launches {launches} (want {want})")
@@ -4159,7 +3499,7 @@ def _cli_first_loss(torch):
     return loss
 
 
-def run_coem_cli(torch, _cuda, smi, tmp):
+def run_coem_cli(torch, _cuda, tmp):
     """20g: cli/retclip.py in process on the octcube_ir preset at full
     width (80 synthetic pairs: 64 train, 16 val; batch 8 x accum 4, two
     steps an epoch): one epoch (params.txt, results.jsonl, the retrieval
@@ -4188,20 +3528,15 @@ def run_coem_cli(torch, _cuda, smi, tmp):
     run = str(Path(tmp) / "retclip")
     probe = CliProbe(torch, _cuda)
     with _probe_clip(probe):
-        t0 = time.perf_counter()
         retclip.main(CLI_RETCLIP + ["--epochs", "1", "--output_dir", run,
                                     "--save_retrieval_results"])
-        wall = time.perf_counter() - t0
-    steps = probe.take()[0]
+    steps = probe.take()
     want = coem_launches(4)
     losses = _cli_steps("cli/retclip.py octcube_ir", steps, want)
-    _, ev = _cli_times("cli/retclip.py octcube_ir (one epoch)", steps, smi,
-                       len(steps))
     files = sorted(os.listdir(run))
     with open(Path(run) / "results.jsonl") as f:
         rows = [json.loads(line) for line in f]
-    print(f"cli/retclip.py octcube_ir on {smi}: {wall:.1f} s in main; files "
-          f"{files}; results {rows}")
+    print(f"cli/retclip.py octcube_ir: files {files}; results {rows}")
     if (len(steps) != 2 or not {"params.txt", "results.jsonl",
                                 "retrieval_results_0.pkl"} <= set(files)
             or sorted(os.listdir(Path(run) / "ckpt")) != ["0"]):
@@ -4231,7 +3566,7 @@ def run_coem_cli(torch, _cuda, smi, tmp):
     with _probe_clip(probe):
         retclip.main(CLI_RETCLIP + ["--epochs", "2", "--output_dir", run,
                                     "--resume", "latest"])
-    resumed = probe.take()[0]
+    resumed = probe.take()
     _cli_steps("cli/retclip.py --resume latest", resumed, want)
     print(f"cli/retclip.py --resume latest: state bit for bit before the "
           f"first step {seen_state}; ckpt {sorted(os.listdir(Path(run) / 'ckpt'))}")
@@ -4246,10 +3581,8 @@ def run_coem_cli(torch, _cuda, smi, tmp):
     q = retclip.main(ev_args + ["--quant", "int8"])
     q_launch = _nonzero(_cuda.launches)
     art = str(Path(tmp) / "coem_encoder.octaot")
-    t0 = time.perf_counter()
     retclip.main(CLI_RETCLIP + ["--output_dir", run, "--resume", "latest",
                                 "--export_aot", art])
-    export_s = time.perf_counter() - t0
     fn, meta = load_serving_artifact(art)
     calls = flash_op_calls(fn.program)
     latest, _ = ckpt_lib.restore_raw(str(Path(run) / "ckpt"))
@@ -4269,10 +3602,10 @@ def run_coem_cli(torch, _cuda, smi, tmp):
     err = max((a.float() - r.float()).abs().max().item()
               for a, r in zip(got, ref))
     aot = retclip.main(ev_args + ["--aot", art])
-    print(f"cli/retclip.py evaluation on {smi}: live {live}; int8 {q} "
-          f"(launches {q_launch}); artifact exported in {export_s:.1f} s, "
-          f"{calls} B1 op calls in its graph, {art_launch} launches, "
-          f"features against the live model's max|d| {err:.3e} (tol "
+    print(f"cli/retclip.py evaluation: live {live}; int8 {q} (launches "
+          f"{q_launch}); artifact with {calls} B1 op calls in its graph, "
+          f"{art_launch} launches, features against the live model's "
+          f"max|d| {err:.3e} (tol "
           f"{TOL_AOT:.0e}); --aot {aot}")
     if (calls != 48 or err > TOL_AOT or aot != live
             or art_launch != {"flash_fwd_packed": 48}):
@@ -4296,22 +3629,16 @@ def run_coem_cli(torch, _cuda, smi, tmp):
     # 20h: the classification fine-tune and the tower init
     ft = str(Path(tmp) / "retclip_ft")
     with _probe_clip(probe):
-        t0 = time.perf_counter()
         reg = retclip_finetune.main([
             "--model_config", COEM_3MOD_CONFIG, "--synthetic_n", "8",
             "--batch_size", "2", "--k_folds", "2", "--epochs", "1",
             "--lock_image", "--output_dir", ft])
-        ft_wall = time.perf_counter() - t0
-    ft_steps = probe.take()[0]
+    ft_steps = probe.take()
     # fp32 without remat: 24 + 2 x 24 B1, 8 + 2 x 24 B2 a step
     ft_want = {"flash_fwd_packed": 72, "flash_bwd_packed": 56, **ADAMW_STEP}
     _cli_steps("cli/retclip_finetune.py octcube_ef_3mod (fp32)", ft_steps,
                ft_want)
-    ft_ev = [s["ev"][0].elapsed_time(s["ev"][1]) for s in ft_steps]
-    print(f"cli/retclip_finetune.py on {smi}: {ft_wall:.1f} s in main, "
-          f"registry {reg}; CUDA events per step "
-          f"{[round(v, 3) for v in ft_ev]} ms; peak "
-          f"{[round(s['peak'], 2) for s in ft_steps]} GiB")
+    print(f"cli/retclip_finetune.py: registry {reg}")
     if sorted(reg) != [0, 1]:
         raise AssertionError(f"cli/retclip_finetune.py registry {reg}")
     cls = registry.create_coem_model(COEM_CONFIG, num_classes=2)
@@ -4327,30 +3654,22 @@ def run_coem_cli(torch, _cuda, smi, tmp):
         raise AssertionError("the classifier's towers differ from the run's")
     del cls, sd, latest, raw
     torch.cuda.empty_cache()
-    return ev, {"cli/retclip.py octcube_ir steps": [
+    return {"cli/retclip.py octcube_ir steps": [
         s["launches"] for s in steps_all],
         "cli/retclip_finetune.py octcube_ef_3mod steps": [
             s["launches"] for s in ft_steps]}
 
 
-def run_phase20(torch, _cuda, smi):
+def run_phase20(torch, _cuda):
     """Phase 20: the COEM contrastive path (20a-20i above), on one card;
     checkpoints and artifacts under a temporary directory."""
     with tempfile.TemporaryDirectory() as tmp:
-        a = run_coem_steps(torch, _cuda, smi, tmp)
+        seen = run_coem_steps(torch, _cuda, tmp)
         check_coem_accum_vs_full(torch)
         check_coem_vs_naive(torch)
-        three = run_coem_3mod(torch, _cuda, smi)
-        run_coem_gradcam(torch, _cuda, smi)
-        cli_ev, cli_seen = run_coem_cli(torch, _cuda, smi, tmp)
-    print(f"phase 20 summary on {smi} (ms per step, CUDA events; peak GiB; "
-          f"bound ms; idle share): octcube_ir 8 x 2 {a['ms']:.3f} / "
-          f"{a['peak']:.2f} / {a['bound']:.3f} / {a['idle']:.4f}; 32 x 4 "
-          f"{a['ms_big']:.3f} / {a['peak_big']:.2f} / {a['bound_big']:.3f}; "
-          f"octcube_ef_3mod 4 x 2 {three['ms']:.3f} / - / "
-          f"{three['bound']:.3f}; the CLI's steps "
-          f"{[round(v, 3) for v in cli_ev]}")
-    seen = {**a["seen"], **three["seen"], **cli_seen}
+        seen.update(run_coem_3mod(torch, _cuda))
+        run_coem_gradcam(torch, _cuda)
+        seen.update(run_coem_cli(torch, _cuda, tmp))
     return {kern: {path: [d.get(kern, 0) for d in steps]
                    for path, steps in seen.items()}
             for kern in ("flash_fwd_packed", "flash_bwd_packed")}
@@ -4380,21 +3699,19 @@ HIPT_PAIR_STEP = {"flash_fwd_packed": 6, "flash_bwd_packed": 6,
 # the pair's AdamW: OpenCLIP's defaults (lr 5e-4, wd 0.2, betas 0.9 /
 # 0.98), a linear warmup from 0 so that the first update moves nothing
 HIPT_LR, HIPT_WARMUP = 5e-4, 10
+
+
+def hipt_lr(step):
+    return HIPT_LR * min(step / HIPT_WARMUP, 1.0)
+
+
+# constant past the warmup: the optimizer's LR table ends there
+hipt_lr.total_steps = HIPT_WARMUP
 # report words for SimpleTokenizer's texts
 REPORT_WORDS = ("geographic", "atrophy", "drusen", "macula", "fovea",
                 "retina", "edema", "hemorrhage", "lesion", "region", "tumor",
                 "stroma", "epithelium", "necrosis", "margin", "invasive",
                 "carcinoma", "benign", "grade", "2", "3", "mm", ",", ".")
-
-
-def hipt_pair_flops(pairs, hipt=6, text=12):
-    """Analytic FLOPs of one pair step (fwd + bwd = 3 x fwd): the HIPT
-    tower (phi over 256 features, 257 tokens x 192 through ``hipt``
-    blocks, its head) and the text tower (77 tokens x 512 through ``text``
-    blocks with full-square attention products, its projection)."""
-    v = vit_fwd_flops(257, hipt, 192, pix=384, l=256) + 2 * 192 * 512
-    t = vit_fwd_flops(77, text, 512) + 2 * 512 * 512
-    return 3 * pairs * (v + t)
 
 
 def _write_json(tmp, name, cfg):
@@ -4421,17 +3738,14 @@ def _hipt_pair_batch(torch, gen, pairs, seed):
             "enface": ids}
 
 
-def run_hipt_pair(torch, _cuda, smi, tmp):
+def run_hipt_pair(torch, _cuda, tmp):
     """21a: the main path.  The vit4k_xs <-> CLIP-text pair from
     create_coem_model(<json>) at full width, bf16 with fp32 params, 128
     pairs, make_clip_train_step with the port's AdamW: three steps
     (finite loss and grad norm, exactly 6 B1 + 6 B2 each and no other
     kernel, the LR-0 first update moving nothing, every param moved after
-    the next two that its LRs can move in fp32); the step's time (CUDA
-    events), peak, idle share of a traced step, device time by kernel and
-    bound."""
+    the next two that its LRs can move in fp32)."""
     from octcubem_tpu_torch.models import aux_towers, registry
-    from octcubem_tpu_torch.scripts.time_kernels import device_split
     from octcubem_tpu_torch.train import clip_engine, optim
     from octcubem_tpu_torch.train.train_state import TrainState
 
@@ -4441,9 +3755,7 @@ def run_hipt_pair(torch, _cuda, smi, tmp):
             and isinstance(model.enface.tower, aux_towers.TextTransformer)):
         raise AssertionError("the pair's towers are not HIPT ViT-4K and the "
                              "CLIP text transformer")
-    tx = optim.build_adamw(
-        model, lambda i: HIPT_LR * min(i / HIPT_WARMUP, 1.0), 0.2,
-        betas=(0.9, 0.98))
+    tx = optim.build_adamw(model, hipt_lr, 0.2, betas=(0.9, 0.98))
     state = TrainState.create(model, tx, 22)
     step = clip_engine.make_clip_train_step(model, tx)
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -4470,30 +3782,9 @@ def run_hipt_pair(torch, _cuda, smi, tmp):
     if unexplained:
         raise AssertionError(f"params the updates should move stayed: "
                              f"{unexplained}")
-    del before
-    flops = hipt_pair_flops(HIPT_PAIRS)
-    bound = flops / PEAK_BF16_FLOPS * 1e3
+    del before, model, tx, state, step, batch
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ms = _elapsed_ms(lambda: step(state, batch), 3, 1)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    idle, busy, window, names, dtoh = _profiled(
-        torch, lambda: step(state, batch), tmp, "hipt_pair")
-    split = device_split(torch, lambda: step(state, batch), 2)
-    top = sorted(split["kernels"].items(), key=lambda kv: -kv[1])[:8]
-    print(f"HIPT pair step device time by kernel ({split['ms']:.3f} ms a "
-          f"step, profiler, 2 steps after 5): "
-          + "; ".join(f"{k} {v:.3f}" for k, v in top))
-    print(f"HIPT pair step ({HIPT_PAIRS} pairs) on {smi}: {ms:.3f} ms per "
-          f"step (CUDA events over 3 after 1); bound {bound:.4f} ms "
-          f"({flops:.3e} FLOP at {PEAK_BF16_FLOPS:.3e} FLOP/s); "
-          f"max_memory_allocated {peak:.2f} GiB; trace idle share "
-          f"{idle:.4f} (busy {busy:.3f} of {window:.3f} ms); device-to-host "
-          f"copies {dtoh}")
-    del model, tx, state, step, batch
-    torch.cuda.empty_cache()
-    return {"ms": ms, "peak": peak, "bound": bound, "idle": idle,
-            "seen": {"HIPT vit4k_xs <-> CLIP text steps (128 pairs)": seen}}
+    return {"HIPT vit4k_xs <-> CLIP text steps (128 pairs)": seen}
 
 
 def check_hipt_pair_vs_naive(torch, tmp):
@@ -4557,12 +3848,12 @@ def _vit4k(torch, dtype, seed, **kw):
                              seed=seed, **kw).train()
 
 
-def run_hipt_default(torch, _cuda, smi):
+def run_hipt_default(torch, _cuda):
     """21c: VisionTransformer4K() as the JAX class defaults it (depth 12,
     12 heads of 16), bf16, batch 64: forward and backward (a fixed random
     projection of the cls feature) on a 16 x 16 map (257 tokens, folded:
     12 B3 + 12 B4 and no other kernel) and a 14 x 14 map (197, not
-    folded, the pos grid itself: 12 B5 + 12 B7); time and peak; then the
+    folded, the pos grid itself: 12 B5 + 12 B7); then the
     model cut to 2 blocks, flash against impl="naive", fp32 and bf16, on
     the 16 x 16 map (TOL_NAIVE_HIPT)."""
     gen = torch.Generator(device="cuda").manual_seed(31)
@@ -4583,7 +3874,6 @@ def run_hipt_default(torch, _cuda, smi):
         out = fwd_bwd()
         torch.cuda.synchronize()
         launches = _nonzero(_cuda.launches)
-        n = side * side + 1
         what = f"HIPT ViT-4K default (12 x 12 heads of 16) {side}x{side} map"
         finite = bool(torch.isfinite(out.float()).all()) and all(
             bool(torch.isfinite(p.grad.float()).all())
@@ -4594,13 +3884,6 @@ def run_hipt_default(torch, _cuda, smi):
             raise AssertionError(f"{what}: expected {want} and finite, got "
                                  f"{launches}")
         seen[f"HIPT ViT-4K default {side}x{side} (fwd + bwd)"] = [launches]
-        torch.cuda.reset_peak_memory_stats()
-        ms = _elapsed_ms(fwd_bwd, 5)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        flops = 3 * 64 * vit_fwd_flops(n, 12, 192, pix=384, l=n - 1)
-        print(f"{what} fwd + bwd on {smi}: {ms:.3f} ms (CUDA events over 5 "
-              f"after 2); bound {flops / PEAK_BF16_FLOPS * 1e3:.4f} ms; "
-              f"max_memory_allocated {peak:.2f} GiB")
     del model
     torch.cuda.empty_cache()
     x = torch.randn((8, 16, 16, 384), generator=gen, device="cuda")
@@ -4627,14 +3910,14 @@ def _no_hand_kernel(torch, _cuda, what, fn, tmp):
     """One call of ``fn`` with the launch counters at 0 and under the
     profiler: no csrc kernel launched or in the trace, and finite."""
     _cuda.reset_launches()
-    _, _, _, names, _ = _profiled(torch, fn, tmp, "aux")
+    names, _ = _profiled(torch, fn, tmp, "aux")
     hand = sorted(k for k in names if any(h in k for h in SLIVIT_HAND))
     if _nonzero(_cuda.launches) or hand:
         raise AssertionError(f"{what}: launched a hand kernel: "
                              f"{_nonzero(_cuda.launches)} {hand}")
 
 
-def run_towers_without_kernels(torch, _cuda, smi, tmp):
+def run_towers_without_kernels(torch, _cuda, tmp):
     """21d: the towers with no hand kernel, bf16, each forward and
     backward (a fixed random projection of the output): OpenCLIP RN50.json's
     ModifiedResNet (layers 3, 4, 6, 3, width 64, 32 heads, 224, output
@@ -4642,8 +3925,8 @@ def run_towers_without_kernels(torch, _cuda, smi, tmp):
     focalnet_tiny_srf at 224, batch 64, training mode (drop path 0.2 from
     a generator); the Perceiver at perceiver_base (256 latents x 512, one
     cross layer of 4 heads, 6 self layers of 4) over 8 bags of 4,096
-    features of 384 with a pad mask.  Finite, time (CUDA events), peak,
-    and no csrc kernel launched or in a profile."""
+    features of 384 with a pad mask.  Finite, and no csrc kernel launched
+    or in a profile."""
     from octcubem_tpu_torch.models import aux_towers, coem
 
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -4663,7 +3946,6 @@ def run_towers_without_kernels(torch, _cuda, smi, tmp):
         ("perceiver_base 8 x 4,096 x 384", aux_towers.PerceiverTower,
          dict(out_dim=512, cfg={"num_image_channels": 384}), None, "eval"),
     ]
-    rows = {}
     for what, ctor, kw, shape, mode in cases:
         model = coem.create_model(ctor, dtype=torch.bfloat16, seed=42, **kw)
         model.train(mode != "eval")
@@ -4694,46 +3976,28 @@ def run_towers_without_kernels(torch, _cuda, smi, tmp):
         if not finite:
             raise AssertionError(f"{what}: not finite")
         _no_hand_kernel(torch, _cuda, what, fwd_bwd, tmp)
-        torch.cuda.reset_peak_memory_stats()
-        fwd_ms = _elapsed_ms(lambda: call(), 5)
-        ms = _elapsed_ms(fwd_bwd, 3)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"{what} (bf16, {mode}) on {smi}: out {tuple(out.shape)} "
-              f"finite; forward {fwd_ms:.3f} ms, forward + backward "
-              f"{ms:.3f} ms (CUDA events); max_memory_allocated {peak:.2f} "
-              f"GiB; no csrc kernel in its profile")
-        rows[what] = (fwd_ms, ms, peak)
+        print(f"{what} (bf16, {mode}): out {tuple(out.shape)} finite; no "
+              f"csrc kernel in its profile")
         del model, x, out
         torch.cuda.empty_cache()
-    return rows
 
 
-def run_phase21(torch, _cuda, fa, smi, rate):
-    """Phase 21: the auxiliary COEM towers (21a-21d above) and the
-    head_dim-16 kernels' timings at the default HIPT's shapes.  Returns
-    ({counter: {path: [launches per checked step]}}, {kernel: timing row
-    at D = 16})."""
-    held = torch.cuda.memory_allocated() / 2 ** 30
-    print(f"phase 21: {held:.2f} GiB still allocated on entry (earlier "
-          f"phases'), inside each peak below")
+def run_phase21(torch, _cuda, fa):
+    """Phase 21: the auxiliary COEM towers (21a-21d above), and B4 and B7
+    at the default HIPT's shapes.  Returns {counter: {path: [launches per
+    checked step]}}."""
     with tempfile.TemporaryDirectory() as tmp:
-        pair = run_hipt_pair(torch, _cuda, smi, tmp)
+        seen = run_hipt_pair(torch, _cuda, tmp)
         check_hipt_pair_vs_naive(torch, tmp)
-        hipt = run_hipt_default(torch, _cuda, smi)
-        rows = run_towers_without_kernels(torch, _cuda, smi, tmp)
-    timing = time_bh_kernels(torch, fa, rate, HIPT_BH_PATHS)
-    print(f"phase 21 summary on {smi} (ms, CUDA events; peak GiB; bound "
-          f"ms; idle share): HIPT pair step {pair['ms']:.3f} / "
-          f"{pair['peak']:.2f} / {pair['bound']:.4f} / {pair['idle']:.4f}; "
-          + "; ".join(f"{k} fwd {f:.3f} fwd+bwd {b:.3f} / {m:.2f}"
-                      for k, (f, b, m) in rows.items()))
-    seen = {**pair["seen"], **hipt}
+        seen.update(run_hipt_default(torch, _cuda))
+        run_towers_without_kernels(torch, _cuda, tmp)
+    check_bh_paths(torch, fa, HIPT_BH_PATHS)
     counters = ("flash_fwd_packed", "flash_bwd_packed", "flash_fwd_bh_cls",
                 "flash_bwd_bh_cls", "flash_fwd_bh", "flash_bwd_bh")
-    return ({kern: {path: [d.get(kern, 0) for d in steps]
-                    for path, steps in seen.items()
-                    if any(d.get(kern, 0) for d in steps)}
-             for kern in counters}, timing)
+    return {kern: {path: [d.get(kern, 0) for d in steps]
+                   for path, steps in seen.items()
+                   if any(d.get(kern, 0) for d in steps)}
+            for kern in counters}
 
 
 # ------------------------------------------ phase 22: the multi-rank paths
@@ -4770,17 +4034,11 @@ TOL_TP_WGRAD = 5e-2
 TOL_DP_PROB = 2 ** -8 + 1e-4
 
 
-def check_tp_shards(torch, fa, rate):
+def check_tp_shards(torch, fa):
     """22b / 22d: B1 and B2 at each TP_SHARDS shape, laid out as flash_tp
     lays them out (column views of the rank's fused buffer), against their
-    plain versions at phase 3's limits (B2 twice); then timed: CUDA events
-    over the kernel, its plain version, SDPA at the same [B, H, N, D]
-    (the backward: SDPA forward + backward minus its forward) and the
-    bound -> {"flash_fwd_packed": {name: row}, "flash_bwd_packed": ...}."""
-    import torch.nn.functional as F
-
-    from octcubem_tpu_torch.scripts.time_kernels import bound, fwd_work
-
+    plain versions at phase 3's limits (B2 twice) -> {"flash_fwd_packed":
+    {name: {"max_abs_err": ...}}, "flash_bwd_packed": ...}."""
     gen = torch.Generator(device="cuda").manual_seed(22)
     rows = {"flash_fwd_packed": {}, "flash_bwd_packed": {}}
     for name, b, n, h, d in TP_SHARDS:
@@ -4800,48 +4058,9 @@ def check_tp_shards(torch, fa, rate):
         out = _kernel_args(dqkv, h)
         bwd_err = _check_main_path_shape(torch, fa, f"flash_tp shard {name}",
                                          args, o, lse, do, out, h, scale)
-        m = n - 1 if cls else n
-        keys = m + 1 if cls else m
-        qh, kh, vh = (t.contiguous().requires_grad_() for t in
-                      qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
-        g = torch.randn((b, h, n, d), generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        sdpa_fwd = _elapsed_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, scale=scale), 20)
-        sdpa_all = _elapsed_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
-            (qh, kh, vh), g), 20)
-        fwd = {"max_abs_err": fwd_err,
-               "ms": _elapsed_ms(lambda: fa.fwd_packed_cuda(*args, h, scale),
-                                 20),
-               "plain_ms": _elapsed_ms(lambda: fa.fwd_packed_plain(
-                   *args, h, scale), 3, 1),
-               "library_ms": sdpa_fwd}
-        fwd["bound_ms"], fwd["bound_by"] = bound(*fwd_work(b, h, m, keys, d),
-                                                 rate)
-        es = qkv.element_size()
-        flops = 10 * b * h * m * keys * d
-        nbytes = (8 * b * m * h * d * es + b * h * m * 4
-                  + (4 * b * h * d * es if cls else 0))
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        bwd = {"max_abs_err": bwd_err,
-               "ms": _elapsed_ms(lambda: fa.bwd_packed_cuda(
-                   *args, o, lse, do, None, h, scale, out=out), 20),
-               "plain_ms": _elapsed_ms(lambda: fa.bwd_packed_plain(
-                   *args, o, lse, do, None, h, scale), 3, 1),
-               "library_ms": sdpa_all - sdpa_fwd,
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        for kern, row in (("B1", fwd), ("B2", bwd)):
-            print(f"{kern} flash_tp shard {name} B={b} H={h} N={n} D={d} "
-                  f"bf16: max|d| vs plain {row['max_abs_err']:.3e}; kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
-                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"by {row['bound_by']}")
-        rows["flash_fwd_packed"][name] = fwd
-        rows["flash_bwd_packed"][name] = bwd
-        del qkv, args, o, lse, do, dqkv, out, qh, kh, vh, g
+        rows["flash_fwd_packed"][name] = {"max_abs_err": fwd_err}
+        rows["flash_bwd_packed"][name] = {"max_abs_err": bwd_err}
+        del qkv, args, o, lse, do, dqkv, out
         torch.cuda.empty_cache()
     return rows
 
@@ -5132,7 +4351,7 @@ def _gloo_clis(tmp, world):
 def _gloo_rank(rank, world, tmp):
     """22c's rank: a gloo group with the other rank on cuda:0 (NCCL
     refuses two ranks on one device), then each CLI in process; what it
-    measured goes to tmp/rank{rank}.json."""
+    read goes to tmp/rank{rank}.json."""
     sys.path.insert(0, str(ROOT))
     import torch
     import torch.distributed as dist
@@ -5148,22 +4367,9 @@ def _gloo_rank(rank, world, tmp):
     out = {"backend": dist.get_backend(),
            "device": torch.cuda.current_device()}
     try:
-        reduce_ms = []
-        plain_reduce = multihost.all_reduce_mean
-
-        def timed_reduce(*a, **k):
-            t0 = time.perf_counter()
-            res = plain_reduce(*a, **k)
-            reduce_ms.append((time.perf_counter() - t0) * 1e3)
-            return res
-
-        multihost.all_reduce_mean = timed_reduce
         probe = CliProbe(torch, _cuda)
         for name, mod, argv, _, _ in _gloo_clis(tmp, world):
             os.makedirs(f"{tmp}/two/{name}", exist_ok=True)
-            reduce_ms.clear()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
             if name == "predict":
                 _cuda.reset_launches()
                 rows = mods[mod].main(argv)
@@ -5175,17 +4381,10 @@ def _gloo_rank(rank, world, tmp):
                        else _probe_clip(probe))
                 with ctx:
                     mods[mod].main(argv)
-                steps, _, _ = probe.take()
+                steps = probe.take()
                 out[name] = {
                     "losses": [s["out"][0]["loss"].item() for s in steps],
-                    "launches": [s["launches"] for s in steps],
-                    "host_ms": [(steps[i + 1]["t"] - steps[i]["t"]) * 1e3
-                                for i in range(len(steps) - 1)],
-                    "event_ms": [s["ev"][0].elapsed_time(s["ev"][1])
-                                 for s in steps],
-                    "reduce_ms": list(reduce_ms)}
-            out[name]["wall_s"] = time.perf_counter() - t0
-            out[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+                    "launches": [s["launches"] for s in steps]}
             dist.barrier()
         with open(f"{tmp}/rank{rank}.json", "w") as f:
             json.dump(out, f)
@@ -5193,14 +4392,12 @@ def _gloo_rank(rank, world, tmp):
         multihost.shutdown()
 
 
-def run_gloo_clis(torch, _cuda, smi):
+def run_gloo_clis(torch, _cuda):
     """22c: cli/pretrain.py, cli/retclip.py and cli/predict.py on two gloo
     ranks sharing cuda:0 (spawned, a FileStore, backend="gloo" given
     explicitly), each against the same CLI on one rank (this process) fed
-    the global batch: per step the launches, the first step's loss, the
-    step time with the gloo all-reduce's host time apart (gloo stages
-    through the host: not NCCL's time), each rank's peak; predict's CSV
-    and embeddings.  Returns the launches per step."""
+    the global batch: per step the launches, the first step's loss;
+    predict's CSV and embeddings.  Returns the launches per step."""
     import csv
 
     import numpy as np
@@ -5213,7 +4410,6 @@ def run_gloo_clis(torch, _cuda, smi):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
-    t0 = time.perf_counter()
     procs = [ctx.Process(target=_gloo_rank, args=(r, world, tmp))
              for r in range(world)]
     for p in procs:
@@ -5226,8 +4422,8 @@ def run_gloo_clis(torch, _cuda, smi):
             p.kill()
             p.join()
     codes = [p.exitcode for p in procs]
-    print(f"22c: {world} gloo ranks on cuda:0 ran the CLIs in "
-          f"{time.perf_counter() - t0:.1f} s, exit codes {codes}")
+    print(f"22c: {world} gloo ranks on cuda:0 ran the CLIs, exit codes "
+          f"{codes}")
     if codes != [0] * world:
         raise AssertionError(f"22c: rank exit codes {codes}")
     ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
@@ -5256,7 +4452,7 @@ def run_gloo_clis(torch, _cuda, smi):
                         else _probe_clip(probe))
                 with ctx_:
                     mods[mod].main(argv1)
-                steps, _, _ = probe.take()
+                steps = probe.take()
         finally:
             Loader._indices = plain
         if name == "predict":
@@ -5277,8 +4473,7 @@ def run_gloo_clis(torch, _cuda, smi):
                   f"prob| {dprob:.3e} (tol {TOL_DP_PROB:.2e}), max|d "
                   f"embedding| {demb:.3e}; launches per rank {per_rank} "
                   f"(one rank {one_launches}); rows returned on every rank "
-                  f"{all(r[name]['rows'] == got[1:] for r in ranks)}; wall "
-                  f"{[round(r[name]['wall_s'], 1) for r in ranks]} s")
+                  f"{all(r[name]['rows'] == got[1:] for r in ranks)}")
             if ([r[0] for r in got] != [r[0] for r in want]
                     or len(got) != 6 or dprob > TOL_DP_PROB
                     or any(r[name]["rows"] != got[1:] for r in ranks)
@@ -5306,15 +4501,6 @@ def run_gloo_clis(torch, _cuda, smi):
               f"{[round(v, 6) for v in one['losses']]}, step 1 rel dloss "
               f"{dloss:.3e} (tol {TOL_DP_LOSS:.1e}); launches per step "
               f"{got['launches']} (one rank {one['launches']})")
-        for r, rk in enumerate(ranks):
-            res = rk[name]
-            print(f"22c cli/{name}.py rank {r} on {smi}: host ms per step "
-                  f"(issue to next issue) {[round(v, 1) for v in res['host_ms']]}"
-                  f", CUDA events per step {[round(v, 1) for v in res['event_ms']]}"
-                  f" ms; gloo all-reduce of the gradient (host ms, each call; "
-                  f"through the host, not NCCL's time) "
-                  f"{[round(v, 1) for v in res['reduce_ms']]}; peak "
-                  f"{res['peak_gib']:.2f} GiB; wall {res['wall_s']:.1f} s")
         # under sp each attention call is one B5 and one B7 launch where
         # one rank's is one B1 and one B2
         want = ([{"flash_fwd_bh": c["flash_fwd_packed"],
@@ -5334,15 +4520,15 @@ def run_gloo_clis(torch, _cuda, smi):
     return seen
 
 
-def run_phase22(torch, _cuda, entry_mod, fa, smi, rate):
+def run_phase22(torch, _cuda, entry_mod, fa):
     """Phase 22: the multi-rank paths (a)-(c); the shard shapes' kernel
     rows for (d)."""
     seen = {}
     seen["22a one-rank NCCL flash_tp"] = run_tp_one_rank(torch, _cuda,
                                                          entry_mod)
     seen["22b n_tp=4 rank bodies"] = run_tp_geometry(torch, _cuda, fa)
-    rows = check_tp_shards(torch, fa, rate)
-    seen["22c gloo ranks on cuda:0"] = run_gloo_clis(torch, _cuda, smi)
+    rows = check_tp_shards(torch, fa)
+    seen["22c gloo ranks on cuda:0"] = run_gloo_clis(torch, _cuda)
     print(f"phase 22 launches per step: {json.dumps(seen)}")
     return rows
 
@@ -5355,57 +4541,15 @@ def run_phase22(torch, _cuda, entry_mod, fa, smi, rate):
 TOL_FSDP_LOSS = 1e-4
 
 
-class _Collectives:
-    """Host milliseconds of each call to core/multihost's all_gather (the
-    fsdp gathers), reduce_scatter (their backward) and all_reduce_mean
-    (the whole leaves' reduction), recorded while installed."""
-
-    NAMES = ("all_gather", "reduce_scatter", "all_reduce_mean")
-
-    def __init__(self, multihost):
-        self.multihost, self.ms = multihost, {n: [] for n in self.NAMES}
-        self.saved = {n: getattr(multihost, n) for n in self.NAMES}
-        for n, fn in self.saved.items():
-            setattr(multihost, n, self._timed(fn, self.ms[n]))
-
-    @staticmethod
-    def _timed(fn, into):
-        def call(*a, **k):
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            into.append((time.perf_counter() - t0) * 1e3)
-            return out
-        return call
-
-    def take(self) -> dict:
-        out = {n: [len(v), sum(v)] for n, v in self.ms.items()}
-        for v in self.ms.values():
-            v.clear()
-        return out
-
-    def restore(self):
-        for n, fn in self.saved.items():
-            setattr(self.multihost, n, fn)
-
-
-def _timed_step(torch, _cuda, step, state, *args, **kw):
-    """One step with the launches (counters set to 0 just before it), its
-    CUDA-event and host ms and the peak since the reset."""
+def _step_row(torch, _cuda, step, state, *args, **kw):
+    """One step with its loss, grad norm and launches (counters set to 0
+    just before it)."""
     _cuda.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    ev = (torch.cuda.Event(enable_timing=True),
-          torch.cuda.Event(enable_timing=True))
-    t0 = time.perf_counter()
-    ev[0].record()
     state, m = step(state, *args, **kw)
-    ev[1].record()
     torch.cuda.synchronize()
     return state, m, {
         "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
-        "launches": _nonzero(_cuda.launches),
-        "event_ms": ev[0].elapsed_time(ev[1]),
-        "host_ms": (time.perf_counter() - t0) * 1e3,
-        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        "launches": _nonzero(_cuda.launches)}
 
 
 def _last_mlp(names) -> list:
@@ -5423,10 +4567,9 @@ def run_fsdp_one_rank(torch, _cuda, entry_mod):
     core/fsdp.shard_state (fsdp_param_spec on a data 1 x fsdp 1 mesh),
     against the replicated step from the same state, two steps each (the
     first at LR 0 moves no param).  The replicated step replays its
-    captured CUDA graph from its second call (train/step_graph.py), with
-    the AdamW count on the card; the sharded state, which runs eagerly,
-    is given its count on the card too, so both run one update's
-    arithmetic.  Both losses bit-equal; the last
+    captured CUDA graph from its second call (train/step_graph.py); the
+    sharded state runs eagerly, the same update's arithmetic at the same
+    count on the card.  Both losses bit-equal; the last
     decoder block's MLP weights (sharded leaves whose gradient no B2
     reaches) bit-equal in gradient and after step 2's update; the grad
     norms within B2's run-to-run limit (B2 sums dq in varying order, so
@@ -5450,13 +4593,12 @@ def run_fsdp_one_rank(torch, _cuda, entry_mod):
             step, state, x = entry_mod.train_entry(batch=4)
             if sharded:
                 fsdp.shard_state(state, mesh)
-                state.tx.count_on_device(x.device)
                 step = mae_engine.make_mae_train_step(
                     state.params, state.tx, mesh=mesh)
             rows = []
             for _ in range(2):
-                state, _, row = _timed_step(torch, _cuda, step, state, x,
-                                            mask_ratio=0.9)
+                state, _, row = _step_row(torch, _cuda, step, state, x,
+                                          mask_ratio=0.9)
                 rows.append(row)
             runs[sharded] = (rows, _leaf_grads(state.params),
                              {n: p.detach().clone() for n, p in
@@ -5484,9 +4626,7 @@ def run_fsdp_one_rank(torch, _cuda, entry_mod):
               f"{TOL_RUN_TO_RUN:.1e}); B2's run-to-run spread: step 2's "
               f"worst leaf {leaf} rel {worst:.3e}, max|d param| {dparam:.3e}"
               f" (LR {lr:.3e}); launches per step "
-              f"{[r['launches'] for r in got]}, event ms "
-              f"{[round(r['event_ms'], 1) for r in got]} vs "
-              f"{[round(r['event_ms'], 1) for r in rep]}")
+              f"{[r['launches'] for r in got]}")
         want = {"flash_fwd_packed": 32, "flash_bwd_packed": 32, **ADAMW_STEP}
         if (not losses_equal or not free_equal or dgn > TOL_RUN_TO_RUN
                 or n_sh == 0 or any(n not in g_got for n in free)
@@ -5502,7 +4642,7 @@ def _fsdp_rank(rank, world, tmp):
     x fsdp 2; the vitl_joint_pretrain step (2 volumes and 8 2D images,
     accum_2d 1) three times on a state placed by shard_state, a sharded
     checkpoint at step 1 resumed onto fsdp 2 for steps 2-3, then the
-    octcube_ir CLIP step at 4 pairs; what it measured goes to
+    octcube_ir CLIP step at 4 pairs; what it read goes to
     tmp/fsdp{rank}.json, its chunks of ``_last_mlp`` after step 2 (the
     first update at a non-zero LR) to tmp/mlp{rank}_{run,resumed}.pt."""
     sys.path.insert(0, str(ROOT))
@@ -5518,7 +4658,6 @@ def _fsdp_rank(rank, world, tmp):
     multihost.initialize(store=dist.FileStore(f"{tmp}/store", world),
                          world_size=world, rank=rank, local_rank=0,
                          backend="gloo", device="cuda", timeout_s=300)
-    coll = _Collectives(multihost)
     out = {"backend": dist.get_backend()}
     try:
         mesh = make_mesh(1, world, device="cuda")
@@ -5528,9 +4667,6 @@ def _fsdp_rank(rank, world, tmp):
                                                    batch2d=8)
             x2 = step.keywords["batch2d"]
             fsdp.shard_state(state, mesh)
-            # one rank replays its graph with the count on the card; the
-            # same update arithmetic here (a restore keeps it there)
-            state.tx.count_on_device(x.device)
             step = mae_engine.make_mae_train_step(state.params, state.tx,
                                                   joint=True, mesh=mesh)
             return step, state, x, x2
@@ -5549,21 +4685,16 @@ def _fsdp_rank(rank, world, tmp):
         out["sharded_elems"] = shards.n * sum(p.numel()
                                               for p, _, _ in shards._params)
         out["local_elems"] = sum(p.numel() for p in state.params.parameters())
-        coll.take()
         rows = []
         for i in range(3):
-            state, _, row = _timed_step(torch, _cuda, step, state, x, 0.9,
-                                        batch2d=x2, mask_ratio_2d=0.75)
-            row["collectives"] = coll.take()
+            state, _, row = _step_row(torch, _cuda, step, state, x, 0.9,
+                                      batch2d=x2, mask_ratio_2d=0.75)
             rows.append(row)
             if i == 1:
                 save_mlp("run")
             if i == 0:  # every rank gathers, rank 0 writes; then wait
-                t0 = time.perf_counter()
                 checkpoint.save_checkpoint(f"{tmp}/ckpt", 1, state)
                 multihost.barrier()
-                out["save_s"] = time.perf_counter() - t0
-                out["save_collectives"] = coll.take()
         out["joint"] = rows
         del step, state
         torch.cuda.empty_cache()
@@ -5572,8 +4703,8 @@ def _fsdp_rank(rank, world, tmp):
         out["restored_step"] = state.step
         out["resumed"] = []
         for i in range(2):
-            state, _, row = _timed_step(torch, _cuda, step, state, x, 0.9,
-                                        batch2d=x2, mask_ratio_2d=0.75)
+            state, _, row = _step_row(torch, _cuda, step, state, x, 0.9,
+                                      batch2d=x2, mask_ratio_2d=0.75)
             out["resumed"].append(row)
             if i == 0:
                 save_mlp("resumed")
@@ -5586,21 +4717,18 @@ def _fsdp_rank(rank, world, tmp):
         cstep = clip_engine.make_clip_train_step(model, tx, mesh=mesh)
         gen = torch.Generator(device="cuda").manual_seed(23)
         batch = {k: v[0] for k, v in _coem_batch(torch, gen, 1, 4).items()}
-        coll.take()
         rows = []
         for _ in range(2):
-            cstate, _, row = _timed_step(torch, _cuda, cstep, cstate, batch)
-            row["collectives"] = coll.take()
+            cstate, _, row = _step_row(torch, _cuda, cstep, cstate, batch)
             rows.append(row)
         out["clip"] = rows
         with open(f"{tmp}/fsdp{rank}.json", "w") as f:
             json.dump(out, f)
     finally:
-        coll.restore()
         multihost.shutdown()
 
 
-def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
+def run_fsdp_gloo(torch, _cuda, entry_mod):
     """23b: two gloo ranks sharing cuda:0 on a data 1 x fsdp 2 mesh
     (``_fsdp_rank``), each against one rank (this process) on the same
     batch: the joint step's and the CLIP step's losses within
@@ -5614,9 +4742,7 @@ def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
     bit-equal to its block of one rank's whole weight, uninterrupted and
     resumed (AdamW on the chunk, the moments restored and the block the
     reduce-scatter keeps), and step 3's losses are within TOL_FSDP_LOSS
-    of one rank's uninterrupted one.  Prints each rank's step time in CUDA
-    events with the gathers', reduce-scatters' and all-reduces' host ms
-    apart, and its peak."""
+    of one rank's uninterrupted one."""
     import torch.multiprocessing as mp
 
     from octcubem_tpu_torch.core import checkpoint
@@ -5626,7 +4752,6 @@ def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
     torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
-    t0 = time.perf_counter()
     procs = [ctx.Process(target=_fsdp_rank, args=(r, world, tmp))
              for r in range(world)]
     for p in procs:
@@ -5639,8 +4764,8 @@ def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
             p.kill()
             p.join()
     codes = [p.exitcode for p in procs]
-    print(f"23b: {world} gloo ranks on cuda:0 (data 1 x fsdp {world}) in "
-          f"{time.perf_counter() - t0:.1f} s, exit codes {codes}")
+    print(f"23b: {world} gloo ranks on cuda:0 (data 1 x fsdp {world}), exit "
+          f"codes {codes}")
     if codes != [0] * world:
         raise AssertionError(f"23b: rank exit codes {codes}")
     ranks = [json.loads(Path(f"{tmp}/fsdp{r}.json").read_text())
@@ -5662,8 +4787,8 @@ def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
             checkpoint.restore_checkpoint(f"{tmp}/ckpt", state)
         rows = []
         for i in range(n_steps):
-            state, _, row = _timed_step(torch, _cuda, step, state, x,
-                                        mask_ratio=0.9)
+            state, _, row = _step_row(torch, _cuda, step, state, x,
+                                      mask_ratio=0.9)
             rows.append(row)
             if i == n_steps - 2:
                 runs[tag] = (rows, whole_mlp())
@@ -5677,7 +4802,7 @@ def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
     batch = {k: v[0] for k, v in _coem_batch(torch, gen, 1, 4).items()}
     one_clip = []
     for _ in range(2):
-        cstate, _, row = _timed_step(torch, _cuda, cstep, cstate, batch)
+        cstate, _, row = _step_row(torch, _cuda, cstep, cstate, batch)
         one_clip.append(row)
     del model, tx, cstate, cstep, batch
     torch.cuda.empty_cache()
@@ -5715,19 +4840,6 @@ def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
               f"(tol {TOL_FSDP_LOSS:.0e}); launches per step "
               f"{[s['launches'] for s in got[0]]} (one rank "
               f"{one_row['launches']})")
-        for r, g in enumerate(got):
-            print(f"23b {name} rank {r} on {smi}: CUDA events per step "
-                  f"{[round(s['event_ms'], 1) for s in g]} ms, host "
-                  f"{[round(s['host_ms'], 1) for s in g]} ms; host ms (calls)"
-                  f" of the gathers "
-                  f"{[(round(s['collectives']['all_gather'][1], 1), s['collectives']['all_gather'][0]) for s in g]}"
-                  f", reduce-scatters "
-                  f"{[(round(s['collectives']['reduce_scatter'][1], 1), s['collectives']['reduce_scatter'][0]) for s in g]}"
-                  f", whole-leaf all-reduces "
-                  f"{[(round(s['collectives']['all_reduce_mean'][1], 1), s['collectives']['all_reduce_mean'][0]) for s in g]}"
-                  f" (gloo through the host, not NCCL's time); peak "
-                  f"{[round(s['peak_gib'], 2) for s in g]} GiB (one rank "
-                  f"{one_row['peak_gib']:.2f}; 22c's CLI {12.87} GiB)")
         if (dloss > TOL_FSDP_LOSS
                 or any(s["launches"] != one_row["launches"]
                        for g in got for s in g)
@@ -5745,11 +4857,7 @@ def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
              + [one_resumed[1]["loss"]])
     d3 = max(abs(v - one_rows[2]["loss"]) / abs(one_rows[2]["loss"])
              for v in step3)
-    print(f"23b checkpoint: saved by both ranks at step 1 in "
-          f"{[round(r['save_s'], 1) for r in ranks]} s (gathers: host ms, "
-          f"calls {[r['save_collectives']['all_gather'][::-1] for r in ranks]}"
-          f"); one rank's resumed step: peak {one_resumed[0]['peak_gib']:.2f}"
-          f" GiB, {one_resumed[0]['event_ms']:.1f} ms (restored step "
+    print(f"23b checkpoint: saved by both ranks at step 1 (restored step "
           f"{[r['restored_step'] for r in ranks]}); step 2 losses (fsdp "
           f"uninterrupted, resumed onto fsdp 2, one rank uninterrupted, "
           f"resumed onto one rank) {step2}; step 3 losses {step3} vs one "
@@ -5774,16 +4882,14 @@ def run_fsdp_gloo(torch, _cuda, entry_mod, smi):
     return seen
 
 
-def run_phase23(torch, _cuda, entry_mod, smi):
+def run_phase23(torch, _cuda, entry_mod):
     """Phase 23: states sharded over fsdp (a)-(b), then
     entry.dryrun_multichip(4) on four gloo ranks sharing the card (c)."""
     seen = {"23a": run_fsdp_one_rank(torch, _cuda, entry_mod)}
-    seen["23b"] = run_fsdp_gloo(torch, _cuda, entry_mod, smi)
+    seen["23b"] = run_fsdp_gloo(torch, _cuda, entry_mod)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     lines = entry_mod.dryrun_multichip(4)
-    print(f"23c: dryrun_multichip(4) on {smi}: {len(lines)} lines in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"23c: dryrun_multichip(4): {len(lines)} lines")
     # NCCL takes one card a rank; with fewer than four the ranks share
     want = ("4 cards, one a rank, backend nccl"
             if torch.cuda.device_count() >= 4 else "gloo ranks sharing")
@@ -5842,14 +4948,12 @@ def _adamw_diff(torch, what, got, ref, tol, atol=0.0):
 
 def _adamw_twins(torch, optim, named, **kw):
     """The kernel's AdamW over ``named`` and the plain body's over copies
-    of them, both counting on the card."""
+    of them."""
     kern = optim.build_adamw(named, **kw)
     plain = optim.build_adamw(
         {k: torch.nn.Parameter(p.detach().clone()) for k, p in named.items()},
         **kw)
     plain._kernel_update = plain._foreach_update
-    for tx in (kern, plain):
-        tx.count_on_device("cuda")
     return kern, plain
 
 
@@ -5904,21 +5008,19 @@ def _adamw_compare(torch, _cuda, kern, plain, gen, scales, oks, what,
                  "max_rel_gap": r[2]} for op, r in rows.items()}
 
 
-def _kernel_device_ms(torch, fn, reps):
-    """fn run ``reps`` times under the profiler -> ({kernel name: device
-    ms a call}, the device ms of every kernel a call)."""
+def _update_kernels(torch, fn, reps):
+    """The names of the device kernels that ``reps`` calls of ``fn`` ran,
+    under torch.profiler with CUDA activity only."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ms = {e.key: e.device_time_total / 1e3 / reps
-          for e in prof.key_averages() if e.device_time_total > 0}
-    return ms, sum(ms.values())
+    return {e.key for e in prof.key_averages() if e.device_time_total > 0}
 
 
-def run_phase24(torch, _cuda, entry_mod, optim, schedules, smi):
+def run_phase24(torch, _cuda, entry_mod, optim, schedules):
     """Phase 24: AdamW's kernel at the ViT-L MAE's params (24a-24d above)
     -> the kernels line's entry."""
     step, state, x = entry_mod.train_entry()
@@ -5928,44 +5030,22 @@ def run_phase24(torch, _cuda, entry_mod, optim, schedules, smi):
     n = sum(p.numel() for p in named.values())
     gen = torch.Generator(device="cuda").manual_seed(24)
 
-    # 24a: the MAE's set as its cell runs it: a device count, no clip
+    # 24a: the MAE's set as its cell runs it: no clip
     kern, plain = _adamw_twins(torch, optim, named, learning_rate=1e-3,
                                weight_decay=0.05)
     mae = _adamw_compare(torch, _cuda, kern, plain, gen, (1e-2, 1e-4, 1e-2),
                          (None,) * 3, f"MAE set ({len(named)} tensors, "
                          f"{n} params)")
 
-    # 24d: times at that set, the kernel's profile holding no other pass
-    host = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        kern.step()
-        host.append((time.perf_counter() - t0) * 1e3)
-    ev_ms = _elapsed_ms(kern.step, 20, 2)
-    per_kernel, dev_ms = _kernel_device_ms(torch, kern.step, 5)
-    k_ms = sum(v for k, v in per_kernel.items() if "adamw_kernel" in k)
-    if not k_ms or any("multi_tensor_apply" in k for k in per_kernel):
-        raise AssertionError(f"24: the kernel's update profile {per_kernel}")
-    plain_ms = _elapsed_ms(plain.step, 10, 1)
-    plain_kernels, plain_dev = _kernel_device_ms(torch, plain.step, 2)
-    lib = torch.optim.AdamW(plain.params, lr=1e-3, betas=(0.9, 0.95),
-                            weight_decay=0.05, eps=1e-8, fused=True)
-    lib_ms = _elapsed_ms(lib.step, 10, 1)
-    del lib
-    bytes_ = 28 * n
-    bound = bytes_ / PEAK_BYTES * 1e3
-    print(f"24d AdamW at the MAE set on {smi}: kernel {k_ms:.4f} ms device "
-          f"(profiler, a step's adamw_kernel launches; "
-          f"{bytes_ / k_ms / 1e6:.1f} GB/s, {bound / k_ms:.1%} of the "
-          f"bound), {dev_ms:.4f} ms every kernel of the update "
-          f"({ {k: round(v, 4) for k, v in per_kernel.items()} }), "
-          f"{ev_ms:.4f} ms a step (CUDA events over 20), host "
-          f"{sorted(host)[len(host) // 2]:.3f} ms a call (median of 10); "
-          f"bound {bound:.4f} ms (28 B x {n} params at "
-          f"{PEAK_BYTES:.3e} B/s); plain body {plain_ms:.4f} ms a step "
-          f"(events), {plain_dev:.4f} ms device over "
-          f"{len(plain_kernels)} kernel kinds; torch.optim.AdamW(fused=True) "
-          f"{lib_ms:.4f} ms (events, library yardstick)")
+    # 24d: the updates' profile holds the kernel and no other pass.  Late
+    # in this process, profiles of a few updates have lost every device
+    # kernel while those of whole train steps kept theirs (measured on an
+    # H100), so the profile spans 100 updates.
+    names = _update_kernels(torch, kern.step, 100)
+    print(f"24d AdamW at the MAE set: the updates' kernels {sorted(names)}")
+    if (not any("adamw_kernel" in k for k in names)
+            or any("multi_tensor_apply" in k for k in names)):
+        raise AssertionError(f"24: the kernel's update profile {names}")
     del plain
     torch.cuda.empty_cache()
 
@@ -5973,10 +5053,11 @@ def run_phase24(torch, _cuda, entry_mod, optim, schedules, smi):
     cap = optim.build_adamw(
         {k: torch.nn.Parameter(p.detach().clone()) for k, p in named.items()},
         learning_rate=1e-3, weight_decay=0.05)
-    cap.count_on_device("cuda")
     cap.load_state_dict(kern.state_dict())
     for p, q in zip(cap.params, kern.params):
         p.grad = q.grad
+    kern.step()
+    cap.step()  # the warm-up: the LR table is built outside the capture
     graph = torch.cuda.CUDAGraph()
     _cuda.reset_launches()
     with torch.cuda.graph(graph):
@@ -6004,11 +5085,6 @@ def run_phase24(torch, _cuda, entry_mod, optim, schedules, smi):
     ft = _adamw_compare(torch, _cuda, kern, plain, gen, (1e-2, 1.0, 1e-2, 1e-2),
                         (True, False, True, True), "fine-tune set (layer "
                         "decay 0.65, clip 1.0, bf16 mu)", bf16=True)
-    on = torch.tensor(True, device="cuda")
-    ft_ms = _elapsed_ms(lambda: kern.step(ok=on), 10, 1)
-    print(f"24b fine-tune form on {smi}: {ft_ms:.4f} ms an update with the "
-          f"clip's norm (CUDA events over 10; bf16 mu: 24 B a param, bound "
-          f"{24 * n / PEAK_BYTES * 1e3:.4f} ms without the norm)")
     del kern, plain
     for p in named.values():
         p.grad = None
@@ -6016,11 +5092,8 @@ def run_phase24(torch, _cuda, entry_mod, optim, schedules, smi):
     return {"name": "adamw", "route": "cuda",
             "source": "octcubem_tpu_torch/csrc/adamw.cu",
             "replaces": "none (XLA fuses optax's AdamW on the TPU)",
-            "launches": 1, "params": n, "kernel_ms": k_ms,
-            "update_device_ms": dev_ms, "events_ms": ev_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": "bytes", "vs_plain": {"mae": mae, "fine_tune": ft},
-            "fine_tune_ms": ft_ms}
+            "launches": 1, "params": n,
+            "vs_plain": {"mae": mae, "fine_tune": ft}}
 
 
 def main() -> int:
@@ -6042,7 +5115,6 @@ def main() -> int:
     from octcubem_tpu_torch.ops.attention import naive_attention
     from octcubem_tpu_torch.parallel import sequence as sp
     from octcubem_tpu_torch.scripts import kablate
-    from octcubem_tpu_torch.scripts.time_kernels import exp_rate
     from octcubem_tpu_torch.train import optim, schedules
 
     # full-fp32 matmuls and convolutions for the fp32 comparisons
@@ -6051,24 +5123,14 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    smi = subprocess.run(
+    print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    print(smi)
-    rate = exp_rate(torch)
-    print(f"exp rate {rate:.4e} per second (16 per clock per SM, "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
-          f"the max SM clock)")
+        check=True, capture_output=True, text=True).stdout.strip())
 
-    t0 = time.time()
     _cuda.build()
-    print(f"kernels built in {time.time() - t0:.1f} s")
-    clock = [time.time()]
 
     def phase_done(name):
-        now = time.time()
-        print(f"[phase] {name}: {now - clock[0]:.1f} s")
-        clock[0] = now
+        print(f"[phase] {name}", flush=True)
 
     # per kernel: its name, registers, spills, and any wgmma serialised
     for name in _cuda.KERNELS:
@@ -6086,18 +5148,13 @@ def main() -> int:
     phase_done("3: B1-B5, B7 against their plain versions")
 
     # serving: ViT-L (B1), the server, then ViT-H/14 (B3)
-    fn, model, x, launches = run_main_path(torch, _cuda, entry_mod)
+    launches = run_main_path(torch, _cuda, entry_mod)
     run_serve(torch, _cuda, serve)
-    timing = time_flash_fwd(torch, fa, rate)
-    time_forward(torch, fn, model, x, "ViT-L 48x256x256")
-    del fn, model, x
     phase_done("4-5: ViT-L serving and the server")
     vith = dict(ctor=entry_mod.vit_st.vit_huge_patch14, img_size=224)
-    fn, model, x, b3_launches = run_main_path(
+    b3_launches = run_main_path(
         torch, _cuda, entry_mod, name="ViT-H/14 48x224x224",
         counter="flash_fwd_bh_cls", **vith)
-    time_forward(torch, fn, model, x, "ViT-H/14 48x224x224")
-    del fn, model, x
     torch.cuda.empty_cache()
     b4_launches = run_vith_backward(torch, _cuda, entry_mod)
     phase_done("6: ViT-H/14 classifier")
@@ -6105,21 +5162,20 @@ def main() -> int:
     # training: ViT-L/16 (B1 + B2), then ViT-H/14 (B5 + B7, B1 + B2)
     launches_bwd = run_train(
         torch, _cuda, entry_mod, optim, "ViT-L/16 60x256x256", (16, 4),
-        {"flash_fwd_packed": 32, "flash_bwd_packed": 32, **ADAMW_STEP}, {})[
+        {"flash_fwd_packed": 32, "flash_bwd_packed": 32, **ADAMW_STEP})[
             "flash_bwd_packed"]
     check_flash_vs_naive(torch, entry_mod, "ViT-L/16")
     mae_h = dict(ctor=entry_mod.mae3d.mae_vit_huge_patch14, input_size=224)
     b57 = run_train(
         torch, _cuda, entry_mod, optim, "ViT-H/14 60x224x224", (16,),
         {"flash_fwd_bh": 32, "flash_bwd_bh": 32, "flash_fwd_packed": 8,
-         "flash_bwd_packed": 8, **ADAMW_STEP},
-        dict(d=1280, layers=32, img=224, patch=14), **mae_h)
+         "flash_bwd_packed": 8, **ADAMW_STEP}, **mae_h)
     check_flash_vs_naive(torch, entry_mod, "ViT-H/14", **mae_h)
     phase_done("7-8: MAE steps and flash vs naive")
 
-    timing_bwd = time_flash_bwd(torch, fa, rate)
-    timing_bh = time_bh_kernels(torch, fa, rate)
-    phase_done("9: B1-B5, B7 timings")
+    bwd_err = check_main_path_bwd(torch, fa)
+    check_bh_paths(torch, fa)
+    phase_done("9: B2, B4, B7 at the main paths' shapes")
 
     # the exact softmax (B6) and the sequence-parallel layer
     b6_err = check_b6(torch, fa, naive_attention)
@@ -6129,30 +5185,28 @@ def main() -> int:
     run_sp_shards(torch, _cuda, fa)
     phase_done("12: the 4-shard geometry")
     b8_err = check_b8(torch, kablate)
-    timing_b8 = time_b8(torch, _cuda, kablate, rate)
+    b8_launches = run_kablate(torch, _cuda, kablate)
     phase_done("13: B8 and the ablation harness")
-    timing_b6 = time_b6(torch, fa, rate)
-    phase_done("14: B6 timings")
-    run_phase15(torch, _cuda, entry_mod, optim, smi)
+    run_phase15(torch, _cuda, entry_mod, optim)
     phase_done("15: the joint step, remat_2d, pre-mask, resume, export")
     run_phase16(torch, _cuda, entry_mod, serve, infer)
     phase_done("16: int8, AOT, Grad-CAM, DICOM")
-    run_mae2d(torch, _cuda, optim, schedules, smi)
+    run_mae2d(torch, _cuda, optim, schedules)
     check_mae2d_vs_naive(torch)
     phase_done("17: the 2D MAE")
-    run_phase18(torch, _cuda, entry_mod, smi)
+    run_phase18(torch, _cuda)
     phase_done("18: cli/pretrain.py")
-    ft_launches = run_phase19(torch, _cuda, smi)
+    ft_launches = run_phase19(torch, _cuda)
     phase_done("19: the fine-tuning family")
-    coem_launches_seen = run_phase20(torch, _cuda, smi)
+    coem_launches_seen = run_phase20(torch, _cuda)
     phase_done("20: the COEM contrastive path")
-    aux_seen, timing_d16 = run_phase21(torch, _cuda, fa, smi, rate)
+    aux_seen = run_phase21(torch, _cuda, fa)
     phase_done("21: the auxiliary COEM towers")
-    tp_rows = run_phase22(torch, _cuda, entry_mod, fa, smi, rate)
+    tp_rows = run_phase22(torch, _cuda, entry_mod, fa)
     phase_done("22: the multi-rank paths")
-    run_phase23(torch, _cuda, entry_mod, smi)
+    run_phase23(torch, _cuda, entry_mod)
     phase_done("23: fsdp-sharded states, dryrun_multichip(4)")
-    adamw = run_phase24(torch, _cuda, entry_mod, optim, schedules, smi)
+    adamw = run_phase24(torch, _cuda, entry_mod, optim, schedules)
     phase_done("24: AdamW's kernel")
     per_step = {kern: {**ft_launches[kern], **coem_launches_seen[kern],
                        **aux_seen[kern]}
@@ -6164,14 +5218,13 @@ def main() -> int:
         "replaces": "octcubem_tpu/ops/flash_attention.py:859",
         "launches": launches,
         "launches_per_step_on": per_step["flash_fwd_packed"],
-        "max_abs_err": err, **timing,
-        "at_tp_shards": tp_rows["flash_fwd_packed"]}, {
+        "max_abs_err": err, "at_tp_shards": tp_rows["flash_fwd_packed"]}, {
         "name": "flash_bwd_packed", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_bwd_packed.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:961",
         "launches": launches_bwd,
         "launches_per_step_on": per_step["flash_bwd_packed"],
-        **timing_bwd, "at_tp_shards": tp_rows["flash_bwd_packed"]}]
+        "max_abs_err": bwd_err, "at_tp_shards": tp_rows["flash_bwd_packed"]}]
     # (counter, TPU kernel's line, source, launches on its path)
     for kern, counter, line, src, n in (
             ("B3", "flash_fwd_bh_cls", 128, "flash_fwd_bh.cu", b3_launches),
@@ -6184,30 +5237,23 @@ def main() -> int:
             "source": f"octcubem_tpu_torch/csrc/{src}",
             "replaces": f"octcubem_tpu/ops/flash_attention.py:{line}",
             "launches": n, "launches_per_step_on": aux_seen[counter],
-            "max_abs_err": bh_errs[kern], **timing_bh[kern],
-            "at_head_dim_16": {"max_abs_err": bh_errs[f"{kern} D=16"],
-                               **timing_d16[kern]}})
+            "max_abs_err": bh_errs[kern],
+            "at_head_dim_16": {"max_abs_err": bh_errs[f"{kern} D=16"]}})
     kernels.append({
         "name": "flash_fwd_bh_exact", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_fwd_bh.cu",
         "replaces": "octcubem_tpu/ops/flash_attention.py:170",
-        "launches": sp_launches["flash_fwd_bh_exact"], "max_abs_err": b6_err,
-        **timing_b6})
+        "launches": sp_launches["flash_fwd_bh_exact"], "max_abs_err": b6_err})
     kernels.append({
         "name": "flash_ablate", "route": "cuda",
         "source": "octcubem_tpu_torch/csrc/flash_ablate.cu",
-        "replaces": "scripts/kablate.py:33", "max_abs_err": b8_err,
-        **timing_b8})
+        "replaces": "scripts/kablate.py:33", "launches": b8_launches,
+        "max_abs_err": b8_err})
     kernels.append(adamw)
     for k in kernels:
         for key, val in k.items():
             if isinstance(val, float) and not math.isfinite(val):
                 raise AssertionError(f"{k['name']}: {key} is {val}")
-        # the SFU's exps are operations too: the line names two kinds
-        for row in (k, k.get("at_head_dim_16", {}),
-                    *k.get("at_tp_shards", {}).values()):
-            if row.get("bound_by") == "exp":
-                row["bound_by"] = "operations"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

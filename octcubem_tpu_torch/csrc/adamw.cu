@@ -32,11 +32,10 @@
 // them per operand in flight a thread, every load issued before any
 // arithmetic; a tensor's last chunk, or a tensor that an operand leaves
 // off that alignment (a view into a flat buffer), goes element by
-// element.  g takes the read-only path.  The LR and bias corrections are
-// passed by value (a host count) or read from device pointers (a count
-// kept on the card, which a graph replay advances there); the clip factor
-// and the gate ok are always device pointers.  Where ok is false every
-// block returns before it writes.
+// element.  g takes the read-only path.  The LR, the bias corrections, the
+// clip factor and the gate ok are read from device pointers (the count
+// lives on the card, and a graph replay advances it there).  Where ok is
+// false every block returns before it writes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,16 +56,15 @@ struct Group {
   long long n[kMaxTensors];
   int end[kMaxTensors];         // chunks of tensors 0..i, cumulative
   float scale[kMaxTensors];     // s, the layer scale
-  float decay[kMaxTensors];     // host count: 1 - lr wd s; device: wd s
+  float decay[kMaxTensors];     // wd s (0 where no decay applies)
   int count;
 };
 
 struct Scalars {
   float b1, omb1, b2, omb2, eps;
-  float neg_step, c2;           // host count: -lr / c1 and c2
-  const float* lr;              // device count: lr, c1, c2 (null: host)
+  const float* lr;
   const float* c1;
-  const float* c2p;
+  const float* c2;
   const float* clip;            // null: no clip
   const bool* ok;               // null: not gated
 };
@@ -155,15 +153,9 @@ adamw_kernel(const __grid_constant__ Group grp,
   k.b2 = sc.b2;
   k.omb2 = sc.omb2;
   k.eps = sc.eps;
-  float lr = 0.f;
-  if (sc.lr != nullptr) {
-    lr = *sc.lr;
-    k.a = __fdiv_rn(-lr, *sc.c1);
-    k.c2 = *sc.c2p;
-  } else {
-    k.a = sc.neg_step;
-    k.c2 = sc.c2;
-  }
+  const float lr = *sc.lr;
+  k.a = __fdiv_rn(-lr, *sc.c1);
+  k.c2 = *sc.c2;
   k.clip = sc.clip != nullptr ? *sc.clip : 1.f;
 
   const int total = grp.end[grp.count - 1];
@@ -186,8 +178,7 @@ adamw_kernel(const __grid_constant__ Group grp,
       nu = grp.nu[t];
       n = grp.n[t];
       k.s = grp.scale[t];
-      k.f = sc.lr != nullptr ? __fsub_rn(1.f, __fmul_rn(lr, grp.decay[t]))
-                             : grp.decay[t];
+      k.f = __fsub_rn(1.f, __fmul_rn(lr, grp.decay[t]));
       const uintptr_t a16 = reinterpret_cast<uintptr_t>(p) |
                             reinterpret_cast<uintptr_t>(g) |
                             reinterpret_cast<uintptr_t>(nu);
@@ -251,9 +242,8 @@ int grid_cap() {
 // order train/optim.py's adamw_launches groups them.  Host arrays, read
 // before this returns: ptrs (p, g, mu, nu a tensor; g 0 for a zero
 // gradient), sizes (elements), ends (cumulative chunks of kChunk), scale
-// and decay (see Group); hyper = b1, 1 - b1, b2, 1 - b2, eps, -lr / c1,
-// c2 (the last two read only without lr).  Device pointers or null: lr,
-// c1, c2 (fp32, a count kept on the card), clip (fp32), ok (bool).
+// and decay (see Group); hyper = b1, 1 - b1, b2, 1 - b2, eps.  Device
+// pointers: lr, c1, c2 (fp32); clip (fp32) and ok (bool), or null.
 extern "C" int octcube_adamw(const long long* ptrs, const long long* sizes,
                              const int* ends, const float* scale,
                              const float* decay, int count, int mu_bf16,
@@ -261,7 +251,7 @@ extern "C" int octcube_adamw(const long long* ptrs, const long long* sizes,
                              const void* c1, const void* c2,
                              const void* clip, const void* ok, void* stream) {
   if (count < 1 || count > kMaxTensors) return cudaErrorInvalidValue;
-  if ((lr == nullptr) != (c1 == nullptr) || (lr == nullptr) != (c2 == nullptr))
+  if (lr == nullptr || c1 == nullptr || c2 == nullptr)
     return cudaErrorInvalidValue;
   Group grp;
   int prev = 0;
@@ -285,11 +275,9 @@ extern "C" int octcube_adamw(const long long* ptrs, const long long* sizes,
   sc.b2 = hyper[2];
   sc.omb2 = hyper[3];
   sc.eps = hyper[4];
-  sc.neg_step = hyper[5];
-  sc.c2 = hyper[6];
   sc.lr = static_cast<const float*>(lr);
   sc.c1 = static_cast<const float*>(c1);
-  sc.c2p = static_cast<const float*>(c2);
+  sc.c2 = static_cast<const float*>(c2);
   sc.clip = static_cast<const float*>(clip);
   sc.ok = static_cast<const bool*>(ok);
   const int cap = mu_bf16 ? grid_cap<__nv_bfloat16>() : grid_cap<float>();

@@ -113,17 +113,15 @@ def _grad(loss, params):
 
 def make_mae_train_step(model, tx, joint: bool = False,
                         use_premask: bool = False, accum_iter: int = 1,
-                        compute_grad_norm: bool = True, model2d=None,
-                        accum_2d: int = 1, mesh=None):
+                        model2d=None, accum_2d: int = 1, mesh=None):
     """-> step(state, batch3d, mask_ratio=0.9, batch2d=None,
     mask_ratio_2d=0.75, pre_mask=None, noise=None) -> (state, metrics).
 
     Metrics: loss, loss_3d, loss_2d (0 unless joint), frame_losses [B, t]
-    and grad_norm (the global norm of the applied gradient, or 0 when
-    ``compute_grad_norm`` is False); 0-d tensors on the model's device,
-    read without a host sync.  ``mesh``: the data-parallel mesh (module
-    docstring); None runs on this rank alone.  ``step.graphs`` is the
-    step's ``step_graph.StepGraphs``."""
+    and grad_norm (the global norm of the applied gradient); 0-d tensors
+    on the model's device, read without a host sync.  ``mesh``: the
+    data-parallel mesh (module docstring); None runs on this rank alone.
+    ``step.graphs`` is the step's ``step_graph.StepGraphs``."""
     if accum_iter < 1 or accum_2d < 1:
         raise ValueError("accum_iter and accum_2d must be >= 1")
     if accum_iter > 1 and accum_2d != 1:
@@ -141,7 +139,7 @@ def make_mae_train_step(model, tx, joint: bool = False,
     m2d = model2d if model2d is not None else model
     d_idx, n_d = axis_coord(mesh, DATA_AXIS)
     reduce = check_mesh(mesh)
-    graphs = step_graph.StepGraphs(params, tx)
+    graphs = step_graph.StepGraphs(params)
     capturable = step_graph.capturable(model, m2d)
 
     def step(state: TrainState, batch3d, mask_ratio: float = 0.9,
@@ -214,8 +212,7 @@ def make_mae_train_step(model, tx, joint: bool = False,
                         [torch.stack([l3, l2])])[0].unbind(0)
             for p, g in zip(params, grads):
                 p.grad = g
-            gn = (grad_norm(params, grads, state.shards) if compute_grad_norm
-                  else torch.zeros((), device=batch3d.device))
+            gn = grad_norm(params, grads, state.shards)
             tx.step()
             state.step += 1
         metrics = {"loss": l3 + l2, "loss_3d": l3, "loss_2d": l2,

@@ -37,14 +37,14 @@ elementwise; the clip's norm is the global gradient's (``global_norm``).
 only where the 0-d bool ``ok`` holds, so a non-finite loss leaves the
 params, both moments and the count as they were, and the host reads
 nothing (the kernel writes nothing where ``ok`` is false; the plain
-version computes out of place and selects).  On that path the count is
-a 0-d tensor on the params' device and the LR is read at it from a
-table of the schedule over its ``total_steps`` (the last entry past the
-end).  Without ``ok`` the count is an ``int``, with the LR and bias
-corrections as host floats, or a 0-d tensor (``count_on_device``: the
-form a step captured into a CUDA graph replays, ``train/step_graph.py``)
-with them read on the card and the count advanced in its own tensor.
-Every path runs the one body of its device.
+version computes out of place and selects).
+
+The count is one 0-d int64 tensor on the params' device for the
+optimizer's life, advanced in place, so a step captured into a CUDA
+graph (``train/step_graph.py``) replays at the live count.  Every update
+reads its LR and bias corrections at that count on the device, from one
+table of the schedule over its ``total_steps`` and of the corrections,
+so the host reads nothing.
 
 LiT locking (the COEM towers): ``lit_lock_scales`` gives each param 1.0
 or 0.0 by the reference lock() groups; ``make_partition`` freezes the
@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import itertools
+import math
 import re
 from typing import Callable, Mapping
 
@@ -247,10 +248,10 @@ class AdamW:
         self.scales = (None if scales is None
                        else [float(scales[n]) for n in self.names])
         self.mu_dtype = mu_dtype
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int64, device=(
+            self.params[0].device if self.params else None))
         self.shards = None  # the fsdp layout of a sharded state (core/fsdp)
-        self._lr_table = None
-        self._count = None  # the device count ``count_on_device`` keeps
+        self._table = None  # ``_scalars``', built at the first step
         self._plan = None  # the kernel's launches (``_kernel_plan``)
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -264,8 +265,8 @@ class AdamW:
     @torch.no_grad()
     def load_state_dict(self, state: Mapping) -> None:
         """Copy a ``state_dict()`` into this optimizer's tensors in place;
-        names, shapes and dtypes must match.  A count held on the device
-        stays there, written in place."""
+        names, shapes and dtypes must match.  The count, an ``int`` or a
+        tensor, is written into the live count tensor."""
         for key in ("mu", "nu"):
             got = state[key]
             if set(got) != set(self.names):
@@ -277,10 +278,7 @@ class AdamW:
                         f"{key}[{name}]: {tuple(src.shape)} {src.dtype} != "
                         f"{tuple(t.shape)} {t.dtype}")
                 t.copy_(src)
-        if torch.is_tensor(self.count):  # kept on the device, in place
-            self.count.fill_(int(state["count"]))
-        else:
-            self.count = int(state["count"])
+        self.count.copy_(torch.as_tensor(state["count"]))
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -291,49 +289,13 @@ class AdamW:
         return float(lr(int(count)) if callable(lr) else lr)
 
     @torch.no_grad()
-    def count_on_device(self, device) -> torch.Tensor:
-        """The count as a 0-d tensor on ``device``, the same tensor from
-        call to call (a captured step reads it by its address): a count
-        that a restore or the gated step rebound is written into it.
-        Builds the LR table too, so a capture copies nothing from the
-        host."""
-        t = self._count
-        if t is None or t.device != torch.device(device):
-            t = self._count = torch.zeros((), dtype=torch.int64,
-                                          device=device)
-            t.fill_(int(self.count))
-        elif self.count is not t:
-            if torch.is_tensor(self.count):
-                t.copy_(self.count)
-            else:
-                t.fill_(int(self.count))
-        self.count = t
-        self._lr_values(t.device)
-        return t
-
-    @torch.no_grad()
     def step(self, ok: torch.Tensor | None = None) -> None:
         """One update from the params' ``.grad`` (None taken as zeros);
-        with ``ok``, gated on it on the device; with a tensor count, at
-        that count on the device (module docstring).  Runs in the open
-        step's ``adamw`` phase (utils/profiling.py)."""
+        with ``ok``, gated on it on the device (module docstring).  Runs
+        in the open step's ``adamw`` phase (utils/profiling.py)."""
         with profiling.phase("adamw"):
-            if ok is not None and not torch.is_tensor(self.count):
-                self.count = torch.tensor(int(self.count),
-                                          device=self.params[0].device)
-            if torch.is_tensor(self.count):
-                lr = self._device_lr(self.count).float()
-                count = self.count + 1
-                c1, c2 = self._corrections(count)
-                if ok is None:
-                    self.count.copy_(count)  # in place: a replay reads it
-                else:
-                    self.count = torch.where(ok, count, self.count)
-            else:
-                lr = self.lr(self.count)  # the schedule's: pre-increment
-                self.count += 1           # bias correction: post-increment
-                c1 = 1.0 - self.b1 ** self.count
-                c2 = 1.0 - self.b2 ** self.count
+            lr, c1, c2 = self._scalars()  # read before the count moves
+            self.count.add_(1 if ok is None else ok)
             if self.params and self.params[0].is_cuda:
                 self._kernel_update(lr, c1, c2, ok)
             else:
@@ -352,8 +314,8 @@ class AdamW:
     def _foreach_update(self, lr, c1, c2, ok) -> None:
         """The update as multi-tensor ops, one pass a stage: the CPU's
         body and the kernel's plain version.  In place; with ``ok``, out
-        of place and kept where it holds.  ``lr``, ``c1``, ``c2``: floats,
-        or fp32 0-d tensors on the device."""
+        of place and kept where it holds.  ``lr``, ``c1``, ``c2``: fp32
+        0-d tensors on the params' device."""
         grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         factor = self._clip_factor()
@@ -394,9 +356,9 @@ class AdamW:
         """csrc/adamw.cu's launches over this state (``adamw_launches``):
         per launch its tensor indices, the addresses p, g, mu, nu a tensor
         (g left 0), sizes, chunk ends, layer scales and the decay rates
-        wd * s, as a list and as a float array.  Built, with the state's
-        tensors checked, again whenever a param or moment has moved (fsdp
-        places chunks) or the scales or decay changed."""
+        wd * s.  Built, with the state's tensors checked, again whenever a
+        param or moment has moved (fsdp places chunks) or the scales or
+        decay changed."""
         key = (tuple(map(torch.Tensor.data_ptr, itertools.chain(
             self.params, self.mu, self.nu))), id(self.scales),
             self.weight_decay)
@@ -427,7 +389,6 @@ class AdamW:
                                           for i in idx]),
                 (ctypes.c_int * k)(*ends),
                 (ctypes.c_float * k)(*[scale[i] for i in idx]),
-                [wd[i] for i in idx],
                 (ctypes.c_float * k)(*[wd[i] for i in idx])))
         self._plan = (key, launches)
         return launches
@@ -436,8 +397,7 @@ class AdamW:
         """The update as csrc/adamw.cu's one pass (module docstring).
         Takes every tensor on the params' card: p, nu and the gradients
         fp32, mu fp32 or bf16, each contiguous; raises on anything else.
-        A host count's LR and decay factors go by value, a device count's
-        by pointer, as do the clip factor and ``ok``."""
+        ``lr``, ``c1``, ``c2``, the clip factor and ``ok`` go by pointer."""
         dev = self.params[0].device
         mu_type = self.mu_dtype or torch.float32
         if mu_type not in (torch.float32, torch.bfloat16):
@@ -460,21 +420,15 @@ class AdamW:
         if ok is not None and (ok.dtype != torch.bool or ok.device != dev):
             raise ValueError(f"ok: a bool tensor on {dev}, got {ok.dtype} "
                              f"on {ok.device}")
-        on_device = torch.is_tensor(lr)  # the kernel reads lr, c1, c2 there
-        at = ([lr.data_ptr(), c1.data_ptr(), c2.data_ptr()] if on_device
-              else [None] * 3)
-        clip = self._clip_factor()
-        at += [None if t is None else t.data_ptr() for t in (clip, ok)]
-        hyper = (ctypes.c_float * 7)(
-            self.b1, 1.0 - self.b1, self.b2, 1.0 - self.b2, self.eps,
-            *((0.0, 0.0) if on_device else (-lr / c1, c2)))
+        at = [None if t is None else t.data_ptr()
+              for t in (lr, c1, c2, self._clip_factor(), ok)]
+        hyper = (ctypes.c_float * 5)(
+            self.b1, 1.0 - self.b1, self.b2, 1.0 - self.b2, self.eps)
         lib = _cuda.library("adamw")
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for idx, ptrs, sizes, ends, scale, wd, c_wd in plan:
+        for idx, ptrs, sizes, ends, scale, decay in plan:
             for j, i in enumerate(idx):
                 ptrs[4 * j + 1] = 0 if grads[i] is None else grads[i].data_ptr()
-            decay = (c_wd if on_device else
-                     (ctypes.c_float * len(idx))(*[1.0 - lr * w for w in wd]))
             err = lib.octcube_adamw(
                 *map(ctypes.addressof, (ptrs, sizes, ends, scale, decay)),
                 len(idx), int(mu_type == torch.bfloat16),
@@ -482,38 +436,41 @@ class AdamW:
             _cuda.check(lib, err, "adamw")
         _cuda.launches["adamw"] += 1
 
-    def _lr_values(self, device) -> torch.Tensor:
-        """The schedule over steps 0 .. ``total_steps`` (one entry for a
-        float LR) on ``device``, built once; a schedule without
-        ``total_steps`` is refused (a table it cannot size would freeze or
-        skew the LR)."""
-        total = 0
-        if callable(self.learning_rate):
-            total = getattr(self.learning_rate, "total_steps", None)
-            if total is None:
-                raise ValueError("a device count needs a float LR or a "
-                                 "schedule with total_steps "
-                                 "(train/schedules.py)")
-        device = torch.device(device)
-        if self._lr_table is None or self._lr_table.device != device:
-            self._lr_table = torch.tensor(
-                [self.lr(i) for i in range(int(total) + 1)],
-                dtype=torch.float64, device=device)
-        return self._lr_table
-
-    def _device_lr(self, count: torch.Tensor) -> torch.Tensor:
-        """The schedule at a device count, from ``_lr_values`` (the last
-        entry past its end)."""
-        table = self._lr_values(count.device)
+    def _scalars(self) -> torch.Tensor:
+        """This update's [lr, c1, c2], fp32 on the count's device: the
+        schedule at the count and the bias corrections 1 - b^(count + 1),
+        one row of a table read at the count.  The table is built at the
+        first step, over the schedule's ``total_steps`` (the last LR past
+        the end) and out to where both corrections round to 1 (b^k <=
+        2^-26), so a row past its end holds what the count would give.  A
+        schedule without ``total_steps`` is refused: a table it cannot
+        size would freeze or skew the LR."""
+        if self._table is None:
+            sched = self.learning_rate
+            if not callable(sched):
+                lrs = [float(sched)]
+            elif getattr(sched, "total_steps", None) is None:
+                raise ValueError("AdamW needs a float LR or a schedule "
+                                 "with total_steps (train/schedules.py)")
+            else:
+                lrs = [float(sched(i))
+                       for i in range(int(sched.total_steps) + 1)]
+            b = max(self.b1, self.b2)
+            if not 0.0 <= b < 1.0:
+                raise ValueError(f"betas lie in [0, 1), got {self.b1}, "
+                                 f"{self.b2}")
+            n = max(len(lrs), math.ceil(26 * math.log(2) / -math.log(b))
+                    if b else 1)
+            dev = self.count.device
+            k = torch.arange(1, n + 1, dtype=torch.float64, device=dev)
+            self._table = torch.stack([
+                torch.tensor(lrs + lrs[-1:] * (n - len(lrs)),
+                             dtype=torch.float64, device=dev),
+                1.0 - torch.pow(self.b1, k),
+                1.0 - torch.pow(self.b2, k)], 1).float()
         # index_select, not [count]: a 0-d index is read back to the host
-        idx = count.clamp(max=table.numel() - 1).reshape(1)
-        return table.index_select(0, idx)[0]
-
-    def _corrections(self, count: torch.Tensor):
-        """The bias corrections (1 - b1^count, 1 - b2^count) at a device
-        count, fp32 0-d tensors."""
-        return ((1.0 - torch.pow(self.b1, count.double())).float(),
-                (1.0 - torch.pow(self.b2, count.double())).float())
+        idx = self.count.clamp(max=self._table.shape[0] - 1).reshape(1)
+        return self._table.index_select(0, idx)[0]
 
 
 def build_fused_adamw(params, learning_rate: float | Callable,

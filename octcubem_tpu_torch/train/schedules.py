@@ -4,8 +4,7 @@ Each LR schedule is a function of the optimizer step (an int) returning a
 float: the reference MAE per-iteration half-cosine with linear warmup over
 fractional epochs (OCTCube/util/lr_sched.py) and the retinal-COEM
 per-step cosine with warmup.  Each carries ``total_steps``, the step at
-which it ends, which sizes the device LR table of ``optim.AdamW``'s gated
-step.
+which it ends, which sizes ``optim.AdamW``'s device LR table.
 """
 
 from __future__ import annotations

@@ -19,14 +19,14 @@ eagerly, as before.
 and what else the caller's key holds), at most ``MAX_GRAPHS``; past
 that a new key runs eagerly.  A key's first call is a real step run
 eagerly on a side stream (the warm-up: lazy initialisation, the
-optimizer's device count and LR table, caches such as the model's frame
-index, all before any capture); its second is captured and then
+optimizer's LR table, caches such as the model's frame index, all
+before any capture); its second is captured and then
 replayed once; every later call copies its inputs into the graph's
 static buffers, replays, and returns clones of the graph's outputs, so
 the caller owns what it gets.  The step's generator is registered with
 the graph, so draws inside it (drop path, noise the caller did not pass)
-differ on every replay.  The optimizer's count stays one 0-d tensor on
-the card (``AdamW.count_on_device``), advanced inside the graph.  Before
+differ on every replay.  The optimizer's count is a tensor on the card,
+which the graph advances in place (``train/optim.py``).  Before
 the capture the warm-up's cached blocks are returned to the device
 (``torch.cuda.empty_cache``), so its activations are not held twice,
 once there and once in the graph's private pool.  A step whose model
@@ -123,14 +123,14 @@ class _Graph:
 
 
 class StepGraphs:
-    """The captured graphs of one step function over ``params`` and its
-    AdamW ``tx``.  ``graphs(rec, key, body, state, inputs)`` runs
+    """The captured graphs of one step function over ``params``.
+    ``graphs(rec, key, body, state, inputs)`` runs
     ``body(state, inputs) -> (state, outputs)`` as the module docstring
     says, ``rec`` the step's open record; a replay advances
     ``state.step`` as the body does."""
 
-    def __init__(self, params, tx):
-        self.params, self.tx = list(params), tx
+    def __init__(self, params):
+        self.params = list(params)
         self.graphs: dict = {}
         self.last = None  # the graph that replayed last
 
@@ -139,11 +139,9 @@ class StepGraphs:
         g = self.graphs.get(key)
         if g is None and len(self.graphs) >= MAX_GRAPHS:
             return body(state, inputs)
-        device = self.params[0].device
-        self.tx.count_on_device(device)
         if g is None:
             rec["path"] = "warmup"
-            out = self._warmup(body, state, inputs, device)
+            out = self._warmup(body, state, inputs, self.params[0].device)
             self.graphs[key] = _Graph(state.generator)
             return out
         if g.graph is None:

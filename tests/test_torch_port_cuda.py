@@ -871,7 +871,7 @@ ADAMW_SHAPES = ([(5,), (3, 7), (0,), (2049,), (4099, 3), (1,), (2048, 4)]
                 + [(7,)] * 66 + [(300, 9)])
 
 
-def _adamw_twins(gen, device_count, plain=True, **kw):
+def _adamw_twins(gen, plain=True, **kw):
     """Two AdamW over the same seeded params on the card; with ``plain``
     the second's updates run the multi-tensor body (``_foreach_update``)."""
     from octcubem_tpu_torch.train import optim, schedules
@@ -883,10 +883,7 @@ def _adamw_twins(gen, device_count, plain=True, **kw):
     for _ in range(2):
         params = {f"blocks.{i}.w": torch.nn.Parameter(v.clone())
                   for i, v in enumerate(vals)}
-        tx = optim.AdamW(params, lr, 0.05, **kw)
-        if device_count:
-            tx.count_on_device("cuda")
-        twins.append(tx)
+        twins.append(optim.AdamW(params, lr, 0.05, **kw))
     if plain:
         twins[1]._kernel_update = twins[1]._foreach_update
     return twins
@@ -904,18 +901,18 @@ def _adamw_grads(gen, twins, scale):
             at += p.numel()
 
 
-@pytest.mark.parametrize("device_count", [False, True])
-def test_adamw_kernel_matches_the_foreach_body(gen, device_count):
+@pytest.mark.parametrize("gated", [False, True])
+def test_adamw_kernel_matches_the_foreach_body(gen, gated):
     kw = {}
-    if device_count:
+    if gated:
         kw = dict(clip_grad=1.0, mu_dtype=torch.bfloat16,
                   scales={f"blocks.{i}.w": 0.5 + 0.01 * i
                           for i in range(len(ADAMW_SHAPES))})
-    kern, plain = _adamw_twins(gen, device_count, **kw)
+    kern, plain = _adamw_twins(gen, **kw)
     for i, scale in enumerate((3.0, 0.01, 3.0, 1.0)):
         _adamw_grads(gen, (kern, plain), scale)
         gate = None
-        if device_count:
+        if gated:
             gate = torch.tensor(i != 2, device="cuda")
             held = [t.clone() for t in kern.params + kern.mu + kern.nu]
         _cuda.reset_launches()
@@ -926,7 +923,7 @@ def test_adamw_kernel_matches_the_foreach_body(gen, device_count):
         if gate is not None and not gate.item():
             assert all(torch.equal(a, b) for a, b in
                        zip(held, kern.params + kern.mu + kern.nu))
-        bf16 = device_count
+        bf16 = gated
         for a, b in zip(kern.params, plain.params):
             torch.testing.assert_close(a, b, rtol=1e-5,
                                        atol=1e-2 * 2 ** -6 if bf16 else 1e-6)
@@ -936,13 +933,13 @@ def test_adamw_kernel_matches_the_foreach_body(gen, device_count):
             torch.testing.assert_close(a.float(), b.float(),
                                        rtol=2 ** -6 if bf16 else 1e-5,
                                        atol=1e-6)
-    assert int(kern.count) == int(plain.count) == (3 if device_count else 4)
+    assert int(kern.count) == int(plain.count) == (3 if gated else 4)
 
 
 def test_adamw_kernel_replays_bit_for_bit_in_a_graph(gen):
-    """The update at a device count, captured once and replayed, against
-    the same update run eagerly from the same state."""
-    eager, graphed = _adamw_twins(gen, True, plain=False, clip_grad=1.0)
+    """The update, captured once and replayed at the count on the card,
+    against the same update run eagerly from the same state."""
+    eager, graphed = _adamw_twins(gen, plain=False, clip_grad=1.0)
     _adamw_grads(gen, (eager, graphed), 1.0)
     eager.step()
     graphed.step()  # the warm-up: the library loads outside the capture

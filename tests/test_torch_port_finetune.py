@@ -230,7 +230,7 @@ def test_step_reads_nothing_back_to_the_host(jax_run):
 def test_gated_adamw_agrees_with_the_plain_update():
     """Finite steps through step(ok=True) against step(): the same params
     and moments, with the schedule and bias correction read at the
-    device count."""
+    count on the device."""
     torch.manual_seed(0)
     a = torch.nn.Linear(8, 4)
     b = torch.nn.Linear(8, 4)
@@ -254,18 +254,21 @@ def test_gated_adamw_agrees_with_the_plain_update():
         torch.testing.assert_close(m, n, rtol=1e-6, atol=1e-9)
 
 
-def test_gated_adamw_refuses_a_schedule_it_cannot_size():
+@pytest.mark.parametrize("ok", [None, True])
+def test_gated_adamw_refuses_a_schedule_it_cannot_size(ok):
     """A schedule without total_steps cannot size the device LR table:
-    the gated step raises before it changes anything, where a table of
-    one entry would clamp every step to lr(0), 0 under warmup."""
+    the first step, gated or not, raises before it changes anything,
+    where a table of one entry would clamp every step to lr(0), 0 under
+    warmup."""
     lin = torch.nn.Linear(8, 4)
     before = [p.detach().clone() for p in lin.parameters()]
     tx = toptim.AdamW(lin, lambda s: 1e-3 * s, 0.05)
     for p in lin.parameters():
         p.grad = torch.ones_like(p)
     with pytest.raises(ValueError, match="total_steps"):
-        tx.step(ok=torch.tensor(True))
+        tx.step(ok=None if ok is None else torch.tensor(ok))
     assert all(torch.equal(a, p) for a, p in zip(before, lin.parameters()))
+    assert int(tx.count) == 0
     sched = tsched.warmup_half_cosine(1e-2, 1e-4, 1, 3, 4)
     assert sched.total_steps == 12
     assert tsched.clip_cosine_lr(1e-3, 2, 9).total_steps == 9

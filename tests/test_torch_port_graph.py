@@ -51,8 +51,7 @@ def gen():
 def _build(eager: bool, lr=None, joint=False, accum_2d=1, remat_2d=False,
            **kw):
     """A small bf16 MAE on the card (2 + 1 blocks, B1 and B2 throughout),
-    its AdamW, state and step; ``eager``: the step never captures, its
-    AdamW count on the card."""
+    its AdamW, state and step; ``eager``: the step never captures."""
     from octcubem_tpu_torch.models import mae3d
 
     model = mae3d.create_model(
@@ -69,7 +68,6 @@ def _build(eager: bool, lr=None, joint=False, accum_2d=1, remat_2d=False,
         model, tx, joint=joint, accum_2d=accum_2d,
         model2d=model.with_remat() if remat_2d else None)
     if eager:
-        tx.count_on_device("cuda:0")
         graphed = step
 
         def step(*args, **kwargs):

@@ -60,7 +60,7 @@ def first_step_states(monkeypatch):
                 seen.append({"step": state.step,
                              "params": {n: t.clone() for n, t in
                                         state.params.state_dict().items()},
-                             "count": state.tx.count,
+                             "count": int(state.tx.count),
                              "mu": [m.clone() for m in state.tx.mu],
                              "nu": [m.clone() for m in state.tx.nu],
                              "generator": state.generator.get_state()})

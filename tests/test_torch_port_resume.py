@@ -108,7 +108,7 @@ def _state(mu_dtype=None, seed=0, params_seed=0):
 def _snapshot(state):
     return ({k: v.clone() for k, v in state.params.state_dict().items()},
             [m.clone() for m in state.tx.mu], [n.clone() for n in state.tx.nu],
-            state.tx.count, state.step, state.generator.get_state())
+            int(state.tx.count), state.step, state.generator.get_state())
 
 
 def _assert_states_equal(a, b):

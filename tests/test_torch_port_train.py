@@ -105,19 +105,20 @@ def _nest(flat):
     return tree
 
 
-@pytest.mark.parametrize("on_device", [False, True])
+@pytest.mark.parametrize("restored", [False, True])
 @pytest.mark.parametrize("chain,mu_bf16", [(False, False), (True, False),
                                            (False, True)])
-def test_adamw_matches_optax(chain, mu_bf16, on_device):
+def test_adamw_matches_optax(chain, mu_bf16, restored):
     """Three updates with a decaying LR: fused (no clip, no layer decay)
     against build_fused_adamw, with mu stored in fp32 or bf16, and the
     chain (clip 1.0, layer decay 0.75) against optax's chain; the second
     update's gradients are small, so the clip holds on updates 1 and 3.  A leaf with no
     gradient: zeros in JAX, None in the port; both still decay it.
-    ``on_device``: the port's count is a 0-d tensor (``count_on_device``,
-    the form a captured step replays), the LR read from its table of the
-    schedule and the bias corrections computed on the device.
-    Tolerance: the JAX fused-vs-chain test's own (1e-6 relative)."""
+    ``restored``: between updates 1 and 2 the port's state is reloaded
+    from a ``state_dict`` whose count is an ``int``, as checkpoints
+    written before the count was a tensor hold it; the count stays one
+    tensor.  Tolerance: the JAX fused-vs-chain test's own (1e-6
+    relative)."""
     rng = np.random.default_rng(0)
     vals = {name: rng.standard_normal(shape).astype(np.float32)
             for _, name, shape in LEAVES}
@@ -127,7 +128,7 @@ def test_adamw_matches_optax(chain, mu_bf16, on_device):
     def sched(step):
         return 1e-2 / (1 + 0.1 * step)
 
-    sched.total_steps = 5  # the device count's LR table: steps 0 .. 5
+    sched.total_steps = 5  # the device LR table: steps 0 .. 5
     if chain:
         tx_j = jopt.build_adamw(jparams, sched, 0.05, layer_decay=0.75,
                                 num_blocks=2, clip_grad=1.0)
@@ -139,8 +140,7 @@ def test_adamw_matches_optax(chain, mu_bf16, on_device):
         tx_t = topt.build_fused_adamw(
             tparams, sched, 0.05, mu_dtype=torch.bfloat16 if mu_bf16 else None)
     s_j = tx_j.init(jparams)
-    if on_device:
-        count = tx_t.count_on_device("cpu")
+    count = tx_t.count
     for i, gscale in enumerate((3.0, 0.01, 3.0)):
         g = {name: gscale * np.random.default_rng(10 + i).standard_normal(
             v.shape).astype(np.float32) for name, v in vals.items()}
@@ -154,15 +154,22 @@ def test_adamw_matches_optax(chain, mu_bf16, on_device):
             if name != NO_GRAD:
                 p.grad = torch.from_numpy(g[name])
         tx_t.step()
+        if restored and i == 0:
+            saved = tx_t.state_dict()
+            saved = {"count": int(saved["count"]),
+                     **{k: {n: t.clone() for n, t in saved[k].items()}
+                        for k in ("mu", "nu")}}
+            count.fill_(7)
+            for t in tx_t.mu + tx_t.nu:
+                t.zero_()
+            tx_t.load_state_dict(saved)
         ref = {name: np.asarray(v) for name, v in _by_port_name(jparams).items()}
         for name, p in tparams.items():
             np.testing.assert_allclose(p.detach().numpy(), ref[name],
                                        rtol=1e-6, atol=1e-7,
                                        err_msg=f"update {i + 1} {name}")
     assert not np.allclose(tparams[NO_GRAD].detach().numpy(), vals[NO_GRAD])
-    assert tx_t.count == 3
-    if on_device:
-        assert tx_t.count is count
+    assert tx_t.count is count and int(count) == 3
     if mu_bf16:
         assert tx_t.mu[0].dtype == torch.bfloat16
         mu_ref = _by_port_name(s_j.mu)
@@ -193,7 +200,7 @@ class _AdamwLib:
             "ends": read(ends, ctypes.c_int, count),
             "scale": read(scale, ctypes.c_float, count),
             "decay": read(decay, ctypes.c_float, count),
-            "mu_bf16": mu_bf16, "hyper": read(hyper, ctypes.c_float, 7),
+            "mu_bf16": mu_bf16, "hyper": read(hyper, ctypes.c_float, 5),
             "dev": (lr, c1, c2, clip, ok)})
         return 0
 
@@ -226,18 +233,18 @@ ADAMW_SHAPES = {
 }
 
 
-@pytest.mark.parametrize("on_device", [False, True])
+@pytest.mark.parametrize("gated", [False, True])
 @pytest.mark.parametrize("shapes", list(ADAMW_SHAPES))
 def test_adamw_kernel_launches_cover_each_element_once(monkeypatch, shapes,
-                                                       on_device):
+                                                       gated):
     """``AdamW._kernel_update``'s launches (the library and the stream
     stood in for): every element of every non-empty tensor written once
     by the kernel's chunk walk at any grid, each launch at most
     ADAMW_GROUP tensors, and each tensor handed its own pointers, layer
-    scale and decay: with a host count the factor 1 - lr wd s (1 where no
-    decay applies), with a device count wd s and the LR and corrections
-    by pointer, as the clip factor and ok; a missing gradient as 0; a
-    moment that moved, at its new address."""
+    scale and decay rate wd s (0 where no decay applies); the LR and
+    corrections by pointer, and with ``gated`` the clip factor and ok
+    too (bf16 mu); a missing gradient as 0; a moment that moved, at its
+    new address."""
     from types import SimpleNamespace
 
     rng = np.random.default_rng(3)
@@ -245,9 +252,9 @@ def test_adamw_kernel_launches_cover_each_element_once(monkeypatch, shapes,
     params = {f"blocks.{i}.w": torch.nn.Parameter(torch.from_numpy(
         rng.standard_normal(s).astype(np.float32))) for i, s in enumerate(shp)}
     scales = {n: 0.5 + 0.01 * i for i, n in enumerate(params)}
-    tx = topt.AdamW(params, 1e-3, 0.05, clip_grad=1.0 if on_device else None,
+    tx = topt.AdamW(params, 1e-3, 0.05, clip_grad=1.0 if gated else None,
                     scales=scales,
-                    mu_dtype=torch.bfloat16 if on_device else None)
+                    mu_dtype=torch.bfloat16 if gated else None)
     for i, p in enumerate(params.values()):
         if i != 1:
             p.grad = torch.ones_like(p)
@@ -255,11 +262,8 @@ def test_adamw_kernel_launches_cover_each_element_once(monkeypatch, shapes,
     monkeypatch.setattr(topt._cuda, "library", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: SimpleNamespace(cuda_stream=0))
-    lr, c1, c2 = 2e-3, 0.1, 0.05
-    ok = None
-    if on_device:
-        lr, c1, c2 = (torch.tensor(v) for v in (lr, c1, c2))
-        ok = torch.tensor(True)
+    lr, c1, c2 = (torch.tensor(v) for v in (2e-3, 0.1, 0.05))
+    ok = torch.tensor(True) if gated else None
     before = topt._cuda.launches["adamw"]
     tx._kernel_update(lr, c1, c2, ok)
     assert topt._cuda.launches["adamw"] == before + 1
@@ -271,7 +275,7 @@ def test_adamw_kernel_launches_cover_each_element_once(monkeypatch, shapes,
         assert 1 <= len(call["sizes"]) <= topt.ADAMW_GROUP
         chunks = [-(-n // topt.ADAMW_CHUNK) for n in call["sizes"]]
         assert call["ends"] == list(np.cumsum(chunks))
-        assert call["mu_bf16"] == int(on_device)
+        assert call["mu_bf16"] == int(gated)
         assert call["hyper"][:5] == [f32(v) for v in (0.9, 0.1, 0.95, 0.05,
                                                       1e-8)]
         for grid in (1, 7, call["ends"][-1] + 5):
@@ -285,16 +289,13 @@ def test_adamw_kernel_launches_cover_each_element_once(monkeypatch, shapes,
                 p.data_ptr(), 0 if p.grad is None else p.grad.data_ptr(),
                 tx.mu[i].data_ptr(), tx.nu[i].data_ptr()]
             assert call["scale"][k] == f32(s)
-            wds = 0.05 * s if i in decayed else 0.0
-            assert call["decay"][k] == f32(wds if on_device
-                                           else 1.0 - 2e-3 * wds)
-        if on_device:
-            assert call["dev"][:3] == (lr.data_ptr(), c1.data_ptr(),
-                                       c2.data_ptr())
+            assert call["decay"][k] == f32(0.05 * s if i in decayed else 0.0)
+        assert call["dev"][:3] == (lr.data_ptr(), c1.data_ptr(),
+                                   c2.data_ptr())
+        if gated:
             assert call["dev"][3] is not None and call["dev"][4] == ok.data_ptr()
         else:
-            assert call["hyper"][5:] == [f32(-2e-3 / 0.1), f32(0.05)]
-            assert call["dev"] == (None,) * 5
+            assert call["dev"][3:] == (None, None)
     assert sorted(covered) == [i for i, p in enumerate(tx.params)
                                if p.numel()]
     assert decayed & set(covered) and set(covered) - decayed
@@ -318,11 +319,12 @@ def test_adamw_kernel_refuses_what_it_does_not_take(monkeypatch):
         p.grad = torch.ones_like(p)
         return topt.AdamW({"w": p}, 1e-3, mu_dtype=mu)
 
+    lr, c1, c2 = (torch.tensor(v) for v in (1e-3, 0.1, 0.05))
     for tx in (tx_with(torch.float64), tx_with(mu=torch.float16)):
         with pytest.raises(ValueError, match="AdamW kernel"):
-            tx._kernel_update(1e-3, 0.1, 0.05, None)
+            tx._kernel_update(lr, c1, c2, None)
     with pytest.raises(ValueError, match="ok"):
-        tx_with()._kernel_update(1e-3, 0.1, 0.05, torch.tensor(1.0))
+        tx_with()._kernel_update(lr, c1, c2, torch.tensor(1.0))
     assert lib.calls == []
 
 
@@ -536,12 +538,13 @@ def test_train_step_draws_noise_from_the_state_generator():
 # ------------------------------------------- the step's CUDA graph (CPU)
 
 def test_adamw_device_count_matches_the_host_count():
-    """The update at a device count (``count_on_device``: the LR table
-    and bias corrections read on the device, the LR folded into the first
-    moment's scale, the decay as a factor on the params) against the
-    host-count update over 5 steps of warmup_half_cosine, with weight
-    decay and layer scales; a restore writes the count into the same
-    device tensor, and so does ``count_on_device`` after a rebinding."""
+    """The count is one 0-d int64 tensor on the params' device for the
+    optimizer's life, and holds what a host would count: the kept
+    updates.  Updates plain and gated (``ok`` true) advance it in place
+    and agree (5 steps of warmup_half_cosine, weight decay, layer
+    scales); a gated update with ``ok`` false leaves it, the params and
+    the moments as they were; a restore writes into it, from an ``int``
+    count (older checkpoints) and from a tensor."""
     torch.manual_seed(0)
     a = torch.nn.Sequential(torch.nn.Linear(8, 6), torch.nn.LayerNorm(6),
                             torch.nn.Linear(6, 3))
@@ -553,25 +556,30 @@ def test_adamw_device_count_matches_the_host_count():
               enumerate(a.named_parameters())}
     ta = topt.AdamW(a, sched, 0.05, scales=scales)
     tb = topt.AdamW(b, sched, 0.05, scales=scales)
-    count = tb.count_on_device("cpu")
+    count = tb.count
+    assert (count.shape, count.dtype, count.device) == (
+        (), torch.int64, b[0].weight.device)
     for i in range(5):
         for m in (a, b):
             g = torch.Generator().manual_seed(i)
             for p in m.parameters():
                 p.grad = torch.randn(p.shape, generator=g)
         ta.step()
-        tb.step()
-        assert tb.count is count
+        tb.step(ok=torch.tensor(True) if i % 2 else None)
+        assert tb.count is count and int(count) == i + 1
         for p, q in zip(a.parameters(), b.parameters()):
             torch.testing.assert_close(q, p, rtol=1e-6, atol=1e-7)
-    assert ta.count == int(tb.count) == 5
     for m, n in zip(ta.mu + ta.nu, tb.mu + tb.nu):
         torch.testing.assert_close(n, m, rtol=1e-6, atol=1e-9)
-    tb.count.fill_(0)
-    tb.load_state_dict(ta.state_dict())  # kept on the device, in place
+    held = [t.clone() for t in [*b.parameters(), *tb.mu, *tb.nu]]
+    tb.step(ok=torch.tensor(False))
     assert tb.count is count and int(count) == 5
-    tb.count = 3                         # rebound (the gated step's where)
-    assert tb.count_on_device("cpu") is count and int(count) == 3
+    assert all(torch.equal(x, y)
+               for x, y in zip(held, [*b.parameters(), *tb.mu, *tb.nu]))
+    tb.load_state_dict({**ta.state_dict(), "count": 3})
+    assert tb.count is count and int(count) == 3
+    tb.load_state_dict(ta.state_dict())
+    assert tb.count is count and int(count) == 5
 
 
 def test_the_graph_engages_only_on_one_unsharded_card_rank():
@@ -634,4 +642,4 @@ def test_successive_steps_return_their_own_metrics():
         assert torch.equal(m1[k], kept[k])
     assert not torch.equal(m1["loss"], m2["loss"])
     assert [r["path"] for r in profiling.records_since(seen)] == ["eager"] * 2
-    assert isinstance(tx.count, int) and tx.count == 2
+    assert int(tx.count) == 2
