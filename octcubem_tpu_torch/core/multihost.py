@@ -90,8 +90,14 @@ def initialize(init_method: str | None = None, *, store=None,
 
 
 def shutdown() -> None:
-    """Leave the default process group, if one is formed."""
+    """Leave the default process group, if one is formed, after dropping
+    the process's captured step graphs (``train/step_graph.release_all``):
+    NCCL's destroy waits until every graph that captured one of the
+    group's collectives is gone."""
     if dist.is_available() and dist.is_initialized():
+        from ..train.step_graph import release_all
+
+        release_all()
         dist.destroy_process_group()
 
 

@@ -58,12 +58,15 @@ reduce-scattered; ``fsdp.mean_grads`` takes the mean over the mesh and
 ``grad_norm`` the global gradient's norm, and AdamW updates each rank's
 chunks.
 
-On one rank on the card the step replays one captured CUDA graph of
-itself (``train/step_graph.py``): each key of the inputs' shapes, the
-mask ratios and whether noise is given runs its first call eagerly, its
-second captured, and every later one as a replay; a multi-rank mesh, a
-sharded state, the CPU, a step that a profiler records and a model
-that checkpoints a block with drop path run eagerly.
+On the card the step replays one captured CUDA graph of itself
+(``train/step_graph.py``): each key of the inputs' shapes, the mask
+ratios and whether noise is given runs its first call eagerly, its
+second captured, and every later one as a replay.  That holds with no
+mesh, on one rank, and on a mesh of several ranks joined by NCCL with
+no ``sp`` axis, where the gradient's and the losses' all-reduces are
+captured inside the graph; gloo ranks, an ``sp`` mesh, a sharded
+state, the CPU, a step that a profiler records and a model that
+checkpoints a block with drop path run eagerly.
 
 Each call is one ``utils/profiling.step("mae")`` whose ``path`` says how
 it ran.  An eager, warm-up or capture step has the phases ``forward``

@@ -1,4 +1,4 @@
-"""A one-rank train step replayed as one captured CUDA graph.
+"""A train step replayed as one captured CUDA graph.
 
 A step on the card issues a few thousand kernels, one Python call each;
 at the MAE cell's shapes the host takes longer to issue them than the
@@ -8,12 +8,22 @@ body, so there is no second implementation: what a replay runs is what
 the eager step ran when it was captured.
 
 Where it engages (``engages``), from what the step can observe: the
-batch on a CUDA device, no mesh or a mesh of one rank, a state that is
-not sharded over fsdp, and no ``torch.profiler`` session recording
-(``utils/profiling.recording``; a replay cannot re-emit the step's host
-ranges, which the profiled metrics read, and the device runs the same
-kernels in the same order either way).  Anywhere else the step runs
-eagerly, as before.
+batch on a CUDA device, a state that is not sharded over fsdp, no
+``torch.profiler`` session recording (``utils/profiling.recording``; a
+replay cannot re-emit the step's host ranges, which the profiled
+metrics read, and the device runs the same kernels in the same order
+either way), and no mesh, a mesh of one rank, or a mesh of several
+ranks with no ``sp`` axis whose process groups (the default one, over
+which the step reduces, and each axis's) are all NCCL.  On such a mesh
+the gradient's and the losses' all-reduces are kernels on the card and
+are captured with the rest; every rank captures and replays at the
+same call, since every rank runs the same steps with the same keys.  A
+rank that a profiler records runs its step eagerly while the others
+replay: the collectives meet all the same (the same buckets in the
+same order), as NCCL lets one communicator run inside graphs and
+outside them.  Anywhere else the step runs eagerly, as before: gloo
+collectives run on the host, and a sharded state's gathers and an
+``sp`` mesh's ring have no capture to hold them.
 
 ``StepGraphs`` keeps one graph per key (the inputs' shapes and dtypes,
 and what else the caller's key holds), at most ``MAX_GRAPHS``; past
@@ -41,17 +51,34 @@ the capture's record holds ``pool_bytes``, the bytes the graph's private
 memory pool reserves, and ``reserved_bytes``, all the device memory the
 allocator then reserves, the pool included.  ``ops/_cuda.launches``
 counts a replay's kernel calls as its capture counted them.
+
+NCCL's destroy of a communicator waits until every graph that captured
+one of its collectives is gone, so ``core/multihost.shutdown`` drops
+every captured graph of the process first (``release_all``).
 """
 
 from __future__ import annotations
 
-import torch
+import weakref
 
+import torch
+import torch.distributed as dist
+
+from ..core.mesh import SP_AXIS
 from ..nn.layers import TransformerStack
 from ..ops import _cuda
 from ..utils import profiling
 
 MAX_GRAPHS = 4
+_LIVE: weakref.WeakSet = weakref.WeakSet()  # every StepGraphs alive
+
+
+def release_all() -> None:
+    """Drop every captured graph of the process; a step that is called
+    again warms up and captures anew."""
+    for graphs in list(_LIVE):
+        graphs.graphs.clear()
+        graphs.last = None
 
 
 def capturable(*models) -> bool:
@@ -68,8 +95,18 @@ def capturable(*models) -> bool:
 def engages(device: torch.device, mesh=None, shards=None) -> bool:
     """Whether a step on ``device`` over ``mesh`` with a state sharded by
     ``shards`` replays a captured graph (module docstring)."""
-    return (device.type == "cuda" and (mesh is None or mesh.size() == 1)
-            and shards is None and not profiling.recording())
+    return (device.type == "cuda" and shards is None
+            and not profiling.recording()
+            and (mesh is None or mesh.size() == 1 or _nccl_mesh(mesh)))
+
+
+def _nccl_mesh(mesh) -> bool:
+    """A mesh with no ``sp`` axis whose groups (the default group, over
+    which the step reduces, and each axis's) are all NCCL."""
+    names = mesh.mesh_dim_names or ()
+    return SP_AXIS not in names and all(
+        dist.get_backend(g) == "nccl"
+        for g in [None, *(mesh.get_group(n) for n in names)])
 
 
 def signature(tree):
@@ -133,6 +170,7 @@ class StepGraphs:
         self.params = list(params)
         self.graphs: dict = {}
         self.last = None  # the graph that replayed last
+        _LIVE.add(self)
 
     def __call__(self, rec: dict, key, body, state, inputs):
         key = (key, id(state.generator))

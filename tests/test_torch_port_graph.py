@@ -22,12 +22,25 @@ sign.  They are found from the twins alone, never from the replay: an
 entry whose twins' gradients differed by more than a quarter of the
 first twin's at some step, or whose twins' params differ by more than
 the tolerance.  Nine in ten of the model's entries are checked.
+
+The data-parallel step on two NCCL ranks (needs two cards; skips with
+fewer): each rank is a spawned process that runs the same trio over a
+data mesh of both, with its own rows, and writes what it saw; rank 0
+runs one call under ``torch.profiler`` (so eagerly) while rank 1
+replays it, as the benchmark's traced stretch does.
 """
 
+import contextlib
+import datetime
+import faulthandler
+import json
+import traceback
 from unittest import mock
 
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from octcubem_tpu_torch.ops import _cuda
 from octcubem_tpu_torch.train import mae_engine, optim, schedules, step_graph
@@ -39,6 +52,10 @@ pytestmark = pytest.mark.cuda
 TOL = 2 ** -7
 NOISE = 0.25  # a gradient whose twins differ by this share: round-off
 CHECKED = 0.9  # the least share of parameter entries held to TOL
+DP_WORLD = 2
+DP_STEPS = 6
+DP_PROFILED = 3  # the call rank 0 runs under a profiler
+DP_JOIN_S = 300
 
 
 @pytest.fixture
@@ -49,9 +66,10 @@ def gen():
 
 
 def _build(eager: bool, lr=None, joint=False, accum_2d=1, remat_2d=False,
-           **kw):
+           mesh=None, **kw):
     """A small bf16 MAE on the card (2 + 1 blocks, B1 and B2 throughout),
-    its AdamW, state and step; ``eager``: the step never captures."""
+    its AdamW, state and step (over ``mesh``, the state replicated from
+    rank 0); ``eager``: the step never captures."""
     from octcubem_tpu_torch.models import mae3d
 
     model = mae3d.create_model(
@@ -63,10 +81,11 @@ def _build(eager: bool, lr=None, joint=False, accum_2d=1, remat_2d=False,
     if lr is None:
         lr = schedules.warmup_half_cosine(1e-3, 0.0, 1, 10, 2)
     tx = optim.build_adamw(model, lr, weight_decay=0.05 if lr else 0.0)
-    state = TrainState.create(model, tx, seed=2)
+    state = mae_engine.replicate_state(
+        TrainState.create(model, tx, seed=2), mesh)
     step = mae_engine.make_mae_train_step(
         model, tx, joint=joint, accum_2d=accum_2d,
-        model2d=model.with_remat() if remat_2d else None)
+        model2d=model.with_remat() if remat_2d else None, mesh=mesh)
     if eager:
         graphed = step
 
@@ -262,3 +281,107 @@ def test_remat_2d_replays_or_runs_eagerly(gen, drop_path):
     a, b, _ = trio.states
     assert a.step == b.step == 4
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@torch.no_grad()
+def _rank_mismatch(params) -> int:
+    """Entries on which the ranks' params differ in bits (a collective)."""
+    bad = 0
+    for p in params:
+        hi, lo = p.detach().clone(), p.detach().clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        bad += int((hi.view(torch.int32) != lo.view(torch.int32)).sum())
+    return bad
+
+
+def _dp_rank(rank, store_path, out_path):
+    """One NCCL rank of ``test_data_parallel_replays_match_eager``: the
+    trio over a data mesh of both ranks; writes what it saw, or the
+    traceback, to ``out_path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from octcubem_tpu_torch.core import multihost
+    from octcubem_tpu_torch.core.mesh import make_mesh
+
+    # a hung rank prints its stack and exits before the join gives up
+    faulthandler.dump_traceback_later(DP_JOIN_S - 60, exit=True)
+    try:
+        multihost.initialize(store=dist.FileStore(store_path, DP_WORLD),
+                             world_size=DP_WORLD, rank=rank, device="cuda",
+                             timeout_s=120)
+        mesh = make_mesh(n_data=DP_WORLD)
+        gen = torch.Generator(device="cuda").manual_seed(10 + rank)
+        trio = _Trio(mesh=mesh)
+        seen = profiling.last_seq()
+        launches, mismatch = [], []
+        for i in range(DP_STEPS):
+            x = torch.rand((2, 24, 64, 64, 1), generator=gen, device="cuda")
+            traced = rank == 0 and i == DP_PROFILED
+            _cuda.reset_launches()
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) if traced
+                  else contextlib.nullcontext()):
+                ms = trio.run(x, 0.9, steps=[0])
+            torch.cuda.synchronize()
+            launches.append({k: n for k, n in _cuda.launches.items() if n})
+            ms += trio.run(x, 0.9, steps=[1, 2])
+            trio.agree(ms)
+            mismatch.append(_rank_mismatch(trio.states[0].params.parameters()))
+        recs = profiling.records_since(seen)[::3]
+        out = {"paths": [r["path"] for r in recs],
+               "profiled": [r["profiled"] for r in recs],
+               "launches": launches, "mismatch": mismatch,
+               "steps": [st.step for st in trio.states]}
+        multihost.shutdown()  # with the graphs alive: it drops them first
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    if "error" in out:
+        raise SystemExit(1)
+
+
+def test_data_parallel_replays_match_eager(tmp_path):
+    """Two NCCL ranks, six steps of the data-parallel MAE step with the
+    engine's global noise: each rank's replays against its eager twins,
+    the gradient and loss all-reduces inside the graph; both ranks'
+    params bit-equal after every step, also after the call rank 0 runs
+    eagerly under a profiler while rank 1 replays; ``path`` ``replay``
+    from the third call on (but that one); every call of the replayed
+    step counts the launches of the warm-up."""
+    if torch.cuda.device_count() < DP_WORLD:
+        pytest.skip(f"needs {DP_WORLD} CUDA devices")
+    ctx = mp.get_context("spawn")
+    outs = [tmp_path / f"rank{r}.json" for r in range(DP_WORLD)]
+    procs = [ctx.Process(target=_dp_rank,
+                         args=(r, str(tmp_path / "store"), str(outs[r])))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = datetime.datetime.now() + datetime.timedelta(
+        seconds=DP_JOIN_S)
+    for p in procs:
+        p.join(max(1.0, (deadline - datetime.datetime.now()).total_seconds()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert not hung, f"ranks {hung} did not finish within {DP_JOIN_S} s"
+    got = [json.loads(o.read_text()) if o.exists()
+           else {"error": f"rank {r} wrote nothing (its stack: stderr)"}
+           for r, o in enumerate(outs)]
+    errors = [g["error"] for g in got if "error" in g]
+    assert not errors, "\n".join(errors)
+    assert [p.exitcode for p in procs] == [0] * DP_WORLD
+    replayed = ["warmup", "capture"] + ["replay"] * (DP_STEPS - 2)
+    eager_at = replayed[:DP_PROFILED] + ["eager"] + replayed[DP_PROFILED + 1:]
+    assert got[0]["paths"] == eager_at
+    assert got[1]["paths"] == replayed
+    assert got[0]["profiled"] == [i == DP_PROFILED for i in range(DP_STEPS)]
+    for g in got:
+        assert g["mismatch"] == [0] * DP_STEPS
+        assert g["steps"] == [DP_STEPS] * 3
+        assert g["launches"][0]["adamw"] == 1
+        assert all(n == g["launches"][0] for n in g["launches"])

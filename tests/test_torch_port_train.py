@@ -582,29 +582,99 @@ def test_adamw_device_count_matches_the_host_count():
     assert tb.count is count and int(count) == 5
 
 
+class _Mesh:
+    """A stand-in ``DeviceMesh``: its size, its axis names and one group
+    token per axis; ``backends`` maps a token (None: the default group)
+    to the backend that the patched ``dist.get_backend`` gives it."""
+
+    def __init__(self, shape=(), names=(), backends=None):
+        self.shape, self.mesh_dim_names = shape, names
+        self.backends = backends or {}
+
+    def size(self):
+        return int(np.prod(self.shape))
+
+    def get_group(self, name):
+        return name
+
+    def get_backend(self, group=None):
+        return self.backends[group]
+
+
 def test_the_graph_engages_only_on_one_unsharded_card_rank():
-    """The step replays a graph only for a CUDA batch, no mesh or a mesh
-    of one rank, an unsharded state and no profiler recording."""
+    """On one rank the step replays a graph only for a CUDA batch, no mesh
+    or a mesh of one rank, an unsharded state and no profiler recording
+    (several ranks: ``test_the_graph_engage_rule``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from octcubem_tpu_torch.train import step_graph
 
-    class Mesh:
-        def __init__(self, n):
-            self.n = n
-
-        def size(self):
-            return self.n
-
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     assert step_graph.engages(cuda)
-    assert step_graph.engages(cuda, Mesh(1))
+    assert step_graph.engages(cuda, _Mesh((1, 1)))
     assert not step_graph.engages(cpu)
-    assert not step_graph.engages(cuda, Mesh(2))
     assert not step_graph.engages(cuda, None, shards=object())
     with profile(activities=[ProfilerActivity.CPU]):
         assert not step_graph.engages(cuda)
     assert step_graph.engages(cuda)
+
+
+_NCCL4 = {None: "nccl", "data": "nccl", "fsdp": "nccl"}
+
+
+@pytest.mark.parametrize("device, mesh, shards, profiled, engages", [
+    ("cuda", None, None, False, True),
+    ("cuda", _Mesh((1, 1), ("data", "fsdp"), {None: "gloo"}), None, False,
+     True),
+    ("cuda", _Mesh((4, 1), ("data", "fsdp"), _NCCL4), None, False, True),
+    ("cpu", None, None, False, False),
+    ("cpu", _Mesh((4, 1), ("data", "fsdp"), _NCCL4), None, False, False),
+    ("cuda", _Mesh((4, 1), ("data", "fsdp"), dict.fromkeys(_NCCL4, "gloo")),
+     None, False, False),
+    ("cuda", _Mesh((4, 1), ("data", "fsdp"), {**_NCCL4, "fsdp": "gloo"}),
+     None, False, False),
+    ("cuda", _Mesh((1, 1, 4), ("data", "fsdp", "sp"),
+                   {**_NCCL4, "sp": "nccl"}), None, False, False),
+    ("cuda", _Mesh((2, 2), ("data", "fsdp"), _NCCL4), object(), False,
+     False),
+    ("cuda", _Mesh((4, 1), ("data", "fsdp"), _NCCL4), None, True, False),
+], ids=["no_mesh", "one_rank", "nccl_data4", "cpu", "cpu_nccl_mesh",
+        "gloo", "one_gloo_axis", "sp_axis", "sharded", "profiled"])
+def test_the_graph_engage_rule(device, mesh, shards, profiled, engages):
+    """Where the MAE step replays a graph, from what it can observe: a
+    CUDA batch, an unsharded state, no profiler recording, and no mesh, a
+    mesh of one rank or a mesh of several ranks with no ``sp`` axis whose
+    groups (the default one and each axis's) are all NCCL.  Stand-in
+    meshes: no process group forms."""
+    from unittest import mock
+
+    from octcubem_tpu_torch.train import step_graph
+
+    backend = mesh.get_backend if mesh is not None else None
+    with mock.patch.object(step_graph.dist, "get_backend", backend), \
+            mock.patch.object(step_graph.profiling, "recording",
+                              lambda: profiled):
+        assert step_graph.engages(torch.device(device), mesh,
+                                  shards) is engages
+
+
+def test_shutdown_drops_captured_graphs_first():
+    """``multihost.shutdown`` empties every ``StepGraphs`` of the process
+    before it destroys the group: NCCL's destroy waits until the graphs
+    that captured the group's collectives are gone."""
+    from unittest import mock
+
+    from octcubem_tpu_torch.core import multihost
+    from octcubem_tpu_torch.train import step_graph
+
+    graphs = step_graph.StepGraphs([torch.zeros(1)])
+    graphs.graphs["key"] = graphs.last = object()
+    left = []
+    with mock.patch.object(multihost.dist, "is_initialized", lambda: True), \
+            mock.patch.object(multihost.dist, "destroy_process_group",
+                              lambda: left.append(dict(graphs.graphs))):
+        multihost.shutdown()
+    assert left == [{}] and graphs.last is None
 
 
 def test_a_remat_block_with_drop_path_is_not_captured():
